@@ -1,0 +1,376 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and hold its kernels to
+their plain PyTorch versions.
+
+    python3 chip_smoke.py [--profile [TRACE.json]]
+
+Phases (any failure ends the run with a non-zero exit code):
+ 1. the card's name and power limit (nvidia-smi);
+ 2. build the CUDA kernels from `neuralnet_tracker_traincode_torch/kernels/csrc`
+    (into `.cache/torch_kernels/`);
+ 3. each kernel (K1 crop warp, K2 equalize, K3 gaussian noise seeded and
+    from injected bits) against its plain PyTorch version at the shapes of
+    the training step (B=64, 448^2 uint8 sources -> 129^2 crops), with TF32
+    off; median times over 25 launches with CUDA events, L2 flushed before
+    each launch;
+ 4. the port's output against the port on the CPU on a small input (the
+    augmentation and one forward of the full-width model, f32, TF32 off);
+ 5. the flagship training step (MobileNetV1 x1.0, point head, NLL heads, the
+    8-term criterion, batch 64, bf16 autocast) for 3 + 20 steps with the
+    launch counts reset just before and read just after: every loss finite,
+    K1 and K3 launched once a step, K2 at least once;
+ 6. with `--profile`: 5 more steps under `torch.profiler`, summarised on a
+    `profile:` line (host time per stage, device busy share, kernel launches
+    per step, the top kernels), and a Chrome trace if a path is given;
+ 7. the `kernels` line, then `{"ok": true, "device": ...}` as the last line.
+
+Imports nothing of JAX. Numbers it prints are of the card it ran on.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B, SRC, S, THETA = 64, 448, 129, 30.0
+STEPS_WARMUP, STEPS_TIMED = 3, 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, flush, n=25, warmup=3):
+    """Median device time of `fn()` over `n` launches, each after an L2 flush."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synthetic_batch(np, n):
+    """The training batch of the JAX package's bench.py, at batch n."""
+    rng = np.random.RandomState(0)
+    return {
+        "image": rng.randint(0, 256, size=(n, SRC, SRC, 1), dtype=np.uint8),
+        "pose": np.tile(np.asarray([0.0, 0, 0, 1], np.float32), (n, 1)),
+        "coord": (rng.rand(n, 3) * 100 + 100).astype(np.float32),
+        "roi": np.tile(np.asarray([100.0, 100, 350, 350], np.float32), (n, 1)),
+        "pt3d_68": (rng.rand(n, 68, 3) * 200 + 100).astype(np.float32),
+        "shapeparam": rng.randn(n, 50).astype(np.float32),
+        "hasface": np.full((n,), 0.9, np.float32),
+        "coord_convention_id": np.zeros((n,), np.int32),
+        "tag_id": np.zeros((n,), np.int32),
+        "dataset_weight": np.ones((n,), np.float32),
+        "param_index": np.arange(n, dtype=np.int32),
+    }
+
+
+def flagship_criterion():
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.losses import losses as L
+    from neuralnet_tracker_traincode_torch.losses import nll as NLL
+    from neuralnet_tracker_traincode_torch.losses.criterion import Criterion, CriterionGroup, MaskedMultiTaskCriterion
+
+    terms = [
+        Criterion("nllrot", NLL.QuatPoseNLLLoss(), 0.005),
+        Criterion("nllcoord", NLL.CorrelatedCoordPoseNLLLoss(), 0.005),
+        Criterion("rot", L.QuatPoseLoss("approx_distance"), 1.0),
+        Criterion("xy", L.PoseXYLoss("l2"), 0.25),
+        Criterion("sz", L.PoseSizeLoss("l2"), 0.25),
+        Criterion("points3d", L.Points3dLoss("l2", chin_weight=0.8), 0.5),
+        Criterion("box", L.BoxLoss("l2"), 0.01),
+        Criterion("quatreg", L.QuaternionNormalizationSoftConstraint(), 1e-6),
+    ]
+    return MaskedMultiTaskCriterion({Tag.POSE_WITH_LANDMARKS: CriterionGroup(terms)}, [Tag.POSE_WITH_LANDMARKS])
+
+
+def kernel_phase(torch, np, dev):
+    """Phase 3: every kernel against its plain version at the main path's shapes."""
+    from neuralnet_tracker_traincode_torch.augmentation import geometric as G
+    from neuralnet_tracker_traincode_torch.augmentation.intensity import sample_noise_parameters
+    from neuralnet_tracker_traincode_torch.augmentation.warp_fast import fold_fliprot
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("kernel checks: TF32 off (cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False)")
+    gen = torch.Generator().manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    rows = []
+    x_np = synthetic_batch(np, B)
+    images = torch.from_numpy(x_np["image"][..., 0]).to(dev)
+
+    # K1 at the main path's view ROIs, angles and folded flips
+    params = G.make_roi_randomization_parameters(gen, (B,), THETA, 1.1)
+    view_roi, _ = G.focus_roi_components(torch.from_numpy(x_np["roi"]) + 0.5, params, S)
+    do_flip, rot_dir = G.sample_flip_rot90(gen, (B,), 0.5)
+    view_roi, angles, _ = fold_fliprot(view_roi, params.angles, do_flip, rot_dir)
+    cs = K1.canvas_size(S, THETA)
+    kp = K1.warp_params(view_roi.to(dev), angles.to(dev), S, cs)
+    crop = K1.warp_roi_rotate(images, view_roi.to(dev), angles.to(dev), S, THETA)  # the wrapper the step calls
+    ref = K1.warp_roi_rotate_plain(images, kp, S, cs, True)
+    d = (crop - ref).abs()
+    err_k1 = float(d.max())
+    check(err_k1 < 0.02 and float(d.mean()) < 0.002, f"K1 disagrees: max {err_k1}, mean {float(d.mean())}")
+    canvas, k1_out = torch.empty((B, cs, cs), device=dev), torch.empty((B, S, S), device=dev)
+    launch_k1 = lambda: ext.extension().warp_roi_rotate(images, kp, canvas, k1_out, S, cs, True)  # noqa: E731
+    out_skip = K1.warp_roi_rotate(images, view_roi.to(dev), angles.to(dev), S, THETA, skip_rotation=True)
+    ref_skip = K1.warp_roi_rotate_plain(images, K1.warp_params(view_roi.to(dev), angles.to(dev), S, S), S, S, False)
+    check(float((out_skip - ref_skip).abs().max()) < 0.02, "K1 (skip_rotation) disagrees")
+    sy, sx = kp[:, 1].abs().clamp(min=1.0), kp[:, 3].abs().clamp(min=1.0)
+    taps_y, taps_x = 2 * torch.ceil(sy) + 1, 2 * torch.ceil(sx) + 1
+    k1_ops = float((cs * SRC * taps_y * 2 + cs * cs * taps_x * 2).sum()) + B * 3 * cs * cs * 3
+    rows.append(dict(
+        name="warp_roi_rotate", source="neuralnet_tracker_traincode_torch/kernels/csrc/warp.cu",
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/warp_pallas.py:132", max_abs_err=err_k1,
+        ms=time_ms(torch, launch_k1, flush), plain_ms=time_ms(torch, lambda: K1.warp_roi_rotate_plain(images, kp, S, cs, True), flush),
+        bound=bound_ms(B * SRC * SRC + B * 6 * 4 + B * S * S * 4, f32_ops=k1_ops), library_ms=None,
+    ))
+    print(f"K1 warp_roi_rotate: max |kernel - plain| {err_k1:.3e} gray (tolerance 0.02), mean {float(d.mean()):.3e}")
+
+    # K2 on the crops the main path equalizes, with a draw of its p=0.2 gate
+    x = (crop / 256.0).reshape(B, -1).contiguous()
+    P = x.shape[1]
+    gate = (torch.rand(B, generator=gen) < 0.2).to(torch.int32).to(dev)
+    err_k2 = 0.0
+    for g in (gate, torch.ones_like(gate)):
+        d = (K2.equalize(x, g) - K2.equalize_plain(x, g)).abs()
+        err_k2 = max(err_k2, float(d.max()))
+    check(err_k2 == 0.0, f"K2 is not bit-equal to its plain version: max {err_k2}")
+    eq_out = torch.empty_like(x)
+    launch_k2 = lambda: ext.extension().equalize(x, gate, eq_out)  # noqa: E731
+    rows.append(dict(
+        name="equalize", source="neuralnet_tracker_traincode_torch/kernels/csrc/equalize.cu",
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/equalize_pallas.py:114", max_abs_err=err_k2,
+        ms=time_ms(torch, launch_k2, flush), plain_ms=time_ms(torch, lambda: K2.equalize_plain(x, gate), flush),
+        bound=bound_ms(2 * B * P * 4 + B * 4, f32_ops=4 * B * P), library_ms=None,
+    ))
+    print("K2 equalize: bit-equal to the plain version (gate drawn and all on)")
+
+    # K3 at the main path's combined sigmas and base + arange seeds
+    noise = sample_noise_parameters(gen, B)
+    sigma, seeds = noise.sigma.to(dev), noise.seeds.to(dev)
+    sigma_on = torch.full((B,), 16.0 / 255.0, device=dev)
+    out = K3.add_gaussian_noise(x, seeds, sigma_on)
+    plain = K3.add_gaussian_noise_plain(x, seeds, sigma_on)
+    err_k3 = float((out - plain).abs().max())
+    check(err_k3 <= 1e-6, f"K3 disagrees with its plain version: {err_k3}")
+    b1, b2 = K3.philox_bits(seeds, P)
+    out_bits = K3.add_gaussian_noise_from_bits(x, b1, b2, sigma_on)
+    check(torch.equal(out_bits, out), "K3 seeded and K3 with the plain version's Philox bits differ")
+    err_k3b = float((out_bits - K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma_on)).abs().max())
+    check(err_k3b <= 1e-6, f"K3 (injected bits) disagrees with its plain version: {err_k3b}")
+    check(torch.equal(K3.add_gaussian_noise(x, seeds, sigma_on), out), "K3 is not deterministic")
+    check(not torch.equal(K3.add_gaussian_noise(x, seeds + B, sigma_on), out), "K3 ignores its seeds")
+    half = torch.full((B, P), 0.5, device=dev)
+    z = ((K3.add_gaussian_noise(half, seeds, torch.full((B,), 0.05, device=dev)) - 0.5) / 0.05).double()
+    c = torch.corrcoef(z[:16])[torch.triu_indices(16, 16, 1).unbind(0)].abs()
+    check(abs(float(z.mean())) < 5e-3 and abs(float(z.std()) - 1.0) < 1e-2, f"K3 moments {float(z.mean())}, {float(z.std())}")
+    check(float(c.max()) < 5.0 / P**0.5, f"K3 fields of neighbouring seeds correlate: {float(c.max())}")
+    check(torch.equal(K3.add_gaussian_noise(x, seeds, torch.zeros_like(sigma)), x), "K3 with sigma 0 is not a pass-through")
+    n_out = torch.empty_like(x)
+    launch_k3 = lambda: ext.extension().gaussian_noise(x, seeds, sigma, n_out)  # noqa: E731
+    launch_k3b = lambda: ext.extension().gaussian_noise_from_bits(x, b1, b2, sigma, n_out)  # noqa: E731
+    k3_f32 = 12 * B * P  # Box-Muller, scale, add, clip
+    rows.append(dict(
+        name="gaussian_noise", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:76", max_abs_err=err_k3,
+        ms=time_ms(torch, launch_k3, flush), plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma), flush),
+        bound=bound_ms(2 * B * P * 4 + 8 * B, f32_ops=k3_f32, i32_ops=100 * B * P), library_ms=None,
+    ))
+    rows.append(dict(
+        name="gaussian_noise_from_bits", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:98", max_abs_err=err_k3b,
+        ms=time_ms(torch, launch_k3b, flush),
+        plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma), flush),
+        bound=bound_ms(4 * B * P * 4 + 4 * B, f32_ops=k3_f32), library_ms=None,
+    ))
+    print(f"K3 gaussian_noise: max |kernel - plain| {err_k3:.3e} (tolerance 1e-6), bits equal; "
+          f"moments {float(z.mean()):.2e} / {float(z.std()):.4f}; from bits {err_k3b:.3e}")
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def reference_phase(torch, np, dev):
+    """Phase 4: the port on the card against the port on the CPU, small input."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
+        TrainAugmentationConfig,
+        augment_batch_for_training,
+        sample_augmentation_parameters,
+    )
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+
+    n = 8
+    batch = synthetic_batch(np, n)
+    labels = {k: batch[k] for k in ("pose", "coord", "roi", "pt3d_68", "shapeparam", "hasface", "coord_convention_id")}
+    diffs = []
+    for image_aug in (False, True):
+        cfg = TrainAugmentationConfig(inputsize=S, enable_image_aug=image_aug, p_flip_rot90=0.5)
+        params = sample_augmentation_parameters(torch.Generator().manual_seed(5), n, cfg)
+        x_gpu, l_gpu = augment_batch_for_training(batch["image"], labels, LABEL_CATEGORIES, cfg, params=params, device=dev)
+        x_cpu, l_cpu = augment_batch_for_training(batch["image"], labels, LABEL_CATEGORIES, cfg, params=params, device="cpu")
+        d = (x_gpu.cpu() - x_cpu).abs()
+        diffs.append(d)
+        for k in l_cpu:
+            check(torch.allclose(l_gpu[k].cpu().float(), l_cpu[k].float(), atol=1e-4), f"label {k}: card vs CPU")
+    # geometry only: K1's tolerance, 0.02 gray (images are gray / 256 - 0.5)
+    check(float(diffs[0].max()) * 256 < 0.02, f"crop card vs CPU: {float(diffs[0].max()) * 256} gray")
+    # with stage 1 and noise: crops that differ by float noise may fall on two
+    # sides of an equalize bin or a posterize step, which moves a pixel by a
+    # whole LUT or posterize level; such pixels must stay rare
+    moved = float((diffs[1] > 1e-4).float().mean())
+    check(moved < 1e-3 and float(diffs[1].mean()) < 1e-4, f"augmentation card vs CPU: {moved} of pixels moved")
+    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1")
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.eval()
+    with torch.no_grad():
+        ref = model(x_cpu)
+        out = model.to(dev)(x_gpu)
+    for k in ("coord", "roi", "pose", "pt3d_68", "pose_scales_tril", "coord_scales"):
+        check(torch.allclose(out[k].cpu(), ref[k], rtol=1e-3, atol=1e-4), f"model output {k}: card vs CPU")
+    print(f"reference: crop card vs CPU max {float(diffs[0].max()) * 256:.3e} gray; with image aug "
+          f"{moved:.2e} of pixels moved, mean {float(diffs[1].mean()):.3e}; full-width forward card vs CPU within 1e-3")
+
+
+def training_phase(torch, np, dev, name):
+    """Phase 5: the flagship training step, the main path of the port."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig, nonfinite_metrics
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults; the model runs in bf16 autocast
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = NetworkWithPointHead(
+        enable_point_head=True, enable_uncertainty=True, config="mobilenetv1", dtype=torch.bfloat16
+    )
+    cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
+                        aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+    trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, B).items()}
+    W = trainer.weight_matrix(50)
+    gen = torch.Generator().manual_seed(7)
+    losses = []
+    torch.cuda.synchronize()
+    ext.reset_launch_counts()
+    for _ in range(STEPS_WARMUP):
+        state, m = trainer.train_step(state, batch, W, generator=gen)
+        losses.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS_TIMED):
+        state, m = trainer.train_step(state, batch, W, generator=gen)
+        losses.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / STEPS_TIMED
+    launches = dict(ext.LAUNCHES)
+    steps = STEPS_WARMUP + STEPS_TIMED
+    bad = [(i, nonfinite_metrics(m)) for i, m in enumerate(losses)]
+    bad = [b for b in bad if b[1]]
+    check(not bad, f"non-finite losses: {bad[:3]}")
+    check(launches["warp_roi_rotate"] == steps, f"K1 launched {launches['warp_roi_rotate']} times in {steps} steps")
+    check(launches["gaussian_noise"] == steps, f"K3 launched {launches['gaussian_noise']} times in {steps} steps")
+    check(launches["equalize"] >= 1, "K2 never launched")
+    check(state.step == steps, "the step count did not advance")
+    print(f"training: {steps} steps, loss {float(losses[0]['loss']):.4f} -> {float(losses[-1]['loss']):.4f}; "
+          f"launches {launches}")
+    print(f"training step (flagship, batch {B}, {SRC}^2 uint8 -> {S}^2, bf16 autocast): {step_s * 1e3:.3f} ms/step, "
+          f"{B / step_s:.1f} images/s on {name}")
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batch, W, generator=gen)
+
+    return launches, step
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        fail(f"needs numpy and torch: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script runs on an NVIDIA GPU")
+    if not os.path.isdir(os.path.join(ROOT, "neuralnet_tracker_traincode_torch")):
+        fail(f"the port's package is not beside this script in {ROOT}")
+    sys.path.insert(0, ROOT)
+    from neuralnet_tracker_traincode_torch.kernels import ext
+
+    smi = card_line()
+    print(smi)
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}, {torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    ext.extension()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s into {ext.BUILD_DIR}")
+
+    rows = kernel_phase(torch, np, dev)
+    reference_phase(torch, np, dev)
+    launches, step = training_phase(torch, np, dev, f"{name} ({smi})")
+    if "--profile" in sys.argv:
+        from neuralnet_tracker_traincode_torch.train.profiling import profile_steps
+
+        trace = sys.argv[sys.argv.index("--profile") + 1] if len(sys.argv) > sys.argv.index("--profile") + 1 else None
+        print("profile: " + json.dumps(profile_steps(step, 5, trace)))
+
+    kernels = []
+    for r in rows:
+        (b_ms, b_by) = r.pop("bound")
+        kernels.append(dict(
+            name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
+            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

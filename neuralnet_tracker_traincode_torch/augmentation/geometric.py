@@ -1,0 +1,146 @@
+"""ROI-focus crop augmentation (counterpart of the JAX package's
+`augmentation/geometric.py`).
+
+Sampling is separate from applying: `make_roi_randomization_parameters` and
+`sample_flip_rot90` draw from an explicit `torch.Generator` (on the host),
+and the functions that apply take the drawn values. Video sequences share
+their first frame's draws through `share_params_within_sequences`.
+"""
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
+
+MAX_BEYOND_BORDER_SHIFT = 0.3
+
+
+class RoiFocusRandomizationParameters(NamedTuple):
+    scales: torch.Tensor  # (B,)
+    angles: torch.Tensor  # (B,)
+    translations: torch.Tensor  # (B, 2)
+
+    def to(self, device) -> "RoiFocusRandomizationParameters":
+        return RoiFocusRandomizationParameters(*(t.to(device) for t in self))
+
+
+def make_roi_randomization_parameters(
+    generator: Optional[torch.Generator],
+    batchshape,
+    rotation_aug_angle: float = 30.0,
+    extension_factor: float = 1.1,
+) -> RoiFocusRandomizationParameters:
+    """Gaussian scale and translation jitter; +-angle rotation with p=1/3."""
+    batchshape = tuple(batchshape)
+    g = dict(generator=generator)
+    scales = torch.clamp(torch.randn(batchshape, **g) * 0.1, -0.5, 0.5) + extension_factor
+    translations = torch.clamp(torch.randn(batchshape + (2,), **g) * 0.5, -1.0, 1.0)
+    if rotation_aug_angle:
+        sign = torch.where(torch.rand(batchshape, **g) < 0.5, 1.0, -1.0)
+        onoff = (torch.rand(batchshape, **g) < 1.0 / 3.0).float()
+        angles = math.pi * rotation_aug_angle / 180.0 * sign * onoff
+    else:
+        angles = torch.zeros(batchshape)
+    return RoiFocusRandomizationParameters(scales, angles, translations)
+
+
+def no_roi_randomization(batchshape, extent_factor: float, device=None) -> RoiFocusRandomizationParameters:
+    batchshape = tuple(batchshape)
+    return RoiFocusRandomizationParameters(
+        scales=torch.full(batchshape, extent_factor, device=device),
+        angles=torch.zeros(batchshape, device=device),
+        translations=torch.zeros(batchshape + (2,), device=device),
+    )
+
+
+def share_params_within_sequences(
+    params: RoiFocusRandomizationParameters, param_index: torch.Tensor
+) -> RoiFocusRandomizationParameters:
+    """Every frame uses the params of the batch row `param_index` points at."""
+    idx = param_index.long()
+    return RoiFocusRandomizationParameters(*(t[idx] for t in params))
+
+
+def compute_view_roi(face_bbox, enlargement_factor, translation_factor, beyond_border_shift: float):
+    """Expanded and shifted square ROI around the face bbox."""
+    x0, y0, x1, y1 = face_bbox.unbind(-1)
+    rx, ry = translation_factor.unbind(-1)
+    bbox_w = x1 - x0
+    bbox_h = y1 - y0
+    cx = 0.5 * (x1 + x0)
+    cy = 0.5 * (y1 + y0)
+    size = torch.maximum(bbox_w, bbox_h) * enlargement_factor
+    wiggle_room_x = 0.5 * torch.abs(size - bbox_w) + beyond_border_shift * torch.minimum(size, bbox_w)
+    wiggle_room_y = 0.5 * torch.abs(size - bbox_h) + beyond_border_shift * torch.minimum(size, bbox_h)
+    tx = wiggle_room_x * rx
+    ty = wiggle_room_y * ry
+    return torch.stack(
+        [cx - size * 0.5 + tx, cy - size * 0.5 + ty, cx + size * 0.5 + tx, cy + size * 0.5 + ty], dim=-1
+    )
+
+
+def _point_transform_from_roi(view_roi: torch.Tensor, new_size: int) -> Affine2d:
+    B = tuple(view_roi.shape[:-1])
+    return Affine2d.range_remap_2d(
+        inmin=view_roi[..., :2],
+        inmax=view_roi[..., 2:],
+        outmin=torch.zeros(B + (2,), device=view_roi.device),
+        outmax=torch.full(B + (2,), float(new_size), device=view_roi.device),
+    )
+
+
+def _center_rotation_tr(angles: torch.Tensor, new_size: int) -> Affine2d:
+    dev = angles.device
+    tr_norm = Affine2d.range_remap_2d(
+        torch.tensor([0.0, 0.0], device=dev), [new_size, new_size], [-1.0, -1.0], [1.0, 1.0]
+    )
+    tr_rot = Affine2d.trs(angles=angles)
+    tr_denorm = Affine2d.range_remap_2d(
+        torch.tensor([-1.0, -1.0], device=dev), [1.0, 1.0], [0.0, 0.0], [new_size, new_size]
+    )
+    return tr_denorm @ tr_rot @ tr_norm
+
+
+def focus_roi_components(roi, params: RoiFocusRandomizationParameters, new_size: int, round_roi: bool = True):
+    """(view_roi, transform): the expanded, rounded square view ROI and the
+    full source->crop Affine2d (centre rotation @ axis-aligned remap)."""
+    view_roi = compute_view_roi(roi, params.scales, params.translations, MAX_BEYOND_BORDER_SHIFT)
+    if round_roi:
+        view_roi = torch.round(view_roi)
+    tr = _point_transform_from_roi(view_roi, new_size)
+    return view_roi, _center_rotation_tr(params.angles, new_size) @ tr
+
+
+def sample_flip_rot90(generator: Optional[torch.Generator], batchshape, p_rot: float = 0.01):
+    """(do_flip bool, rot_dir in {-1, 0, +1} float): flip with p=0.5, +-90 deg
+    with p=p_rot/2 each."""
+    batchshape = tuple(batchshape)
+    do_flip = torch.rand(batchshape, generator=generator) < 0.5
+    u = torch.rand(batchshape, generator=generator)
+    rot_dir = torch.where(u < p_rot / 2.0, -1.0, torch.where(u < 1.0 - p_rot / 2.0, 0.0, 1.0))
+    return do_flip, rot_dir
+
+
+def flip_rot90_transform(do_flip: torch.Tensor, rot_dir: torch.Tensor, new_size: int) -> Affine2d:
+    """Affine2d of the `sample_flip_rot90` choices (flip applied first)."""
+    batchshape = tuple(do_flip.shape)
+    dev = do_flip.device
+    w = h = float(new_size)
+    tr_rot = (
+        Affine2d.range_remap_2d(torch.tensor([-1.0, -1.0], device=dev), [1.0, 1.0], [0.0, 0.0], [w, h]).broadcast_to(
+            batchshape
+        )
+        @ Affine2d.trs(angles=rot_dir * (math.pi * 0.5))
+        @ Affine2d.range_remap_2d(torch.tensor([0.0, 0.0], device=dev), [w, h], [-1.0, -1.0], [1.0, 1.0]).broadcast_to(
+            batchshape
+        )
+    )
+    identity = Affine2d.identity(dev).broadcast_to(batchshape)
+    tr = Affine2d(torch.where((rot_dir != 0.0)[..., None, None], tr_rot.tensor(), identity.tensor()))
+    tr_flip = Affine2d.range_remap_2d(
+        torch.tensor([0.0, 0.0], device=dev), [w, h], [w, 0.0], [0.0, h]
+    ).broadcast_to(batchshape)
+    flip_or_id = Affine2d(torch.where(do_flip[..., None, None], tr_flip.tensor(), identity.tensor()))
+    return tr @ flip_or_id

@@ -1,0 +1,28 @@
+// Launchers of the port's augmentation kernels. Plain C++ interface: the .cu
+// files do not include PyTorch's headers (that keeps nvcc fast); only
+// bindings.cpp does. Each launcher enqueues on `stream`, allocates nothing,
+// does not synchronise, and returns cudaGetLastError() after its launches.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// K1: crop warp. img (B, H, W) uint8; params (B, 6) f32 rows
+// [y0', sy, x0', sx, a, b]; canvas (B, CS, CS) f32 scratch (unused when
+// rotate == 0, where CS == S); out (B, S, S) f32.
+cudaError_t nntc_warp_roi_rotate(const uint8_t* img, const float* params, float* canvas, float* out,
+                                 int B, int H, int W, int S, int CS, int rotate, cudaStream_t stream);
+
+// K2: per-image histogram equalization. x, out (B, P) f32; gate (B,) int32.
+cudaError_t nntc_equalize(const float* x, const int32_t* gate, float* out, int B, int P,
+                          cudaStream_t stream);
+
+// K3: gaussian noise from per-sample Philox-4x32-10 streams (key = seeds[b],
+// counter = pixel index). x, out (B, P) f32; seeds (B,) int32; sigma (B,) f32.
+cudaError_t nntc_gaussian_noise(const float* x, const int32_t* seeds, const float* sigma, float* out,
+                                int B, int P, cudaStream_t stream);
+
+// K3 with the random bits injected: bits1, bits2 (B, P) int32, low 24 bits used.
+cudaError_t nntc_gaussian_noise_from_bits(const float* x, const int32_t* bits1, const int32_t* bits2,
+                                          const float* sigma, float* out, int B, int P,
+                                          cudaStream_t stream);

@@ -1,0 +1,79 @@
+"""Scale (uncertainty) parameterisations for the NLL losses.
+
+Counterpart of the JAX package's `models/nll.py`: Neck, the diagonal scale
+parameter and the lower-triangular scale head, positivity through
+smoothclip0 (+1e-6). `FeaturesAsDiagonalScale` waits (ROADMAP.md).
+
+The necks are f32 linears even when the model runs under bf16 autocast: the
+JAX package leaves their Dense at the promoted f32 dtype.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neuralnet_tracker_traincode_torch.device import not_ported
+from neuralnet_tracker_traincode_torch.ops.mathfn import smoothclip0
+
+make_positive = smoothclip0
+
+
+class Neck(nn.Module):
+    """Linear producing per-feature values plus one global positive multiplier."""
+
+    def __init__(self, in_features: int, num_out_features: int):
+        super().__init__()
+        self.lin = nn.Linear(in_features, num_out_features + 1)
+
+    def forward(self, x: torch.Tensor):
+        with torch.autocast(x.device.type, enabled=False):
+            y = F.linear(x.float(), self.lin.weight, self.lin.bias)
+        return y[..., 1:], make_positive(y[..., :1])
+
+
+class DiagonalScaleParameter(nn.Module):
+    """Trainable input-independent positive scale, starting at 1."""
+
+    def __init__(self, num_out_features: int, eps: float = 1.0e-6):
+        super().__init__()
+        self.hidden_scale = nn.Parameter(torch.zeros(num_out_features + 1))
+        self.eps = eps
+
+    def forward(self):
+        h = self.hidden_scale
+        return make_positive(h[:1]) * make_positive(h[1:]) + self.eps
+
+
+def fill_triangular_matrix(dim: int, z: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular matrix: first `dim` values on the diagonal, then the
+    off-diagonals row by row. Only dim 3 (the pose and coordinate scales) is
+    ported."""
+    if dim != 3:
+        raise not_ported(f"fill_triangular_matrix for dim {dim}")
+    zero = torch.zeros_like(z[..., 0])
+    row0 = torch.stack([z[..., 0], zero, zero], dim=-1)
+    row1 = torch.stack([z[..., 3], z[..., 1], zero], dim=-1)
+    row2 = torch.stack([z[..., 4], z[..., 5], z[..., 2]], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+class FeaturesAsTriangularScale(nn.Module):
+    """Features -> lower-triangular scale (Cholesky factor) with positive diagonal."""
+
+    def __init__(self, in_features: int, dim: int):
+        super().__init__()
+        self.dim = dim
+        n = (dim * (dim + 1)) // 2
+        self.neck = Neck(in_features, n)
+        min_diag = torch.zeros(n)
+        min_diag[:dim] = 1.0e-6
+        self.register_buffer("min_diag", min_diag)
+
+    def forward(self, x):
+        x, multiplier = self.neck(x)
+        z = torch.cat([make_positive(x[..., : self.dim]), x[..., self.dim :]], dim=-1)
+        z = multiplier * z + self.min_diag
+        return fill_triangular_matrix(self.dim, z)
+
+
+SCALE_MODULES = (Neck, DiagonalScaleParameter, FeaturesAsTriangularScale)

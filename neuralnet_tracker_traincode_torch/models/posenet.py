@@ -1,0 +1,231 @@
+"""The pose estimator network and its output heads.
+
+Counterpart of the JAX package's `models/posenet.py`. Input is (B, H, W, C)
+like the JAX package; the model permutes to NCHW inside. Module names give
+the reference state-dict keys (`convnet.dw2_1.conv_dw.weight`,
+`quatnet.uncertainty_net.neck.lin.weight`, ...), so `models/weights.py` maps
+the JAX package's variables onto it one to one.
+
+`dtype=torch.bfloat16` runs backbone and head linears under autocast, as the
+JAX model's `dtype=jnp.bfloat16` does; heads cast their outputs to f32 and
+the geometry stays f32.
+
+Ported: the mobilenetv1 backbone and the quaternion heads. The other
+backbones, the 6D rotation heads and the face detector wait (ROADMAP.md).
+"""
+
+import contextlib
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from neuralnet_tracker_traincode_torch.device import not_ported
+from neuralnet_tracker_traincode_torch.models import nll as NLL
+from neuralnet_tracker_traincode_torch.models.backbones.common import lecun_normal_
+from neuralnet_tracker_traincode_torch.models.backbones.mobilenet_v1 import MobileNet
+from neuralnet_tracker_traincode_torch.models.components import (
+    DeformableHeadKeypoints,
+    rigid_transformation_25d,
+)
+from neuralnet_tracker_traincode_torch.ops import quaternion as Q
+from neuralnet_tracker_traincode_torch.ops.mathfn import smoothclip0
+from neuralnet_tracker_traincode_torch.ops.rotrepr import QuatRepr
+
+
+class DirectQuaternionWithNormalization(nn.Module):
+    def __init__(self, num_features: int, enable_uncertainty: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(num_features, 4)
+        if enable_uncertainty:
+            self.uncertainty_net = NLL.FeaturesAsTriangularScale(num_features, 3)
+        self.enable_uncertainty = enable_uncertainty
+
+    def init_bias(self):
+        # inv_smoothclip0(0.1) = log(0.1): initial rotation near identity
+        self.linear.bias.zero_()
+        self.linear.bias[Q.iw] = math.log(0.1)
+
+    def forward(self, x) -> Dict[str, Any]:
+        quats, quats_unnormalized = QuatRepr.from_features(self.linear(x).float())
+        out = {"unnormalized_quat": quats_unnormalized, "rot": quats}
+        if self.enable_uncertainty:
+            out["pose_scales_tril"] = self.uncertainty_net(x)
+        return out
+
+
+class BoundingBox(nn.Module):
+    def __init__(self, num_features: int, enable_uncertainty: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(num_features, 4)
+        if enable_uncertainty:
+            self.scales = NLL.DiagonalScaleParameter(4)
+        self.enable_uncertainty = enable_uncertainty
+
+    def init_bias(self):
+        self.linear.bias.copy_(torch.tensor([0.0, 0.0, 0.5, 0.5]))
+
+    def forward(self, x) -> Dict[str, Any]:
+        z = self.linear(x).float()
+        boxsize = smoothclip0(z[..., 2:])
+        boxcenter = z[..., :2]
+        out = {"roi": torch.cat([boxcenter - boxsize, boxcenter + boxsize], dim=-1)}
+        if self.enable_uncertainty:
+            out["roi_scales"] = self.scales()[None, :].expand(z.shape)
+        return out
+
+
+class PositionSizeOutput(nn.Module):
+    def __init__(self, num_features: int, enable_uncertainty: bool = False):
+        super().__init__()
+        self.linear_xy = nn.Linear(num_features, 2)
+        self.linear_size = nn.Linear(num_features, 1)
+        if enable_uncertainty:
+            self.scales = NLL.FeaturesAsTriangularScale(num_features, 3)
+        self.enable_uncertainty = enable_uncertainty
+
+    def init_bias(self):
+        self.linear_xy.bias.zero_()
+        self.linear_size.bias.fill_(0.5)
+
+    def forward(self, x) -> Dict[str, Any]:
+        xy = self.linear_xy(x).float()
+        size = self.linear_size(x).float()
+        out = {"coord": torch.cat([xy, smoothclip0(size)], dim=-1)}
+        if self.enable_uncertainty:
+            out["coord_scales"] = self.scales(x)
+        return out
+
+
+class Landmarks3dOutput(nn.Module):
+    def __init__(self, num_features: int, enable_uncertainty: bool = False):
+        super().__init__()
+        self.deformablekeypoints = DeformableHeadKeypoints(40, 10)
+        self.shapenet = nn.Linear(num_features, self.deformablekeypoints.num_eigvecs)
+        if enable_uncertainty:
+            self.point_distrib_scales = NLL.DiagonalScaleParameter(68)
+            self.shape_distrib_scales = NLL.DiagonalScaleParameter(50)
+        self.enable_uncertainty = enable_uncertainty
+
+    def init_bias(self):
+        self.shapenet.bias.zero_()
+
+    def forward(self, z, quats: QuatRepr, coords) -> Dict[str, Any]:
+        shapeparam = self.shapenet(z).float()
+        pt3d_68 = rigid_transformation_25d(
+            quats, coords[..., :2], coords[..., 2:], self.deformablekeypoints(shapeparam)
+        )
+        out = {"pt3d_68": pt3d_68, "shapeparam": shapeparam}
+        if self.enable_uncertainty:
+            out["pt3d_68_scales"] = self.point_distrib_scales()[None, :, None].expand(pt3d_68.shape)
+            out["shapeparam_scales"] = self.shape_distrib_scales()[None, :].expand(shapeparam.shape)
+        return out
+
+
+class LocalToGlobalCoordinateOffset(nn.Module):
+    """Learned per-dataset local->global pose offset (8 convention slots).
+
+    As in the reference, p[..., 1] is both the x-rotation angle and part of
+    the translation (p[..., 1:3]); p[..., 3] is the positive scale.
+    """
+
+    def __init__(self, num_parameter_sets: int = 1):
+        super().__init__()
+        self.p = nn.Parameter(torch.zeros(num_parameter_sets, 4))
+
+    def forward(self, quats: QuatRepr, coords, set_id):
+        psel = self.p[0:1] if set_id is None else self.p[set_id.long()]
+        offset_quat = QuatRepr.make_rotate_x(psel[..., 1])
+        offset_transl = torch.cat([torch.zeros_like(psel[..., :1]), psel[..., 1:3]], dim=-1)
+        offset_scale = smoothclip0(psel[..., 3])
+        scale = coords[..., 2:] * offset_scale[..., None]
+        pred_quat = quats.mult(offset_quat)
+        pos_corr = quats.rotate_points(offset_transl[..., None, :])[..., 0, :]
+        screen_pos = pos_corr[..., :2] * scale + coords[..., :2]
+        return pred_quat, torch.cat([screen_pos, scale], dim=-1)
+
+
+class NetworkWithPointHead(nn.Module):
+    """Pose network: grayscale crop -> backbone -> shared pooled features -> heads."""
+
+    NUM_DATASET_CONSTANTS = 8
+
+    def __init__(
+        self,
+        enable_point_head: bool = True,
+        enable_face_detector: bool = False,
+        config: str = "mobilenetv1",
+        enable_uncertainty: bool = False,
+        dropout_prob: Optional[float] = None,  # accepted for config compat; unused
+        use_local_pose_offset: bool = True,
+        backbone_args: Optional[Dict[str, Any]] = None,
+        enable_6drot: bool = False,
+        dtype: torch.dtype = torch.float32,
+        input_resolution: int = 129,
+    ):
+        super().__init__()
+        if config != "mobilenetv1":
+            raise not_ported(f"backbone {config!r}")
+        if enable_6drot:
+            raise not_ported("the 6D rotation head")
+        if enable_face_detector:
+            raise not_ported("the face detector head")
+        self.enable_point_head = enable_point_head
+        self.enable_uncertainty = enable_uncertainty
+        self.use_local_pose_offset = use_local_pose_offset
+        self.backbone_args = dict(backbone_args or {})
+        self.config = config
+        self.dtype = dtype
+        self.input_resolution = input_resolution
+
+        self.convnet = MobileNet(**self.backbone_args)
+        n = self.convnet.num_features
+        self.boxnet = BoundingBox(n, enable_uncertainty)
+        self.posnet = PositionSizeOutput(n, enable_uncertainty)
+        self.quatnet = DirectQuaternionWithNormalization(n, enable_uncertainty)
+        if use_local_pose_offset:
+            self.local_pose_offset = LocalToGlobalCoordinateOffset(self.NUM_DATASET_CONSTANTS)
+            if enable_point_head:
+                self.local_pose_offset_kpts = LocalToGlobalCoordinateOffset(self.NUM_DATASET_CONSTANTS)
+        if enable_point_head:
+            self.landmarks = Landmarks3dOutput(n, enable_uncertainty)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """flax's default init: lecun-normal kernels, zero biases, then each
+        head's own bias init. Scale parameters, offsets and BN stay as built."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                lecun_normal_(mod.weight, generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        for head in (self.boxnet, self.posnet, self.quatnet, getattr(self, "landmarks", None)):
+            if head is not None:
+                head.init_bias()
+
+    def _precision(self, device_type: str):
+        if self.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device_type, dtype=self.dtype)
+
+    def forward(self, x: torch.Tensor, coord_convention_id=None) -> Dict[str, Any]:
+        """x: (B, H, W, C) whitened crops. Train/eval follows `self.training`;
+        eval mode adds 'pose' (the quaternion)."""
+        assert x.shape[1] == x.shape[2] == self.input_resolution, f"Bad input shape {x.shape}"
+        with self._precision(x.device.type):
+            features, _ = self.convnet(x.permute(0, 3, 1, 2))
+            out: Dict[str, Any] = self.boxnet(features)
+            out.update(self.posnet(features))
+            out.update(self.quatnet(features))
+            rots, coords = out["rot"], out["coord"]
+            if self.use_local_pose_offset:
+                out["rot"], out["coord"] = self.local_pose_offset(rots, coords, coord_convention_id)
+                if self.enable_point_head:
+                    rots_k, coords_k = self.local_pose_offset_kpts(rots, coords, coord_convention_id)
+                    out.update(self.landmarks(features, rots_k, coords_k))
+            elif self.enable_point_head:
+                out.update(self.landmarks(features, rots, coords))
+        if not self.training:
+            out["pose"] = out["rot"].as_quat()
+        return out

@@ -1,0 +1,58 @@
+"""Profiling of the training step (counterpart of the JAX package's
+`train/profiling.py`).
+
+`PoseTrainer.train_step` marks its stages with `torch.profiler.record_function`
+ranges named in `STAGES`; they cost a few microseconds a step when no
+profiler runs. `profile_steps` runs steps under `torch.profiler` and returns
+where the time went: host time per stage, the device's busy share, kernel
+launches per step and the kernels that take the most device time.
+"""
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+
+
+def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str] = None, top: int = 12) -> Dict:
+    """Run `step` `steps` times under the profiler (after one unprofiled call)
+    and summarise; optionally write a Chrome trace to `trace_path`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    kernels: Dict[str, list] = {}
+    host: Dict[str, float] = {s: 0.0 for s in STAGES}
+    for e in prof.events():
+        if e.name in host:
+            # a stage range shows on the host and, as an annotation, on the device
+            if e.device_type == DeviceType.CPU:
+                host[e.name] += e.time_range.elapsed_us()
+        elif e.device_type == DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    busy_us = sum(v[1] for v in kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_ops_per_step": sum(v[0] for v in kernels.values()) / steps,
+        "host_ms_per_step": {s: v / steps / 1e3 for s, v in host.items()},
+        "top_device_ops": [
+            {"name": n[:90], "per_step": c / steps, "ms_per_step": us / steps / 1e3} for n, (c, us) in ranked
+        ],
+    }

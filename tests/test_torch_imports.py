@@ -1,0 +1,51 @@
+"""The port stands alone: none of its modules, nor `chip_smoke.py`, imports
+JAX, flax, optax or the JAX package (parsed, not executed), and nothing on
+its import path needs triton, h5py or cv2, which the machine with the card
+may lack. Its data files are its own copies."""
+
+import ast
+import filecmp
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "neuralnet_tracker_traincode_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "neuralnet_tracker_traincode_tpu"}
+NOT_AT_IMPORT = {"triton", "h5py", "cv2"}
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(os.path.relpath(f, ROOT) for f in files)
+
+
+def _imports(tree):
+    """(root module, at module level?) of every import statement."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for n in names:
+            yield n.split(".")[0], id(node) in top
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_port_module_imports_nothing_of_jax(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    found = list(_imports(tree))
+    assert not {m for m, _ in found} & FORBIDDEN, path
+    assert not {m for m, top in found if top} & NOT_AT_IMPORT, path
+
+
+def test_port_has_its_own_copy_of_the_keypoint_model():
+    rel = os.path.join("facemodel", "assets", "bfm_keypoints_subset.npz")
+    ours = os.path.join(PORT, rel)
+    assert filecmp.cmp(ours, os.path.join(ROOT, "neuralnet_tracker_traincode_tpu", rel), shallow=False)

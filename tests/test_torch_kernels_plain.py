@@ -1,0 +1,216 @@
+"""The plain PyTorch versions of the port's three kernels against the JAX
+package's Pallas kernels (interpret mode) and XLA formulations, on the CPU.
+
+On the card each CUDA kernel is held against these plain versions
+(`chip_smoke.py`, `tests/test_torch_kernels_cuda.py`). Tolerances:
+ - K1 crop warp: max 0.02 and mean 0.002 gray levels, the CPU bound of
+   `tests/test_warp_pallas.py` (a banded or dense resample sums in another
+   order than the Pallas dots);
+ - K2 equalize: bit-equal to `intensity.equalize` (integer histogram and
+   LUT, one IEEE division); the same LUT level as the Pallas kernel, whose
+   jitted lut / 255 is one ulp off on some levels (see the test);
+ - K3 noise from injected bits: 1e-6 (log/cos of two libraries), sigma = 0
+   bit-equal; the seeded K3 by moments and seed independence, as
+   `tests/test_noise_pallas.py` holds the TPU kernel.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuralnet_tracker_traincode_tpu.augmentation import intensity as JI
+from neuralnet_tracker_traincode_tpu.augmentation import warp_fast as JW
+from neuralnet_tracker_traincode_tpu.augmentation.equalize_pallas import equalize_pallas
+from neuralnet_tracker_traincode_tpu.augmentation.noise_pallas import add_gaussian_noise_from_bits
+from neuralnet_tracker_traincode_tpu.augmentation.warp_pallas import warp_roi_rotate_pallas
+from neuralnet_tracker_traincode_torch.augmentation import warp_fast as TW
+from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+from neuralnet_tracker_traincode_torch.kernels import ext
+from neuralnet_tracker_traincode_torch.kernels import noise as K3
+from neuralnet_tracker_traincode_torch.kernels import warp as K1
+from tests.torch_port_helpers import t
+
+# ---------------------------------------------------------------- K1 ---
+
+
+def _warp_data(B=4, H=112, seed=0):
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 256, size=(B, H, H)).astype(np.uint8)
+    roi = np.asarray(
+        [[10.0, 5.0, 90.0, 85.0], [-20.0, -10.0, H + 15.0, H + 25.0], [20.0, 20.0, 70.0, 70.0],
+         [100.5, 8.25, 5.5, 103.25]],  # beyond the border; a reversed x range (a folded flip)
+        np.float32,
+    )[:B]
+    ang = np.asarray([0.2, -0.4, 0.0, 0.45], np.float32)[:B]
+    return img, roi, ang
+
+
+def _gray_diff(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return d.max(), d.mean()
+
+
+@pytest.mark.parametrize("skip_rotation", [False, True])
+@pytest.mark.parametrize("S", [49, 129])
+def test_k1_plain_matches_pallas_kernel(skip_rotation, S):
+    img, roi, ang = _warp_data()
+    ref = warp_roi_rotate_pallas(jnp.asarray(img), jnp.asarray(roi), jnp.asarray(ang), S, 30.0,
+                                 skip_rotation=skip_rotation, interpret=True)
+    out = K1.warp_roi_rotate(t(img), t(roi), t(ang), S, 30.0, skip_rotation=skip_rotation)
+    assert out.dtype == torch.float32 and out.shape == (4, S, S)
+    dmax, dmean = _gray_diff(out.numpy(), ref)
+    assert dmax < 0.02 and dmean < 0.002, (dmax, dmean)
+
+
+@pytest.mark.parametrize("skip_rotation", [False, True])
+def test_k1_with_flip_and_rot90_matches_xla_warp(skip_rotation):
+    """The folded flip/rot90 (reversed ROI ranges, negated angles, per-sample
+    transpose) through the port's `warp_fast` against the JAX XLA warp."""
+    img, roi, ang = _warp_data(seed=1)
+    roi[3] = [5.5, 8.25, 100.5, 103.25]
+    do_flip = np.asarray([True, False, True, False])
+    rot_dir = np.asarray([1.0, -1.0, -1.0, 0.0], np.float32)
+    os.environ["NNTC_WARP_IMPL"] = "xla"
+    try:
+        ref = JW.warp_roi_rotate(jnp.asarray(img[..., None]), jnp.asarray(roi), jnp.asarray(ang), 49, 30.0,
+                                 do_flip=jnp.asarray(do_flip), rot_dir=jnp.asarray(rot_dir),
+                                 skip_rotation=skip_rotation)
+    finally:
+        os.environ.pop("NNTC_WARP_IMPL", None)
+    out = TW.warp_roi_rotate(t(img[..., None]), t(roi), t(ang), 49, 30.0, do_flip=t(do_flip), rot_dir=t(rot_dir),
+                             skip_rotation=skip_rotation)
+    dmax, dmean = _gray_diff(out.numpy(), ref)
+    assert dmax < 0.02 and dmean < 0.002, (dmax, dmean)
+
+
+def test_k1_canvas_size_and_params_match_jax():
+    from neuralnet_tracker_traincode_tpu.augmentation.warp_fast import canvas_size as jax_canvas_size
+
+    for S, theta in [(129, 30.0), (49, 30.0), (129, 0.0), (64, 45.0)]:
+        assert K1.canvas_size(S, theta) == jax_canvas_size(S, theta)
+    assert K1.canvas_size(129, 30.0) == 225
+
+
+# ---------------------------------------------------------------- K2 ---
+
+
+def _eq_images(seed):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(10, 33 * 33).astype(np.float32) ** (0.3 + 2 * rng.rand(10, 1)).astype(np.float32)
+    x[0] = 0.3  # one bin: step == 0, passes through
+    x[1] = np.where(rng.rand(33 * 33) < 0.5, 0.2, 0.9)  # two bins: the last one is dropped from the step
+    x[2, :5] = [0.0, 1.0, 255.0 / 256.0, 1.0 / 256.0, 254.5 / 255.0]  # the edges of both index scales
+    gate = np.ones(10, bool)
+    gate[3] = False
+    return x, gate
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_plain_matches_pallas_kernel(seed):
+    """Same LUT level for every pixel; the last step differs by design of
+    XLA, not of the kernel: a jitted program rewrites lut / 255 into
+    lut * (1 / 255), one ulp off IEEE division on a third of the levels,
+    and the interpreted Pallas kernel is such a program (so is a jitted
+    `intensity.equalize`). The port divides, as kornia and the eager
+    `intensity.equalize` do (bit-equal below)."""
+    x, gate = _eq_images(seed)
+    ref = np.asarray(equalize_pallas(jnp.asarray(x), jnp.asarray(gate), interpret=True))
+    out = K2.equalize(t(x), t(gate)).numpy()
+    np.testing.assert_array_equal(np.rint(out * 255.0), np.rint(ref * 255.0))
+    np.testing.assert_array_equal(out[[0, 3]], x[[0, 3]])
+    np.testing.assert_array_equal(ref[[0, 3]], x[[0, 3]])
+    eq = np.ones(10, bool)
+    eq[[0, 3]] = False
+    levels = np.rint(out[eq] * 255.0).astype(np.float32)
+    np.testing.assert_array_equal(out[eq], levels / np.float32(255.0))
+    np.testing.assert_array_equal(ref[eq], levels * np.float32(1.0 / 255.0))
+    jitted = np.asarray(jax.jit(JI.equalize)(jnp.asarray(x.reshape(10, 33, 33, 1))))[..., 0].reshape(10, -1)
+    np.testing.assert_array_equal(jitted[eq], ref[eq])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_plain_is_bit_equal_to_xla_equalize(seed):
+    x, gate = _eq_images(seed)
+    ref = np.asarray(JI.equalize(jnp.asarray(x.reshape(10, 33, 33, 1))))[..., 0].reshape(10, -1)
+    ref = np.where(gate[:, None], ref, x)
+    np.testing.assert_array_equal(K2.equalize(t(x), t(gate)).numpy(), ref)
+
+
+# ---------------------------------------------------------------- K3 ---
+
+
+def _bits(rng, shape):
+    return rng.randint(-(2**31), 2**31 - 1, size=shape).astype(np.int32)
+
+
+def test_k3_from_bits_plain_matches_pallas_kernel():
+    rng = np.random.RandomState(0)
+    x = rng.rand(3, 40, 129).astype(np.float32)
+    b1, b2 = _bits(rng, x.shape), _bits(rng, x.shape)
+    b1[0, 0, :3] = [0, -1, 0xFFFFFF]  # u1 at its ends, high bits masked off
+    sigma = np.asarray([0.1, 0.02, 0.5], np.float32)
+    ref = np.asarray(add_gaussian_noise_from_bits(jnp.asarray(x), jnp.asarray(b1), jnp.asarray(b2),
+                                                  jnp.asarray(sigma), interpret=True))
+    out = K3.add_gaussian_noise_from_bits(t(x), t(b1), t(b2), t(sigma)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+    z = K3.add_gaussian_noise_from_bits(t(x), t(b1), t(b2), torch.zeros(3)).numpy()
+    np.testing.assert_array_equal(z, x)
+
+
+def test_philox_matches_published_test_vectors():
+    """Philox-4x32-10 known-answer vectors of the Random123 distribution."""
+    vectors = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    as_t = lambda words: [torch.tensor([w], dtype=torch.int64) for w in words]  # noqa: E731
+    for ctr, key, expect in vectors:
+        assert [int(w) for w in K3.philox4x32_10(as_t(ctr), as_t(key))] == list(expect)
+    b1, b2 = K3.philox_bits(torch.tensor([0, -1], dtype=torch.int32), 2)
+    assert b1[0, 0] == 0x6627E8D5 & 0xFFFFFF and b2[0, 0] == 0xE169C58D & 0xFFFFFF
+
+
+def test_k3_seeded_plain_moments_determinism_and_seed_independence():
+    B, S = 48, 64
+    x = torch.full((B, S, S), 0.5)
+    sigma = torch.full((B,), 0.1)
+    sigma[B // 2 :] = 0.05
+    seeds = (torch.arange(B, dtype=torch.int32) + 123456)
+    out = K3.add_gaussian_noise(x, seeds, sigma)
+    assert torch.equal(out, K3.add_gaussian_noise(x, seeds, sigma))
+    z = ((out - 0.5) / sigma[:, None, None]).numpy()
+    assert abs(z.mean()) < 6e-3 and abs(z.std() - 1.0) < 2e-2, (z.mean(), z.std())
+    assert abs(z[: B // 2].std() - z[B // 2 :].std()) < 2e-2
+    # neighbouring seeds (base + arange) give uncorrelated fields: the
+    # correlation of two independent fields of 4096 pixels has std 1/64
+    c = np.corrcoef(z.reshape(B, -1))[np.triu_indices(B, 1)]
+    assert np.abs(c).max() < 5.0 / 64 and np.abs(c).mean() < 1.0 / 64, (np.abs(c).max(), np.abs(c).mean())
+    other = K3.add_gaussian_noise(x, seeds + 1000, sigma)
+    assert not torch.equal(out, other)
+    assert torch.equal(K3.add_gaussian_noise(x, seeds, torch.zeros(B)), x)
+
+
+def test_k3_clips_to_unit_range():
+    x = torch.tensor([[0.0, 1.0, 0.5, 0.99]]).repeat(4, 64)
+    out = K3.add_gaussian_noise(x, torch.arange(4, dtype=torch.int32), torch.full((4,), 0.5))
+    assert out.min() >= 0.0 and out.max() <= 1.0 and (out == 0.0).any() and (out == 1.0).any()
+
+
+# ----------------------------------------------------------- wrappers ---
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    ext.reset_launch_counts()
+    img, roi, ang = _warp_data()
+    K1.warp_roi_rotate(t(img), t(roi), t(ang), 49, 30.0)
+    x, gate = _eq_images(0)
+    K2.equalize(t(x), t(gate))
+    K3.add_gaussian_noise(t(x), torch.arange(10, dtype=torch.int32), torch.full((10,), 0.1))
+    assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits"}
+    assert all(v == 0 for v in ext.LAUNCHES.values())
