@@ -11,8 +11,12 @@ Phases (any failure ends the run with a non-zero exit code):
  3. each kernel (K1 crop warp, K2 equalize, K3 gaussian noise seeded and
     from injected bits) against its plain PyTorch version at the shapes of
     the training step (B=64, 448^2 uint8 sources -> 129^2 crops), with TF32
-    off; median times over 25 launches with CUDA events, L2 flushed before
-    each launch;
+    off; K1 also at exactly +-30 degrees and with minifying and magnifying
+    ROIs. Two times per kernel, with CUDA events: `ms`, the median of 25
+    single launches, each after an L2 flush (it includes the launch
+    latency); `ms_stream`, the mean per launch over 50 back-to-back launches
+    that cycle through at least 16 input buffers (together over 100 MB, twice
+    the 50 MB L2);
  4. the port's output against the port on the CPU on a small input (the
     augmentation and one forward of the full-width model, f32, TF32 off);
  5. the flagship training step (MobileNetV1 x1.0, point head, NLL heads, the
@@ -28,6 +32,7 @@ Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -74,6 +79,46 @@ def time_ms(torch, fn, flush, n=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def stream_ms(torch, launch, inputs, n=50):
+    """Mean device time per launch of `launch(*inputs[i % len(inputs)])` over
+    `n` back-to-back launches: cycling through the input sets keeps each one
+    out of L2 until it comes round again. The device first spins for ~20 ms
+    while the host queues all `n` launches, so that they run back to back and
+    the time is the device's, not the host's rate of launching."""
+    for args in inputs:
+        launch(*args)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    a.record()
+    for i in range(n):
+        launch(*inputs[i % len(inputs)])
+    check(not a.query(), "stream timing: the device finished its spin before the host had queued the launches")
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def rotating(torch, *tensors, min_bytes=100 * 2**20, min_sets=16):
+    """At least `min_sets` copies of the input set `tensors`, together at
+    least `min_bytes`, for `stream_ms`."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(min_sets, math.ceil(min_bytes / nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def k1_cases(torch, view_roi, angles):
+    """K1's checks beyond the main path's draws: every angle at exactly +-30
+    degrees, and the same ROIs (folds kept) resized to |scale| 3.5 and 0.7."""
+    centre = (view_roi[:, :2] + view_roi[:, 2:]) / 2
+    direction = torch.sign(view_roi[:, 2:] - view_roi[:, :2])
+    signs = 1.0 - 2.0 * (torch.arange(angles.shape[0], device=angles.device) % 2)
+    yield "+-30 deg", view_roi, signs * math.radians(THETA)
+    for name, scale in (("minify", 3.5), ("magnify", 0.7)):
+        half = direction * (scale * S / 2)
+        yield name, torch.cat([centre - half, centre + half], -1), angles
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
@@ -143,28 +188,42 @@ def kernel_phase(torch, np, dev):
     view_roi, _ = G.focus_roi_components(torch.from_numpy(x_np["roi"]) + 0.5, params, S)
     do_flip, rot_dir = G.sample_flip_rot90(gen, (B,), 0.5)
     view_roi, angles, _ = fold_fliprot(view_roi, params.angles, do_flip, rot_dir)
+    view_roi, angles = view_roi.to(dev), angles.to(dev)
     cs = K1.canvas_size(S, THETA)
-    kp = K1.warp_params(view_roi.to(dev), angles.to(dev), S, cs)
-    crop = K1.warp_roi_rotate(images, view_roi.to(dev), angles.to(dev), S, THETA)  # the wrapper the step calls
+    kp = K1.warp_params(view_roi, angles, S, cs)
+    crop = K1.warp_roi_rotate(images, view_roi, angles, S, THETA)  # the wrapper the step calls
     ref = K1.warp_roi_rotate_plain(images, kp, S, cs, True)
+    torch.cuda.synchronize()
     d = (crop - ref).abs()
     err_k1 = float(d.max())
     check(err_k1 < 0.02 and float(d.mean()) < 0.002, f"K1 disagrees: max {err_k1}, mean {float(d.mean())}")
-    canvas, k1_out = torch.empty((B, cs, cs), device=dev), torch.empty((B, S, S), device=dev)
-    launch_k1 = lambda: ext.extension().warp_roi_rotate(images, kp, canvas, k1_out, S, cs, True)  # noqa: E731
-    out_skip = K1.warp_roi_rotate(images, view_roi.to(dev), angles.to(dev), S, THETA, skip_rotation=True)
-    ref_skip = K1.warp_roi_rotate_plain(images, K1.warp_params(view_roi.to(dev), angles.to(dev), S, S), S, S, False)
-    check(float((out_skip - ref_skip).abs().max()) < 0.02, "K1 (skip_rotation) disagrees")
+    print(f"K1 warp_roi_rotate (main path draws): max |kernel - plain| {err_k1:.3e} gray (tolerance 0.02), "
+          f"mean {float(d.mean()):.3e}")
+    for case, vr, an in list(k1_cases(torch, view_roi, angles)) + [("skip_rotation", view_roi, angles)]:
+        skip = case == "skip_rotation"
+        ccs = S if skip else cs
+        out = K1.warp_roi_rotate(images, vr, an, S, THETA, skip_rotation=skip)
+        plain = K1.warp_roi_rotate_plain(images, K1.warp_params(vr, an, S, ccs), S, ccs, not skip)
+        torch.cuda.synchronize()
+        d = (out - plain).abs()
+        check(bool(torch.isfinite(out).all()) and float(d.max()) < 0.02 and float(d.mean()) < 0.002,
+              f"K1 ({case}) disagrees: max {float(d.max())}, mean {float(d.mean())}")
+        err_k1 = max(err_k1, float(d.max()))
+        print(f"K1 ({case}): max {float(d.max()):.3e}, mean {float(d.mean()):.3e} gray")
+    plan = K1.launch_plan(SRC, cs, True, *kp[:, [1, 3]].abs().amax(0).tolist())
+    print(f"K1 launch plan at the main path's draws: {plan}")
+    k1_out = torch.empty((B, S, S), device=dev)
+    launch_k1 = lambda img: ext.extension().warp_roi_rotate(img, kp, k1_out, S, cs, True, *plan[:4])  # noqa: E731
     sy, sx = kp[:, 1].abs().clamp(min=1.0), kp[:, 3].abs().clamp(min=1.0)
     taps_y, taps_x = 2 * torch.ceil(sy) + 1, 2 * torch.ceil(sx) + 1
     k1_ops = float((cs * SRC * taps_y * 2 + cs * cs * taps_x * 2).sum()) + B * 3 * cs * cs * 3
     rows.append(dict(
         name="warp_roi_rotate", source="neuralnet_tracker_traincode_torch/kernels/csrc/warp.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/warp_pallas.py:132", max_abs_err=err_k1,
-        ms=time_ms(torch, launch_k1, flush), plain_ms=time_ms(torch, lambda: K1.warp_roi_rotate_plain(images, kp, S, cs, True), flush),
+        ms=time_ms(torch, lambda: launch_k1(images), flush), ms_stream=stream_ms(torch, launch_k1, rotating(torch, images)),
+        plain_ms=time_ms(torch, lambda: K1.warp_roi_rotate_plain(images, kp, S, cs, True), flush),
         bound=bound_ms(B * SRC * SRC + B * 6 * 4 + B * S * S * 4, f32_ops=k1_ops), library_ms=None,
     ))
-    print(f"K1 warp_roi_rotate: max |kernel - plain| {err_k1:.3e} gray (tolerance 0.02), mean {float(d.mean()):.3e}")
 
     # K2 on the crops the main path equalizes, with a draw of its p=0.2 gate
     x = (crop / 256.0).reshape(B, -1).contiguous()
@@ -176,11 +235,12 @@ def kernel_phase(torch, np, dev):
         err_k2 = max(err_k2, float(d.max()))
     check(err_k2 == 0.0, f"K2 is not bit-equal to its plain version: max {err_k2}")
     eq_out = torch.empty_like(x)
-    launch_k2 = lambda: ext.extension().equalize(x, gate, eq_out)  # noqa: E731
+    launch_k2 = lambda xs: ext.extension().equalize(xs, gate, eq_out)  # noqa: E731
     rows.append(dict(
         name="equalize", source="neuralnet_tracker_traincode_torch/kernels/csrc/equalize.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/equalize_pallas.py:114", max_abs_err=err_k2,
-        ms=time_ms(torch, launch_k2, flush), plain_ms=time_ms(torch, lambda: K2.equalize_plain(x, gate), flush),
+        ms=time_ms(torch, lambda: launch_k2(x), flush), ms_stream=stream_ms(torch, launch_k2, rotating(torch, x)),
+        plain_ms=time_ms(torch, lambda: K2.equalize_plain(x, gate), flush),
         bound=bound_ms(2 * B * P * 4 + B * 4, f32_ops=4 * B * P), library_ms=None,
     ))
     print("K2 equalize: bit-equal to the plain version (gate drawn and all on)")
@@ -207,26 +267,29 @@ def kernel_phase(torch, np, dev):
     check(float(c.max()) < 5.0 / P**0.5, f"K3 fields of neighbouring seeds correlate: {float(c.max())}")
     check(torch.equal(K3.add_gaussian_noise(x, seeds, torch.zeros_like(sigma)), x), "K3 with sigma 0 is not a pass-through")
     n_out = torch.empty_like(x)
-    launch_k3 = lambda: ext.extension().gaussian_noise(x, seeds, sigma, n_out)  # noqa: E731
-    launch_k3b = lambda: ext.extension().gaussian_noise_from_bits(x, b1, b2, sigma, n_out)  # noqa: E731
+    launch_k3 = lambda xs: ext.extension().gaussian_noise(xs, seeds, sigma, n_out)  # noqa: E731
+    launch_k3b = lambda xs, c1, c2: ext.extension().gaussian_noise_from_bits(xs, c1, c2, sigma, n_out)  # noqa: E731
     k3_f32 = 12 * B * P  # Box-Muller, scale, add, clip
     rows.append(dict(
         name="gaussian_noise", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:76", max_abs_err=err_k3,
-        ms=time_ms(torch, launch_k3, flush), plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma), flush),
+        ms=time_ms(torch, lambda: launch_k3(x), flush), ms_stream=stream_ms(torch, launch_k3, rotating(torch, x)),
+        plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma), flush),
         bound=bound_ms(2 * B * P * 4 + 8 * B, f32_ops=k3_f32, i32_ops=100 * B * P), library_ms=None,
     ))
     rows.append(dict(
         name="gaussian_noise_from_bits", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:98", max_abs_err=err_k3b,
-        ms=time_ms(torch, launch_k3b, flush),
+        ms=time_ms(torch, lambda: launch_k3b(x, b1, b2), flush),
+        ms_stream=stream_ms(torch, launch_k3b, rotating(torch, x, b1, b2)),
         plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma), flush),
         bound=bound_ms(4 * B * P * 4 + 4 * B, f32_ops=k3_f32), library_ms=None,
     ))
     print(f"K3 gaussian_noise: max |kernel - plain| {err_k3:.3e} (tolerance 1e-6), bits equal; "
           f"moments {float(z.mean()):.2e} / {float(z.std()):.4f}; from bits {err_k3b:.3e}")
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        print(f"  {r['name']}: {r['ms']:.4f} ms, stream {r['ms_stream']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     torch.cuda.synchronize()
     return rows
 
@@ -364,7 +427,8 @@ def main() -> int:
         (b_ms, b_by) = r.pop("bound")
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
-            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
+            plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}))

@@ -19,20 +19,20 @@ void check(const torch::Tensor& t, torch::ScalarType dtype, const char* name) {
     TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-void warp_roi_rotate(torch::Tensor img, torch::Tensor params, torch::Tensor canvas, torch::Tensor out,
-                     int64_t out_size, int64_t canvas_size, bool rotate) {
+void warp_roi_rotate(torch::Tensor img, torch::Tensor params, torch::Tensor out, int64_t out_size,
+                     int64_t canvas_size, bool rotate, int64_t taps_x, int64_t taps_y, int64_t chunk,
+                     int64_t band_rows) {
     check(img, torch::kUInt8, "images");
     check(params, torch::kFloat32, "params");
-    check(canvas, torch::kFloat32, "canvas");
     check(out, torch::kFloat32, "out");
     TORCH_CHECK(img.dim() == 3 && params.size(0) == img.size(0) && params.size(1) == 6);
     TORCH_CHECK(out.numel() == img.size(0) * out_size * out_size);
-    TORCH_CHECK(!rotate || canvas.numel() == img.size(0) * canvas_size * canvas_size);
+    TORCH_CHECK(rotate || canvas_size == out_size, "without rotation the canvas is the crop");
     const c10::cuda::CUDAGuard guard(img.device());
-    C10_CUDA_CHECK(nntc_warp_roi_rotate(img.data_ptr<uint8_t>(), params.data_ptr<float>(),
-                                        canvas.data_ptr<float>(), out.data_ptr<float>(), (int)img.size(0),
-                                        (int)img.size(1), (int)img.size(2), (int)out_size, (int)canvas_size,
-                                        rotate ? 1 : 0, at::cuda::getCurrentCUDAStream()));
+    C10_CUDA_CHECK(nntc_warp_roi_rotate(img.data_ptr<uint8_t>(), params.data_ptr<float>(), out.data_ptr<float>(),
+                                        (int)img.size(0), (int)img.size(1), (int)img.size(2), (int)out_size,
+                                        (int)canvas_size, rotate ? 1 : 0, (int)taps_x, (int)taps_y, (int)chunk,
+                                        (int)band_rows, at::cuda::getCurrentCUDAStream()));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

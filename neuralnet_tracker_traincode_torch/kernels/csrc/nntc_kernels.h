@@ -7,11 +7,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// K1: crop warp. img (B, H, W) uint8; params (B, 6) f32 rows
-// [y0', sy, x0', sx, a, b]; canvas (B, CS, CS) f32 scratch (unused when
-// rotate == 0, where CS == S); out (B, S, S) f32.
-cudaError_t nntc_warp_roi_rotate(const uint8_t* img, const float* params, float* canvas, float* out,
-                                 int B, int H, int W, int S, int CS, int rotate, cudaStream_t stream);
+// K1: crop warp, one launch of one 2-CTA cluster per sample, the canvas in
+// shared memory. img (B, H, W) uint8; params (B, 6) f32 rows
+// [y0', sy, x0', sx, a, b]; out (B, S, S) f32 (CS == S when rotate == 0).
+// taps_x, taps_y: filter taps per canvas column / row for the batch's largest
+// |sx|, |sy|; chunk: canvas rows filtered per step; band_rows: source rows a
+// chunk may tap (kernels/warp.py:launch_plan). Returns cudaErrorInvalidValue
+// when the shared memory this takes exceeds 227 KB.
+cudaError_t nntc_warp_roi_rotate(const uint8_t* img, const float* params, float* out, int B, int H, int W, int S,
+                                 int CS, int rotate, int taps_x, int taps_y, int chunk, int band_rows,
+                                 cudaStream_t stream);
 
 // K2: per-image histogram equalization. x, out (B, P) f32; gate (B,) int32.
 cudaError_t nntc_equalize(const float* x, const int32_t* gate, float* out, int B, int P,

@@ -4,13 +4,18 @@ Marked `cuda`: they need an NVIDIA GPU and `nvcc` (the kernels build at first
 use) and skip without a card. On the machine with the card:
 `python -m pytest -m cuda tests/test_torch_kernels_cuda.py`.
 Tolerances as in `chip_smoke.py`: K1 max 0.02 / mean 0.002 gray, K2
-bit-equal, K3 bits bit-equal and output 1e-6.
+bit-equal, K3 bits bit-equal and output 1e-6. K1 runs at the main path's
+shapes (B = 64, 448^2 -> 129^2) with every fold, +-30 degrees, a minifying,
+a magnifying and a partly outside ROI, and with `skip_rotation`.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from neuralnet_tracker_traincode_torch.augmentation.warp_fast import fold_fliprot
 from neuralnet_tracker_traincode_torch.kernels import equalize as K2
 from neuralnet_tracker_traincode_torch.kernels import ext
 from neuralnet_tracker_traincode_torch.kernels import noise as K3
@@ -38,6 +43,76 @@ def test_k1_kernel_matches_plain(dev):
         out = K1.warp_roi_rotate(img.to(dev), roi.to(dev), ang.to(dev), 129, 30.0, skip).cpu()
         d = (out - ref).abs()
         assert d.max() < 0.02 and d.mean() < 0.002, (d.max(), d.mean())
+
+
+def _main_path_batch(case, B=64, src=448, S=129):
+    """B sources of src^2 and view ROIs of the main path's geometry: all four
+    flip/rot90 folds, a quarter of the angles at exactly +-30 degrees, and
+    ROIs sized for the case (|scale| ~2.2, ~3.5 or < 1), some partly outside."""
+    g = torch.Generator().manual_seed(11)
+    img = torch.randint(0, 256, (B, src, src), generator=g, dtype=torch.uint8)
+    size = {"main": 2.2 * S, "minify": 3.5 * S, "magnify": 0.7 * S, "outside": 2.2 * S}[case]
+    centre = src / 2 + (torch.rand(B, 2, generator=g) - 0.5) * 120
+    if case == "outside":
+        centre = centre + torch.tensor([[src / 2, -src / 2]]) * torch.sign(torch.randn(B, 2, generator=g))
+    roi = torch.cat([centre - size / 2, centre + size / 2], -1)
+    ang = (torch.rand(B, generator=g) - 0.5) * 2 * math.radians(30.0)
+    ang[: B // 4] = torch.tensor([1.0, -1.0]).repeat(B // 8) * math.radians(30.0)
+    do_flip = (torch.arange(B) % 2) == 1
+    rot_dir = ((torch.arange(B) // 2) % 3 - 1).float()
+    view_roi, ang, _ = fold_fliprot(roi, ang, do_flip, rot_dir)
+    return img, view_roi, ang
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("case", ["main", "minify", "magnify", "outside"])
+def test_k1_kernel_matches_plain_at_main_path_shapes(dev, case, skip):
+    """B = 64, 448^2 -> 129^2 through the wrapper the step calls, against the
+    plain version on the card (TF32 off): max 0.02, mean 0.002 gray."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, view_roi, ang = (x.to(dev) for x in _main_path_batch(case))
+    S = 129
+    cs = S if skip else K1.canvas_size(S, 30.0)
+    params = K1.warp_params(view_roi, ang, S, cs)
+    ext.reset_launch_counts()
+    out = K1.warp_roi_rotate(img, view_roi, ang, S, 30.0, skip)
+    assert ext.LAUNCHES["warp_roi_rotate"] == 1
+    ref = K1.warp_roi_rotate_plain(img, params, S, cs, not skip)
+    torch.cuda.synchronize()
+    d = (out - ref).abs()
+    assert torch.isfinite(out).all() and d.max() < 0.02 and d.mean() < 0.002, (case, d.max(), d.mean())
+
+
+def test_k1_kernel_fill_of_every_shear_stage(dev):
+    """A canvas only 8 pixels wider than the crop: at +-30 degrees the pull
+    reaches the zero fill of every stage; the kernel against the plain
+    version's three shears and against the composed pull."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, view_roi, ang = (x.to(dev) for x in _main_path_batch("main"))
+    S = 129
+    cs = S + 8
+    params = K1.warp_params(view_roi, ang, S, cs)
+    max_sy, max_sx = params[:, [1, 3]].abs().amax(0).tolist()
+    plan = K1.launch_plan(img.shape[2], cs, True, max_sy, max_sx)
+    out = torch.empty((img.shape[0], S, S), device=dev)
+    ext.extension().warp_roi_rotate(img, params, out, S, cs, True, *plan[:4])
+    ref = K1.warp_roi_rotate_plain(img, params, S, cs, True)
+    pull = K1.compose_shears_pull(K1.warp_roi_rotate_plain(img, params, cs, cs, False), params, S)
+    torch.cuda.synchronize()
+    assert (pull - ref).abs().max() <= 1e-4
+    d = (out - ref).abs()
+    assert d.max() < 0.02 and d.mean() < 0.002, (d.max(), d.mean())
+
+
+def test_k1_wrapper_raises_when_the_taps_do_not_fit(dev):
+    img = torch.zeros((2, 448, 448), dtype=torch.uint8, device=dev)
+    roi = torch.tensor([[-4000.0, -4000.0, 4000.0, 4000.0]] * 2, device=dev)  # |scale| = 62
+    ext.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.warp_roi_rotate(img, roi, torch.zeros(2, device=dev), 129, 30.0)
+    with pytest.raises(TypeError):
+        K1.warp_roi_rotate(img.float(), roi, torch.zeros(2, device=dev), 129, 30.0)
+    assert ext.LAUNCHES["warp_roi_rotate"] == 0
 
 
 def test_k2_kernel_is_bit_equal_to_plain(dev):

@@ -14,6 +14,7 @@ On the card each CUDA kernel is held against these plain versions
    `tests/test_noise_pallas.py` holds the TPU kernel.
 """
 
+import math
 import os
 
 import jax
@@ -85,6 +86,64 @@ def test_k1_with_flip_and_rot90_matches_xla_warp(skip_rotation):
                              skip_rotation=skip_rotation)
     dmax, dmean = _gray_diff(out.numpy(), ref)
     assert dmax < 0.02 and dmean < 0.002, (dmax, dmean)
+
+
+_FOLDS = {  # (do_flip, rot_dir): the folded flip reverses x, rot+90 reverses y, rot-90 and a flip neither
+    "none": (False, 0.0), "flip_x": (True, 0.0), "flip_y": (False, 1.0), "flip_xy": (True, 1.0),
+}
+
+
+@pytest.mark.parametrize("tight", [False, True])
+@pytest.mark.parametrize("fold", sorted(_FOLDS))
+@pytest.mark.parametrize("S", [49, 129])
+def test_k1_composed_shear_pull_matches_three_shears(S, fold, tight):
+    """`compose_shears_pull` (the CUDA kernel's 8-tap pull with each stage's
+    zero fill) against the plain version's three `_shear_rows` and crop, at
+    exactly +-30 degrees, 0 and +-0.45 rad, with the flips folded into the ROI
+    and the angle. `canvas_size` leaves a margin that the pull never reaches;
+    a tight canvas (S + 8) makes the crop's corners pull from the zero fill
+    of every stage."""
+    rng = np.random.RandomState(S)
+    H = 2 * S
+    ang = np.asarray([math.radians(30.0), -math.radians(30.0), 0.0, 0.45, -0.45], np.float32)
+    B = ang.shape[0]
+    img = rng.randint(0, 256, size=(B, H, H)).astype(np.uint8)
+    roi = np.tile(np.asarray([[0.2 * H, 0.15 * H, 0.85 * H, 0.8 * H]], np.float32), (B, 1))
+    roi[-1] = [-0.1 * H, -0.2 * H, 0.7 * H, 0.6 * H]  # partly outside the source
+    do_flip, rot_dir = _FOLDS[fold]
+    view_roi, angles, _ = TW.fold_fliprot(t(roi), t(ang), torch.full((B,), do_flip), torch.full((B,), rot_dir))
+    assert (view_roi[:, 2] < view_roi[:, 0]).all() == fold.endswith(("x", "xy"))
+    cs = S + 8 if tight else K1.canvas_size(S, 30.0)
+    params = K1.warp_params(view_roi, angles, S, cs)
+    canvas = K1.warp_roi_rotate_plain(t(img), params, cs, cs, False)
+    ref = K1.warp_roi_rotate_plain(t(img), params, S, cs, True)
+    out = K1.compose_shears_pull(canvas, params, S)
+    assert out.shape == (B, S, S) and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize(
+    "max_s, chunk",
+    [(2.17, 16), (3.5, 16), (0.6, 16), (6.0, 8), (30.0, None)],  # main path, minify, magnify, far, too far
+)
+def test_k1_launch_plan_sizes_shared_memory_or_raises(max_s, chunk):
+    """The plan holds every tap of a chunk's rows within its band, and the
+    canvas half plus tables within 227 KB, or it raises: no fallback."""
+    if chunk is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            K1.launch_plan(448, 225, True, max_s, max_s)
+        return
+    plan = K1.launch_plan(448, 225, True, max_s, max_s)
+    assert plan.chunk == chunk and plan.shared_bytes <= K1.SHARED_BYTES_PER_BLOCK
+    assert plan.taps_x == plan.taps_y == math.ceil(2 * max(max_s, 1.0)) + 1
+    # every source row a chunk's taps reach, at any start, fits the band
+    for y0 in np.linspace(-40.0, 30.0, 7):
+        p = np.float32(y0) + np.float32(max_s) * (np.arange(225, dtype=np.float32) + np.float32(0.5))
+        first = np.floor(p - np.float32(0.5) - np.float32(max(max_s, 1.0))).astype(np.int64) + 1
+        for cb in range(0, 225, plan.chunk):
+            rows = first[cb : cb + plan.chunk]
+            assert rows.max() - rows.min() + plan.taps_y <= plan.band_rows
+    assert K1.launch_plan(448, 129, False, max_s, max_s).shared_bytes < plan.shared_bytes
 
 
 def test_k1_canvas_size_and_params_match_jax():
