@@ -12,11 +12,17 @@ Phases (any failure ends the run with a non-zero exit code):
     from injected bits) against its plain PyTorch version at the shapes of
     the training step (B=64, 448^2 uint8 sources -> 129^2 crops), with TF32
     off; K1 also at exactly +-30 degrees and with minifying and magnifying
-    ROIs. Two times per kernel, with CUDA events: `ms`, the median of 25
-    single launches, each after an L2 flush (it includes the launch
+    ROIs; K2 bit-equal with the gate drawn and all on, and on a one-bin and
+    a two-bin image; K3 at the drawn sigma (mostly 0), at all sigma > 0 and
+    at an odd P, at offsets 0 and -0.5, its bits equal to K3b's on
+    `philox_bits`. Two times per kernel, with CUDA events: `ms`, the median
+    of 25 single launches, each after an L2 flush (it includes the launch
     latency); `ms_stream`, the mean per launch over 50 back-to-back launches
     that cycle through at least 16 input buffers (together over 100 MB, twice
-    the 50 MB L2);
+    the 50 MB L2). Then a line with K2's and K3's `ms_stream` with every
+    sample on (gate 1, sigma > 0), beside the drawn ones, which skip work;
+    and `torch.clamp` over the same buffers, a yardstick of one launch that
+    reads and writes as many bytes;
  4. the port's output against the port on the CPU on a small input (the
     augmentation and one forward of the full-width model, f32, TF32 off);
  5. the flagship training step (MobileNetV1 x1.0, point head, NLL heads, the
@@ -229,30 +235,47 @@ def kernel_phase(torch, np, dev):
     x = (crop / 256.0).reshape(B, -1).contiguous()
     P = x.shape[1]
     gate = (torch.rand(B, generator=gen) < 0.2).to(torch.int32).to(dev)
+    on = torch.ones_like(gate)
+    few_bins = x.clone()
+    few_bins[0] = 0.3  # one bin: step 0, passes through
+    few_bins[1] = torch.where(x[1] < 0.5, 0.2, 0.9)  # two bins
     err_k2 = 0.0
-    for g in (gate, torch.ones_like(gate)):
-        d = (K2.equalize(x, g) - K2.equalize_plain(x, g)).abs()
-        err_k2 = max(err_k2, float(d.max()))
-    check(err_k2 == 0.0, f"K2 is not bit-equal to its plain version: max {err_k2}")
+    for xs, g in ((x, gate), (x, on), (few_bins, on)):
+        out, ref = K2.equalize(xs, g), K2.equalize_plain(xs, g)
+        err_k2 = max(err_k2, float((out - ref).abs().max()))
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"K2 is not bit-equal to its plain version: max {err_k2}")
     eq_out = torch.empty_like(x)
-    launch_k2 = lambda xs: ext.extension().equalize(xs, gate, eq_out)  # noqa: E731
+    k2_inputs = rotating(torch, x)
+
+    def launch_k2(xs, g=gate):
+        ext.extension().equalize(xs, g, eq_out)
+
     rows.append(dict(
         name="equalize", source="neuralnet_tracker_traincode_torch/kernels/csrc/equalize.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/equalize_pallas.py:114", max_abs_err=err_k2,
-        ms=time_ms(torch, lambda: launch_k2(x), flush), ms_stream=stream_ms(torch, launch_k2, rotating(torch, x)),
+        ms=time_ms(torch, lambda: launch_k2(x), flush), ms_stream=stream_ms(torch, launch_k2, k2_inputs),
         plain_ms=time_ms(torch, lambda: K2.equalize_plain(x, gate), flush),
         bound=bound_ms(2 * B * P * 4 + B * 4, f32_ops=4 * B * P), library_ms=None,
     ))
-    print("K2 equalize: bit-equal to the plain version (gate drawn and all on)")
+    k2_all_on = stream_ms(torch, lambda xs: launch_k2(xs, on), k2_inputs)
+    print(f"K2 equalize: bit-equal to the plain version (gate drawn, {int(gate.sum())} of {B} on; all on; "
+          f"a one-bin and a two-bin image)")
 
-    # K3 at the main path's combined sigmas and base + arange seeds
+    # K3 at the main path's combined sigmas and base + arange seeds; the main
+    # path adds the whitening's -0.5 in the kernel
     noise = sample_noise_parameters(gen, B)
     sigma, seeds = noise.sigma.to(dev), noise.seeds.to(dev)
+    n_on = int((sigma > 0).sum())
     sigma_on = torch.full((B,), 16.0 / 255.0, device=dev)
+    odd = (x[:7, :999].contiguous(), seeds[:7], torch.where(torch.arange(7, device=dev) % 2 == 0, sigma_on[:7], 0.0))
+    err_k3 = 0.0
+    for xs, sd, sg in ((x, seeds, sigma), (x, seeds, sigma_on), odd):
+        for offset in (0.0, -0.5):
+            d = float((K3.add_gaussian_noise(xs, sd, sg, offset) - K3.add_gaussian_noise_plain(xs, sd, sg, offset)).abs().max())
+            err_k3 = max(err_k3, d)
+            check(d <= 1e-6, f"K3 (P={xs.shape[1]}, offset {offset}) disagrees with its plain version: {d}")
     out = K3.add_gaussian_noise(x, seeds, sigma_on)
-    plain = K3.add_gaussian_noise_plain(x, seeds, sigma_on)
-    err_k3 = float((out - plain).abs().max())
-    check(err_k3 <= 1e-6, f"K3 disagrees with its plain version: {err_k3}")
     b1, b2 = K3.philox_bits(seeds, P)
     out_bits = K3.add_gaussian_noise_from_bits(x, b1, b2, sigma_on)
     check(torch.equal(out_bits, out), "K3 seeded and K3 with the plain version's Philox bits differ")
@@ -267,26 +290,43 @@ def kernel_phase(torch, np, dev):
     check(float(c.max()) < 5.0 / P**0.5, f"K3 fields of neighbouring seeds correlate: {float(c.max())}")
     check(torch.equal(K3.add_gaussian_noise(x, seeds, torch.zeros_like(sigma)), x), "K3 with sigma 0 is not a pass-through")
     n_out = torch.empty_like(x)
-    launch_k3 = lambda xs: ext.extension().gaussian_noise(xs, seeds, sigma, n_out)  # noqa: E731
+    k3_inputs = rotating(torch, x)
+
+    def launch_k3(xs, sg=sigma):
+        ext.extension().gaussian_noise(xs, seeds, sg, n_out, -0.5)
+
     launch_k3b = lambda xs, c1, c2: ext.extension().gaussian_noise_from_bits(xs, c1, c2, sigma, n_out)  # noqa: E731
-    k3_f32 = 12 * B * P  # Box-Muller, scale, add, clip
+    # what these draws need: half a Philox call (~50 integer operations) and the Box-Muller tail, scale, add,
+    # clip and offset (13 f32 operations) for each pixel of a sample with sigma > 0; clip and offset otherwise
+    k3_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=(13 * n_on + 3 * (B - n_on)) * P, i32_ops=50 * n_on * P)
     rows.append(dict(
         name="gaussian_noise", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:76", max_abs_err=err_k3,
-        ms=time_ms(torch, lambda: launch_k3(x), flush), ms_stream=stream_ms(torch, launch_k3, rotating(torch, x)),
-        plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma), flush),
-        bound=bound_ms(2 * B * P * 4 + 8 * B, f32_ops=k3_f32, i32_ops=100 * B * P), library_ms=None,
+        ms=time_ms(torch, lambda: launch_k3(x), flush), ms_stream=stream_ms(torch, launch_k3, k3_inputs),
+        plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma, -0.5), flush),
+        bound=k3_bound, library_ms=None,
     ))
+    k3_all_on = stream_ms(torch, lambda xs: launch_k3(xs, sigma_on), k3_inputs)
+    k3_all_on_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=13 * B * P, i32_ops=50 * B * P)
     rows.append(dict(
         name="gaussian_noise_from_bits", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:98", max_abs_err=err_k3b,
         ms=time_ms(torch, lambda: launch_k3b(x, b1, b2), flush),
         ms_stream=stream_ms(torch, launch_k3b, rotating(torch, x, b1, b2)),
         plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma), flush),
-        bound=bound_ms(4 * B * P * 4 + 4 * B, f32_ops=k3_f32), library_ms=None,
+        bound=bound_ms(4 * B * P * 4 + 4 * B, f32_ops=12 * B * P), library_ms=None,
     ))
-    print(f"K3 gaussian_noise: max |kernel - plain| {err_k3:.3e} (tolerance 1e-6), bits equal; "
-          f"moments {float(z.mean()):.2e} / {float(z.std()):.4f}; from bits {err_k3b:.3e}")
+    print(f"K3 gaussian_noise: {n_on} of {B} samples have sigma > 0 at the main path's draw; max |kernel - plain| "
+          f"{err_k3:.3e} (tolerance 1e-6) at that draw, all sigma > 0 and odd P=999, offsets 0 and -0.5; bits equal "
+          f"to K3b's on philox_bits; moments {float(z.mean()):.2e} / {float(z.std()):.4f}; from bits {err_k3b:.3e}")
+    print(f"all samples on: equalize (every gate 1) ms_stream {k2_all_on:.4f} ms beside {rows[1]['ms_stream']:.4f} "
+          f"at the drawn gate; gaussian_noise (every sigma > 0) ms_stream {k3_all_on:.4f} ms, bound "
+          f"{k3_all_on_bound[0]:.4f} ms ({k3_all_on_bound[1]}), beside {rows[2]['ms_stream']:.4f} at the drawn sigma")
+    # a yardstick, not a kernel of the port: PyTorch's own elementwise pass over the same (B, P) f32 buffers
+    # reads and writes what K2 and K3 must, so it shows what a launch of that size takes on this card
+    clamp_out = torch.empty_like(x)
+    floor_ms = stream_ms(torch, lambda xs: torch.clamp(xs, 0.0, 1.0, out=clamp_out), k3_inputs)
+    print(f"elementwise yardstick: torch.clamp over the same ({B}, {P}) f32 buffers, ms_stream {floor_ms:.4f} ms")
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, stream {r['ms_stream']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")

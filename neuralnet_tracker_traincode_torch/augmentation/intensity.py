@@ -147,10 +147,13 @@ def intensity_augmentation_stage1(images: torch.Tensor, params: Stage1Parameters
     return x
 
 
-def intensity_augmentation_noise(images: torch.Tensor, params: NoiseParameters) -> torch.Tensor:
-    """Gaussian noise at the combined per-sample sigma through K3, then clip."""
-    return K3.add_gaussian_noise(images.contiguous(), params.seeds, params.sigma)
+def intensity_augmentation_noise(images: torch.Tensor, params: NoiseParameters, offset: float) -> torch.Tensor:
+    """Gaussian noise at the combined per-sample sigma through K3, then clip,
+    then add `offset` (the caller's whitening, in the same pass)."""
+    return K3.add_gaussian_noise(images.contiguous(), params.seeds, params.sigma, offset)
 
 
-def intensity_augmentation(images: torch.Tensor, stage1: Stage1Parameters, noise: NoiseParameters):
-    return intensity_augmentation_noise(intensity_augmentation_stage1(images, stage1), noise)
+def intensity_augmentation(
+    images: torch.Tensor, stage1: Stage1Parameters, noise: NoiseParameters, offset: float
+) -> torch.Tensor:
+    return intensity_augmentation_noise(intensity_augmentation_stage1(images, stage1), noise, offset)

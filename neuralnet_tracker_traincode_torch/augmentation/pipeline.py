@@ -3,7 +3,8 @@
 
     half-pixel label offset -> ROI focus crop with folded flip/rot90 (K1) ->
     matched label affines -> normalize -> intensity stage 1 (K2 for
-    equalize) -> gaussian noise (K3) -> whiten
+    equalize) -> gaussian noise (K3) -> whiten (fused into K3 when the
+    image augmentation runs)
 
 `sample_augmentation_parameters` draws every random value from a
 `torch.Generator`; `augment_batch_for_training` applies explicit draws, so a
@@ -167,7 +168,8 @@ def augment_batch_for_training(
 
     x = warped * (1.0 / 256.0)
     if cfg.enable_image_aug and not cfg.deterministic:
-        x = intensity_augmentation(x, params.stage1.to(dev), params.noise.to(dev))
+        # K3 adds the whitening's -0.5 after its clip: x + (-0.5) == x - 0.5 in f32
+        return intensity_augmentation(x, params.stage1.to(dev), params.noise.to(dev), offset=-0.5), labels
     return x - 0.5, labels
 
 

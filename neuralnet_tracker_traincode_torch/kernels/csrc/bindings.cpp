@@ -47,7 +47,7 @@ void equalize(torch::Tensor x, torch::Tensor gate, torch::Tensor out) {
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void gaussian_noise(torch::Tensor x, torch::Tensor seeds, torch::Tensor sigma, torch::Tensor out) {
+void gaussian_noise(torch::Tensor x, torch::Tensor seeds, torch::Tensor sigma, torch::Tensor out, double offset) {
     check(x, torch::kFloat32, "images");
     check(seeds, torch::kInt32, "seeds");
     check(sigma, torch::kFloat32, "sigma");
@@ -56,7 +56,7 @@ void gaussian_noise(torch::Tensor x, torch::Tensor seeds, torch::Tensor sigma, t
                 out.sizes() == x.sizes());
     const c10::cuda::CUDAGuard guard(x.device());
     C10_CUDA_CHECK(nntc_gaussian_noise(x.data_ptr<float>(), seeds.data_ptr<int32_t>(), sigma.data_ptr<float>(),
-                                       out.data_ptr<float>(), (int)x.size(0), (int)x.size(1),
+                                       out.data_ptr<float>(), (int)x.size(0), (int)x.size(1), (float)offset,
                                        at::cuda::getCurrentCUDAStream()));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -82,7 +82,7 @@ void gaussian_noise_from_bits(torch::Tensor x, torch::Tensor bits1, torch::Tenso
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("warp_roi_rotate", &warp_roi_rotate, "K1: crop warp (uint8 source -> f32 crop)");
-    m.def("equalize", &equalize, "K2: per-image histogram equalization");
-    m.def("gaussian_noise", &gaussian_noise, "K3: Philox-seeded gaussian noise");
+    m.def("equalize", &equalize, "K2: per-image histogram equalization, one cluster of 8 CTAs per image");
+    m.def("gaussian_noise", &gaussian_noise, "K3: Philox-seeded gaussian noise, clip, + offset");
     m.def("gaussian_noise_from_bits", &gaussian_noise_from_bits, "K3: gaussian noise from injected bits");
 }

@@ -7,11 +7,14 @@
 //
 // What it computes, per pixel p of sample b: two 24-bit words b1, b2;
 // u1 = (b1 + 1) / 2^24, u2 = b2 / 2^24; z = sqrt(-2 ln u1) * cos(2 pi u2);
-// out = clip(x + sigma[b] * z, 0, 1). The TPU kernel draws b1, b2 from the
-// TPU's hardware generator, which has no GPU counterpart: here they are words
-// 0 and 1 of a counter-based Philox-4x32-10 (key = (seeds[b], 0), counter =
-// (p, 0, 0, 0)), masked to 24 bits. The plain version computes the same
-// Philox in torch integer ops, so the two agree bit for bit in the bits.
+// out = clip(x + sigma[b] * z, 0, 1) + offset (offset 0 is the TPU kernel's
+// function; the training pipeline passes -0.5, its whitening). The TPU kernel
+// draws b1, b2 from the TPU's hardware generator, which has no GPU
+// counterpart: here they come from a counter-based Philox-4x32-10. Pixel pair
+// q = p >> 1 takes key (seeds[b], 0) and counter (q, 0, 0, 0); the even pixel
+// takes words 0 and 1, the odd pixel words 2 and 3, each masked to 24 bits
+// (when P is odd the last pair has one pixel). The plain version computes the
+// same Philox in torch integer ops, so the two agree bit for bit in the bits.
 // Products and sums of the Box-Muller tail are rounded one by one
 // (__fmul_rn/__fadd_rn) so no FMA contraction separates the kernel from
 // PyTorch's elementwise ops; logf/cosf/sqrtf are the IEEE-accurate library
@@ -19,56 +22,86 @@
 //
 // What bounds it on the H100: memory. It reads and writes B*P*4 bytes each
 // (8.5 MB at B=64, P=129^2: about 2.5 us at 3.35 TB/s); Philox costs about
-// 100 integer operations a pixel, below that at the card's rate. What the
-// design does about it: one thread per pixel, the random bits made in
-// registers and never stored, one coalesced read and one write a pixel. The
-// injected-bits entry reads two more words a pixel; it is the test surface.
+// 50 integer operations a pixel, and only pixels of samples with sigma > 0
+// need it (about 31% of the samples on the main path). What the design does
+// about it:
+//   - one sample per blockIdx.y, so sigma == 0 is uniform across the block:
+//     such a block skips Philox and Box-Muller and writes clip(x, 0, 1) +
+//     offset over 2 * kThreads consecutive pixels, coalesced (bit-equal to
+//     the noisy formula, since x + 0 * z == x);
+//   - otherwise one thread per pixel pair, one Philox call for both pixels;
+//   - the random bits are made in registers and never stored; one read and
+//     one write a pixel, the whitening fused as the offset.
+// With every sigma > 0 the SM's instruction issue bounds it instead: half a
+// Philox call and the IEEE logf, cosf and sqrtf come to a few hundred
+// instructions a pixel pair.
+// The injected-bits entry reads two more words a pixel; it is the test
+// surface and keeps the TPU kernel's function (no offset).
 // CUDA rather than Triton, so that all three kernels share one build.
 
 #include "nntc_kernels.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // pixel pairs a block: 2 * kThreads pixels
 
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+// Philox-4x32-10 of counter (ctr, 0, 0, 0) and key (k0, 0): the four words.
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t ctr, uint32_t k0) {
     constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
     constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+    uint32_t c0 = ctr, c1 = 0u, c2 = 0u, c3 = 0u, k1 = 0u;
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
-        const uint32_t hi0 = __umulhi(M0, c[0]), lo0 = M0 * c[0];
-        const uint32_t hi1 = __umulhi(M1, c[2]), lo1 = M1 * c[2];
-        const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-        c[0] = n0;
-        c[1] = lo1;
-        c[2] = n2;
-        c[3] = lo0;
+        const uint32_t hi0 = __umulhi(M0, c0), lo0 = M0 * c0;
+        const uint32_t hi1 = __umulhi(M1, c2), lo1 = M1 * c2;
+        c0 = hi1 ^ c1 ^ k0;
+        c1 = lo1;
+        c2 = hi0 ^ c3 ^ k1;
+        c3 = lo0;
         k0 += W0;
         k1 += W1;
     }
+    return make_uint4(c0, c1, c2, c3);
 }
+
+__device__ __forceinline__ float clip01(float y) { return fminf(fmaxf(y, 0.0f), 1.0f); }
 
 __device__ __forceinline__ float apply_noise(int32_t bits1, int32_t bits2, float x, float sigma) {
     const float u1 = __fmul_rn((float)(bits1 + 1), 1.0f / 16777216.0f);
     const float u2 = __fmul_rn((float)bits2, 1.0f / 16777216.0f);
     const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
     const float z = __fmul_rn(r, cosf(__fmul_rn(6.283185307179586f, u2)));
-    const float y = __fadd_rn(x, __fmul_rn(sigma, z));
-    return fminf(fmaxf(y, 0.0f), 1.0f);
+    return clip01(__fadd_rn(x, __fmul_rn(sigma, z)));
 }
 
-__global__ void noise_seeded_kernel(const float* __restrict__ x, const int32_t* __restrict__ seeds,
-                                    const float* __restrict__ sigma, float* __restrict__ out, int P) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kThreads) noise_seeded_kernel(const float* __restrict__ x,
+                                                                const int32_t* __restrict__ seeds,
+                                                                const float* __restrict__ sigma,
+                                                                float* __restrict__ out, int P, float offset) {
     const int b = blockIdx.y;
+    const int t = threadIdx.x;
+    const int p0 = blockIdx.x * (2 * kThreads);  // the block's first pixel
+    const size_t base = (size_t)b * P;
+    const float s = sigma[b];
+    if (s == 0.0f) {  // both loads in flight before either store
+        const int pa = p0 + t, pb = p0 + kThreads + t;
+        const float va = pa < P ? x[base + pa] : 0.0f, vb = pb < P ? x[base + pb] : 0.0f;
+        if (pa < P) out[base + pa] = __fadd_rn(clip01(va), offset);
+        if (pb < P) out[base + pb] = __fadd_rn(clip01(vb), offset);
+        return;
+    }
+    const int q = (p0 >> 1) + t;  // pixel pair
+    const int p = 2 * q;
     if (p >= P) return;
-    uint32_t c[4] = {(uint32_t)p, 0u, 0u, 0u};
-    philox4x32_10(c, (uint32_t)seeds[b], 0u);
-    const size_t i = (size_t)b * P + p;
-    out[i] = apply_noise((int32_t)(c[0] & 0xFFFFFFu), (int32_t)(c[1] & 0xFFFFFFu), x[i], sigma[b]);
+    const uint4 w = philox4x32_10((uint32_t)q, (uint32_t)seeds[b]);
+    out[base + p] = __fadd_rn(apply_noise((int32_t)(w.x & 0xFFFFFFu), (int32_t)(w.y & 0xFFFFFFu), x[base + p], s),
+                              offset);
+    if (p + 1 < P)
+        out[base + p + 1] = __fadd_rn(
+            apply_noise((int32_t)(w.z & 0xFFFFFFu), (int32_t)(w.w & 0xFFFFFFu), x[base + p + 1], s), offset);
 }
 
-__global__ void noise_bits_kernel(const float* __restrict__ x, const int32_t* __restrict__ bits1,
+__global__ void __launch_bounds__(kThreads) noise_bits_kernel(const float* __restrict__ x, const int32_t* __restrict__ bits1,
                                   const int32_t* __restrict__ bits2, const float* __restrict__ sigma,
                                   float* __restrict__ out, int P) {
     const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -81,13 +114,16 @@ __global__ void noise_bits_kernel(const float* __restrict__ x, const int32_t* __
 }  // namespace
 
 cudaError_t nntc_gaussian_noise(const float* x, const int32_t* seeds, const float* sigma, float* out, int B, int P,
-                                cudaStream_t stream) {
-    noise_seeded_kernel<<<dim3((P + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(x, seeds, sigma, out, P);
+                                float offset, cudaStream_t stream) {
+    if (B == 0 || P == 0) return cudaSuccess;
+    noise_seeded_kernel<<<dim3((P + 2 * kThreads - 1) / (2 * kThreads), B), kThreads, 0, stream>>>(x, seeds, sigma,
+                                                                                                out, P, offset);
     return cudaGetLastError();
 }
 
 cudaError_t nntc_gaussian_noise_from_bits(const float* x, const int32_t* bits1, const int32_t* bits2,
                                           const float* sigma, float* out, int B, int P, cudaStream_t stream) {
+    if (B == 0 || P == 0) return cudaSuccess;
     noise_bits_kernel<<<dim3((P + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(x, bits1, bits2, sigma,
                                                                                      out, P);
     return cudaGetLastError();

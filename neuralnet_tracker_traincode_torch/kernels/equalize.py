@@ -6,11 +6,36 @@ count of the last nonzero bin) // 255, LUT (cum + step//2) // max(step, 1)
 shifted by one and clipped to 0..255, lookup at floor(x*255), pass-through
 where step == 0 or the per-sample gate is off. Bit-equal across the plain
 version, the CUDA kernel (`csrc/equalize.cu`) and the JAX package.
+
+The kernel runs one cluster of `CLUSTER` CTAs per image; each CTA stages a
+slice of the image in shared memory. `slice_edges` and `slice_capacity` are
+the kernel's choice of slices and the room it stages them in, for the CPU
+tests; the launcher itself checks that the slice fits in shared memory.
 """
 
 import torch
 
 from neuralnet_tracker_traincode_torch.kernels import ext
+
+CLUSTER = 8  # CTAs per image: csrc/equalize.cu, kCluster
+
+
+def slice_edges(B: int, P: int) -> torch.Tensor:
+    """(B, CLUSTER + 1) int64 edges of each image's slices, as indices into
+    the whole (B, P) array: the image's ends, and between them edge c at
+    b*P + c*P // CLUSTER rounded up to a multiple of 4 (16 bytes) and cut to
+    the image, as `csrc/equalize.cu:slice_edge` computes them."""
+    base = torch.arange(B, dtype=torch.int64)[:, None] * P
+    c = torch.arange(CLUSTER + 1, dtype=torch.int64)[None, :]
+    inner = torch.minimum((base + c * P // CLUSTER + 3) // 4 * 4, base + P)
+    return torch.where(c == 0, base, torch.where(c == CLUSTER, base + P, inner))
+
+
+def slice_capacity(P: int) -> int:
+    """f32 values a CTA stages for images of P pixels: its slice and the up
+    to 3 pixels before it that share its first 16 bytes (`csrc/equalize.cu`,
+    `cap`)."""
+    return ((P + CLUSTER - 1) // CLUSTER + 6 + 3) // 4 * 4
 
 
 def equalize_plain(images_flat: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,14 @@
 `add_gaussian_noise_from_bits` for the injected-bits entry).
 
 Per pixel: two 24-bit words b1, b2 -> u1 = (b1+1)/2^24, u2 = b2/2^24 ->
-z = sqrt(-2 ln u1) cos(2 pi u2) -> clip(x + sigma_b z, 0, 1). The words come
-from Philox-4x32-10 with key (seeds[b], 0) and counter (pixel, 0, 0, 0)
-(words 0 and 1), or are injected. The TPU's hardware bits cannot be
-reproduced; the seeded path is held against the JAX package by moments.
+z = sqrt(-2 ln u1) cos(2 pi u2) -> clip(x + sigma_b z, 0, 1) + offset. The
+words come from Philox-4x32-10, or are injected: pixel pair q = p >> 1 of
+sample b takes key (seeds[b], 0) and counter (q, 0, 0, 0), the even pixel
+words 0 and 1, the odd pixel words 2 and 3 (`philox_bits`). The TPU's
+hardware bits cannot be reproduced; the seeded path is held against the JAX
+package by moments. `offset` (0 for the TPU kernel's function) lets the
+training pipeline fold its whitening (-0.5) into the same pass; the
+injected-bits entry has none.
 """
 
 import math
@@ -47,14 +51,20 @@ def philox4x32_10(counter, key):
 
 
 def philox_bits(seeds: torch.Tensor, num: int):
-    """(bits1, bits2), each (B, num) int32 in [0, 2^24): words 0 and 1 of
-    Philox-4x32-10 with key (seeds[b], 0) and counter (p, 0, 0, 0)."""
+    """(bits1, bits2), each (B, num) int32 in [0, 2^24): pixel p takes
+    Philox-4x32-10 with key (seeds[b], 0) and counter (p >> 1, 0, 0, 0),
+    words 0 and 1 for an even p, words 2 and 3 for an odd p."""
     B = seeds.shape[0]
-    k0 = (seeds.to(torch.int64) & _MASK32)[:, None].expand(B, num)
+    pairs = (num + 1) // 2
+    k0 = (seeds.to(torch.int64) & _MASK32)[:, None].expand(B, pairs)
     zero = torch.zeros_like(k0)
-    c0 = torch.arange(num, dtype=torch.int64, device=seeds.device)[None, :].expand(B, num)
-    w0, w1, _, _ = philox4x32_10((c0, zero, zero, zero), (k0, zero))
-    return (w0 & 0xFFFFFF).to(torch.int32), (w1 & 0xFFFFFF).to(torch.int32)
+    c0 = torch.arange(pairs, dtype=torch.int64, device=seeds.device)[None, :].expand(B, pairs)
+    w0, w1, w2, w3 = philox4x32_10((c0, zero, zero, zero), (k0, zero))
+
+    def interleave(even, odd):
+        return (torch.stack([even, odd], dim=-1).reshape(B, 2 * pairs)[:, :num] & 0xFFFFFF).to(torch.int32)
+
+    return interleave(w0, w2), interleave(w1, w3)
 
 
 def apply_noise_from_bits_plain(x, bits1, bits2, sigma):
@@ -66,11 +76,13 @@ def apply_noise_from_bits_plain(x, bits1, bits2, sigma):
     return torch.clamp(x + sigma[:, None] * z, 0.0, 1.0)
 
 
-def add_gaussian_noise_plain(images: torch.Tensor, seeds: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+def add_gaussian_noise_plain(
+    images: torch.Tensor, seeds: torch.Tensor, sigma: torch.Tensor, offset: float = 0.0
+) -> torch.Tensor:
     B = images.shape[0]
     x = images.reshape(B, -1)
     bits1, bits2 = philox_bits(seeds, x.shape[1])
-    return apply_noise_from_bits_plain(x, bits1, bits2, sigma).reshape(images.shape)
+    return (apply_noise_from_bits_plain(x, bits1, bits2, sigma) + offset).reshape(images.shape)
 
 
 def add_gaussian_noise_from_bits_plain(images, bits1, bits2, sigma) -> torch.Tensor:
@@ -89,17 +101,20 @@ def _check(images, sigma):
     return images.reshape(B, -1), sigma
 
 
-def add_gaussian_noise(images: torch.Tensor, seeds: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """(B, ...) f32 images in [0, 1], (B,) int32 seeds, (B,) f32 sigma: the
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+def add_gaussian_noise(
+    images: torch.Tensor, seeds: torch.Tensor, sigma: torch.Tensor, offset: float = 0.0
+) -> torch.Tensor:
+    """(B, ...) f32 images in [0, 1], (B,) int32 seeds, (B,) f32 sigma, a
+    scalar `offset` added after the clip: the kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
     if images.device.type == "cpu":
-        return add_gaussian_noise_plain(images, seeds, sigma)
+        return add_gaussian_noise_plain(images, seeds, sigma, offset)
     x, sigma = _check(images, sigma)
     seeds = seeds.to(device=images.device, dtype=torch.int32).contiguous()
     if seeds.shape != sigma.shape:
         raise ValueError(f"seeds must have shape {tuple(sigma.shape)}, got {tuple(seeds.shape)}")
     out = torch.empty_like(x)
-    ext.extension().gaussian_noise(x, seeds, sigma, out)
+    ext.extension().gaussian_noise(x, seeds, sigma, out, float(offset))
     ext.LAUNCHES["gaussian_noise"] += 1
     return out.reshape(images.shape)
 

@@ -155,6 +155,27 @@ def test_full_pipeline_with_image_aug_matches_jax(seed):
     assert np.abs(ref_full[quiet] - x[quiet]).max() <= 1.0 / 255.0 + 1e-5
 
 
+@pytest.mark.parametrize("seed", [5, 8])
+def test_pipeline_whitening_folded_into_k3_is_bit_equal(seed, monkeypatch):
+    """With image augmentation K3 adds the whitening's -0.5 after its clip:
+    the pipeline's output is bit-equal to the old formula, stage 1 and K3 at
+    offset 0 followed by - 0.5, on the same crop and draws."""
+    from neuralnet_tracker_traincode_torch.augmentation import pipeline as TP
+
+    seen = []
+
+    def spy(x, stage1, noise, offset):
+        seen.append((x.clone(), stage1, noise, offset))
+        return TI.intensity_augmentation(x, stage1, noise, offset)
+
+    monkeypatch.setattr(TP, "intensity_augmentation", spy)
+    _, _, draws, _, (x, _) = _run_both(seed, True)
+    (crop, stage1, noise, offset), = seen
+    assert offset == -0.5 and (noise.sigma == 0).any() and (noise.sigma > 0).any()
+    old = TI.intensity_augmentation(crop, stage1, noise, 0.0) - 0.5
+    assert torch.equal(t(x).view(torch.int32), old.view(torch.int32))
+
+
 def test_sampled_parameters_drive_the_pipeline():
     """Without injected draws, the port samples from the generator: same seed,
     same output; the entry point defaults to CUDA and raises without it."""

@@ -6,7 +6,11 @@ use) and skip without a card. On the machine with the card:
 Tolerances as in `chip_smoke.py`: K1 max 0.02 / mean 0.002 gray, K2
 bit-equal, K3 bits bit-equal and output 1e-6. K1 runs at the main path's
 shapes (B = 64, 448^2 -> 129^2) with every fold, +-30 degrees, a minifying,
-a magnifying and a partly outside ROI, and with `skip_rotation`.
+a magnifying and a partly outside ROI, and with `skip_rotation`. K2 runs
+at B = 64, 129^2 and at odd P, with one-bin
+and two-bin images, gates mixed, all off and all on, and from an input 4
+bytes off 16-byte alignment. K3 runs with sigma 0 and > 0 mixed, at
+offsets 0 and -0.5.
 """
 
 import math
@@ -121,6 +125,61 @@ def test_k2_kernel_is_bit_equal_to_plain(dev):
     x[0] = 0.3
     gate = torch.rand(16, generator=g) < 0.7
     assert torch.equal(K2.equalize(x.to(dev), gate.to(dev)).cpu(), K2.equalize(x, gate))
+
+
+def _eq_batch(B, P, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(B, P, generator=g) ** (0.3 + 2 * torch.rand(B, 1, generator=g))
+    x[0] = 0.3  # one bin: step 0
+    x[1] = torch.where(torch.rand(P, generator=g) < 0.5, 0.2, 0.9)  # two bins
+    x[2, :4] = torch.tensor([0.0, 1.0, 255.0 / 256.0, 254.5 / 255.0])
+    return x
+
+
+@pytest.mark.parametrize("gates", ["mixed", "off", "on"])
+@pytest.mark.parametrize("B,P", [(64, 129 * 129), (7, 999), (5, 63), (3, 5)])
+def test_k2_cluster_kernel_is_bit_equal_to_plain(dev, B, P, gates):
+    x = _eq_batch(B, P, P)
+    gate = {"mixed": torch.arange(B) % 3 != 1, "off": torch.zeros(B, dtype=torch.bool),
+            "on": torch.ones(B, dtype=torch.bool)}[gates]
+    ext.reset_launch_counts()
+    out = K2.equalize(x.to(dev), gate.to(dev)).cpu()
+    assert ext.LAUNCHES["equalize"] == 1
+    assert torch.equal(out.view(torch.int32), K2.equalize_plain(x, gate).view(torch.int32))
+
+
+def test_k2_cluster_kernel_from_an_unaligned_input(dev):
+    """An input 4 bytes off 16-byte alignment takes the kernel's scalar path."""
+    B, P = 9, 129 * 129
+    x = _eq_batch(B, P, 3)
+    buf = torch.empty(B * P + 1, device=dev)
+    xs = buf[1:].view(B, P)
+    xs.copy_(x.to(dev))
+    assert xs.data_ptr() % 16 != 0
+    gate = torch.arange(B) % 2 == 0
+    out = K2.equalize(xs, gate.to(dev)).cpu()
+    assert torch.equal(out.view(torch.int32), K2.equalize_plain(x, gate).view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0.0, -0.5])
+@pytest.mark.parametrize("B,P", [(64, 129 * 129), (7, 999)])
+def test_k3_kernel_with_mixed_sigma_and_offsets_matches_plain(dev, B, P, offset):
+    g = torch.Generator().manual_seed(P)
+    x = torch.rand(B, P, generator=g)
+    seeds = torch.arange(B, dtype=torch.int32) * 7919 - 2**30
+    sigma = torch.where(torch.arange(B) % 3 == 0, torch.rand(B, generator=g) * 0.3 + 0.01, torch.zeros(B))
+    ext.reset_launch_counts()
+    out = K3.add_gaussian_noise(x.to(dev), seeds.to(dev), sigma.to(dev), offset).cpu()
+    assert ext.LAUNCHES["gaussian_noise"] == 1
+    ref = K3.add_gaussian_noise_plain(x, seeds, sigma, offset)
+    assert (out - ref).abs().max() <= 1e-6
+    quiet = sigma == 0
+    assert torch.equal(out[quiet], x[quiet].clamp(0, 1) + offset)
+    b1, b2 = K3.philox_bits(seeds, P)
+    bits = K3.add_gaussian_noise_from_bits(x.to(dev), b1.to(dev), b2.to(dev), sigma.to(dev)).cpu()
+    assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
+    if offset == 0.0:
+        assert torch.equal(bits, out)
 
 
 def test_k3_kernels_match_plain(dev):

@@ -8,10 +8,14 @@ On the card each CUDA kernel is held against these plain versions
    order than the Pallas dots);
  - K2 equalize: bit-equal to `intensity.equalize` (integer histogram and
    LUT, one IEEE division); the same LUT level as the Pallas kernel, whose
-   jitted lut / 255 is one ulp off on some levels (see the test);
+   jitted lut / 255 is one ulp off on some levels (see the test). The
+   kernel's slices (`slice_edges`) and its per-slice algorithm, written out
+   in numpy, are bit-equal to the plain version;
  - K3 noise from injected bits: 1e-6 (log/cos of two libraries), sigma = 0
    bit-equal; the seeded K3 by moments and seed independence, as
-   `tests/test_noise_pallas.py` holds the TPU kernel.
+   `tests/test_noise_pallas.py` holds the TPU kernel; its Philox words
+   against Random123's vectors, pixel pair by pixel pair; its offset
+   bit-equal to a subtraction after it.
 """
 
 import math
@@ -199,6 +203,81 @@ def test_k2_plain_is_bit_equal_to_xla_equalize(seed):
     np.testing.assert_array_equal(K2.equalize(t(x), t(gate)).numpy(), ref)
 
 
+@pytest.mark.parametrize("P", [129 * 129, 129 * 129 + 1, 4096, 999, 257, 255, 64, 9, 8, 7, 5, 1])
+def test_k2_slices_cover_each_image_once_on_aligned_edges(P):
+    """Odd P (so b*P is odd for odd b), P below one CTA's 256 threads and
+    below the cluster size: the slices of image b tile [b*P, (b+1)*P) in
+    order, each inner edge lies on 16 bytes of the (B, P) array, and each
+    slice with the up to 3 pixels before it fits the staged capacity."""
+    B = 7
+    edges = K2.slice_edges(B, P)
+    assert edges.shape == (B, K2.CLUSTER + 1)
+    assert torch.equal(edges[:, 0], torch.arange(B) * P) and torch.equal(edges[:, -1], torch.arange(1, B + 1) * P)
+    assert (edges[:, 1:] >= edges[:, :-1]).all()
+    covered = torch.cat([torch.arange(int(a), int(b)) for a, b in zip(edges[:, :-1].flatten(), edges[:, 1:].flatten())])
+    assert torch.equal(covered, torch.arange(B * P))
+    inner = edges[:, 1:-1]
+    assert ((inner % 4 == 0) | (inner == edges[:, -1:])).all()
+    cap = K2.slice_capacity(P)
+    assert int((edges[:, 1:] - edges[:, :-1] // 4 * 4).max()) <= cap and cap % 4 == 0
+
+
+def test_k2_slice_capacity_at_the_main_path():
+    """P = 129^2 over 8 CTAs: 2081 pixels a slice and 3 before it, rounded
+    to 16 bytes; far below the 48 KB a launch gets without opting in."""
+    assert K2.CLUSTER == 8
+    assert K2.slice_capacity(129 * 129) == 2088 and 4 * 2088 < 48 * 1024
+    assert K2.slice_capacity(1) == 8
+
+
+def _equalize_as_the_kernel_does(x: np.ndarray, gate: np.ndarray, vec: bool = True) -> np.ndarray:
+    """`csrc/equalize.cu` written out in numpy, CTA by CTA: each CTA stages
+    its slice (scalar ends, float4 middle) at staged[g - lo], the CTAs' bins
+    are summed, step comes from the exclusive count at the last nonzero bin,
+    the LUT from exclusive counts, the lookup from the staged slice."""
+    B, P = x.shape
+    flat, out = x.reshape(-1), np.empty(B * P, np.float32)
+    edges = K2.slice_edges(B, P).numpy()
+    cap = K2.slice_capacity(P)
+    for b in range(B):
+        parts, staged = [], []
+        for r in range(K2.CLUSTER):
+            g0, g1 = int(edges[b, r]), int(edges[b, r + 1])
+            a0, a1 = (min(-(-g0 // 4) * 4, g1), max(g1 // 4 * 4, min(-(-g0 // 4) * 4, g1))) if vec else (g1, g1)
+            lo = g0 // 4 * 4
+            s = np.full(cap, np.nan, np.float32)
+            for g in list(range(g0, a0)) + list(range(a1, g1)):
+                s[g - lo] = flat[g]
+            for k in range(a0 // 4, a1 // 4):
+                s[4 * k - lo : 4 * k - lo + 4] = flat[4 * k : 4 * k + 4]
+            v = s[g0 - lo : g1 - lo]
+            assert not np.isnan(v).any()
+            bins = np.clip(np.floor(v * np.float32(256.0)), 0, 255).astype(np.int64)
+            parts.append(np.bincount(bins, minlength=256))
+            staged.append((g0, g1, v))
+        hist = np.sum(parts, axis=0)
+        excl = np.cumsum(hist) - hist
+        last = int(np.nonzero(hist)[0].max())
+        step = int(excl[last]) // 255
+        lut = (np.clip((excl + step // 2) // max(step, 1), 0, 255).astype(np.float32) / np.float32(255.0))
+        for g0, g1, v in staged:
+            li = np.floor(v * np.float32(255.0)).astype(np.int64)
+            eq = np.where((li >= 0) & (li < 256), lut[np.clip(li, 0, 255)], np.float32(0.0))
+            out[g0:g1] = eq if (gate[b] and step) else v
+    return out.reshape(B, P)
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_k2_kernel_algorithm_is_bit_equal_to_plain(seed, vec):
+    """The kernel's slicing, staging and integer LUT algebra at an odd P
+    (33^2: every odd image starts off 16 bytes), with one-bin, two-bin and
+    gated-off images."""
+    x, gate = _eq_images(seed)
+    out = _equalize_as_the_kernel_does(x, gate, vec)
+    np.testing.assert_array_equal(out, K2.equalize_plain(t(x), t(gate)).numpy())
+
+
 # ---------------------------------------------------------------- K3 ---
 
 
@@ -233,6 +312,46 @@ def test_philox_matches_published_test_vectors():
         assert [int(w) for w in K3.philox4x32_10(as_t(ctr), as_t(key))] == list(expect)
     b1, b2 = K3.philox_bits(torch.tensor([0, -1], dtype=torch.int32), 2)
     assert b1[0, 0] == 0x6627E8D5 & 0xFFFFFF and b2[0, 0] == 0xE169C58D & 0xFFFFFF
+
+
+def test_philox_bits_take_all_four_words_of_a_pixel_pair():
+    """Pixel 2q takes words 0 and 1 of counter (q, 0, 0, 0), pixel 2q + 1
+    words 2 and 3: pixel 1 of key (0, 0) is Random123's words 2 and 3."""
+    b1, b2 = K3.philox_bits(torch.tensor([0], dtype=torch.int32), 2)
+    assert b1.tolist() == [[0x6627E8D5 & 0xFFFFFF, 0xBC57AC4C & 0xFFFFFF]]
+    assert b2.tolist() == [[0xE169C58D & 0xFFFFFF, 0x9B00DBD8 & 0xFFFFFF]]
+
+
+@pytest.mark.parametrize("num", [1, 2, 7, 129 * 129])
+def test_philox_bits_at_odd_and_even_sizes(num):
+    """At odd num the last pair has one pixel; every pixel's words equal a
+    direct Philox call on its pair's counter."""
+    seeds = torch.tensor([0, -1, 123456789], dtype=torch.int32)
+    b1, b2 = K3.philox_bits(seeds, num)
+    assert b1.shape == b2.shape == (3, num) and b1.dtype == torch.int32
+    assert int(b1.min()) >= 0 and int(b1.max()) < 2**24 and int(b2.min()) >= 0 and int(b2.max()) < 2**24
+    p = torch.tensor(sorted(i for i in {0, 1, num // 2, num - 2, num - 1} if 0 <= i < num))
+    q = (p // 2).to(torch.int64)
+    for i, seed in enumerate(seeds.tolist()):
+        zero = torch.zeros_like(q)
+        words = K3.philox4x32_10((q, zero, zero, zero), (torch.full_like(q, seed & 0xFFFFFFFF), zero))
+        odd = (p % 2).bool()
+        expect1 = torch.where(odd, words[2], words[0]) & 0xFFFFFF
+        expect2 = torch.where(odd, words[3], words[1]) & 0xFFFFFF
+        assert torch.equal(b1[i, p].to(torch.int64), expect1) and torch.equal(b2[i, p].to(torch.int64), expect2)
+
+
+def test_k3_offset_is_a_subtraction_after_the_clip():
+    """The pipeline's whitening folded into K3: offset -0.5 is bit-equal to
+    K3 at offset 0 followed by - 0.5, with noisy and sigma-0 samples."""
+    rng = np.random.RandomState(3)
+    x = t(rng.rand(4, 33, 33).astype(np.float32))
+    seeds = torch.arange(4, dtype=torch.int32) + 9
+    sigma = torch.tensor([0.0, 0.1, 0.0, 0.3])
+    out = K3.add_gaussian_noise(x, seeds, sigma, offset=-0.5)
+    assert torch.equal(out, K3.add_gaussian_noise(x, seeds, sigma) - 0.5)
+    assert torch.equal(out[[0, 2]], x[[0, 2]] - 0.5)
+    assert torch.equal(K3.add_gaussian_noise_plain(x, seeds, sigma, -0.5), out)
 
 
 def test_k3_seeded_plain_moments_determinism_and_seed_independence():
