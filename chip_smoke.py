@@ -31,23 +31,46 @@ Phases (any failure ends the run with a non-zero exit code):
     K1 and K3 launched once a step, K2 at least once;
  6. with `--profile`: 5 more steps under `torch.profiler`, summarised on a
     `profile:` line (host time per stage, device busy share, kernel launches
-    per step, the top kernels), and a Chrome trace if a path is given;
- 7. the `kernels` line, then `{"ok": true, "device": ...}` as the last line.
+    per step, the top kernels), and a Chrome trace if a path is given; the
+    same for 5 steps of phase 7's trainer after its run;
+ 7. a training run (`train/run.py:run_training`): the 6D-rotation network
+    (MobileNetV1 x1.0, point head, NLL heads, bf16 autocast) with the training
+    CLI's full loss setup (NLL, point head, ROI, 6D: 12 terms, the shape prior
+    from its npz) on synthetic marker data rendered on the card
+    (`data/synthetic.py`: 2,048 training and 256 validation frames at 160^2),
+    batch 64, 4 epochs of 1,024 samples, SWA after epoch 1, checkpoints in a
+    temporary directory. Validation runs once before the first step and K1's
+    validation crops (`skip_rotation`, 192^2 padded sources) are held against
+    the plain version; then the run, with the launch counts reset just before
+    and read just after, and K1's rotated training crops of the first step of
+    each epoch (64 x 160^2 sources) held against the plain version after it.
+    It fails unless every loss is finite, the final
+    validation loss is below the untrained model's, `swa.ckpt` read back by
+    `load_posenet` gives outputs bit-equal to the trainer's SWA variables, and
+    the resume file loaded into a fresh trainer gives back every tensor. It
+    prints per-epoch images/s, validation and checkpoint milliseconds and the
+    phase's seconds;
+ 8. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+    from phase 7's run), then `{"ok": true, "device": ...}` as the last line.
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, SRC, S, THETA = 64, 448, 129, 30.0
 STEPS_WARMUP, STEPS_TIMED = 3, 20
+RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -125,6 +148,43 @@ def k1_cases(torch, view_roi, angles):
     for name, scale in (("minify", 3.5), ("magnify", 0.7)):
         half = direction * (scale * S / 2)
         yield name, torch.cat([centre - half, centre + half], -1), angles
+
+
+@contextlib.contextmanager
+def k1_captured(K1, keep):
+    """Within the block, the K1 wrapper that the pipeline calls also keeps a
+    copy of the inputs and output of each launch for which
+    `keep(skip_rotation, n)` holds, `n` counting the earlier launches of the
+    same kind; for `k1_against_plain`."""
+    captured, launch, seen = [], K1.warp_roi_rotate, {False: 0, True: 0}
+
+    def capture(images, view_roi, angles, out_size, theta_max_deg, skip_rotation=False):
+        out = launch(images, view_roi, angles, out_size, theta_max_deg, skip_rotation)
+        if keep(skip_rotation, seen[skip_rotation]):
+            captured.append((images.clone(), view_roi.clone(), angles.clone(), out_size, theta_max_deg, skip_rotation,
+                             out.clone()))
+        seen[skip_rotation] += 1
+        return out
+
+    K1.warp_roi_rotate = capture
+    try:
+        yield captured
+    finally:
+        K1.warp_roi_rotate = launch
+
+
+def k1_against_plain(K1, captured, what):
+    """Each captured K1 launch against the plain version at K1's tolerance
+    (0.02 gray max, 0.002 mean); returns the largest error."""
+    err = 0.0
+    for images, view_roi, angles, out_size, theta, skip, out in captured:
+        cs = out_size if skip else K1.canvas_size(out_size, theta)
+        plain = K1.warp_roi_rotate_plain(images, K1.warp_params(view_roi, angles, out_size, cs), out_size, cs, not skip)
+        d = (out - plain).abs()
+        check(bool(out.isfinite().all()) and float(d.max()) < 0.02 and float(d.mean()) < 0.002,
+              f"K1 ({what}) disagrees: max {float(d.max())}, mean {float(d.mean())}")
+        err = max(err, float(d.max()))
+    return err
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
@@ -430,6 +490,154 @@ def training_phase(torch, np, dev, name):
     return launches, step
 
 
+def synthetic_frames(n, seed, dev):
+    """Marker frames rendered on the card, as the port's in-memory `Frame`s."""
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.loader import Frame
+    from neuralnet_tracker_traincode_torch.data.synthetic import make_labels, render_marker_images
+
+    quats, coords, pt3d, shapeparams, rois = make_labels(n, RUN_SRC, seed=seed, device=dev)
+    images = render_marker_images(pt3d, coords, RUN_SRC)
+    host = [a.cpu().numpy() for a in (images[..., None], quats, coords, pt3d, shapeparams, rois)]
+    names = ("image", "pose", "coord", "pt3d_68", "shapeparam", "roi")
+    return [Frame(Tag.POSE_WITH_LANDMARKS, {k: a[i] for k, a in zip(names, host)}) for i in range(n)]
+
+
+def training_run_phase(torch, np, dev, smi):
+    """Phase 7: the training run around the step, at full width."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.io import load_posenet
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.checkpointing import load_train_state
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.run import LossOptions, run_training, setup_losses
+    from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tags = [Tag.POSE_WITH_LANDMARKS]
+    train_frames = synthetic_frames(RUN_TRAIN, 3, dev)
+    val_frames = synthetic_frames(RUN_VAL, 4, dev)
+    opts = LossOptions(epochs=RUN_EPOCHS, with_nll_loss=True, with_pointhead=True, with_roi_train=True, enable_6drot=True)
+
+    def make_trainer():
+        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                     enable_6drot=True, dtype=torch.bfloat16)
+        cfg = TrainerConfig(batchsize=B, epochs=RUN_EPOCHS, samples_per_epoch=RUN_SAMPLES_PER_EPOCH, swa_start_epoch=1,
+                            aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+        return PoseTrainer(model, setup_losses(opts, tags), cfg, LABEL_CATEGORIES, device=dev)
+
+    trainer = make_trainer()
+    check(len(trainer.criterion.terms) == 12, f"setup_losses gave {len(trainer.criterion.terms)} terms, not 12")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    validation = FusedValidation(trainer, val_frames, batchsize=2 * B)
+    pad = validation._batches[0]["image"].shape[1]
+    check(pad == 192, f"validation pads {RUN_SRC}^2 sources to {pad}, not 192")
+
+    # validation before the first step; K1 at the validation crop's shapes against its plain version
+    with k1_captured(K1, lambda skip, n: True) as captured:
+        ext.reset_launch_counts()
+        untrained = validation.evaluate(0)
+        torch.cuda.synchronize()
+        val_launches = dict(ext.LAUNCHES)
+    untrained_loss = float(untrained["loss"])
+    n_val = len(validation._batches)
+    check(val_launches["warp_roi_rotate"] == n_val and len(captured) == n_val,
+          f"validation launched K1 {val_launches['warp_roi_rotate']} times for {n_val} batches")
+    for images, _, _, _, _, skip, _ in captured:
+        check(skip and tuple(images.shape) == (2 * B, 192, 192), f"validation K1 at {tuple(images.shape)}, skip {skip}")
+    err_val = k1_against_plain(K1, captured, "validation crop")
+    print(f"training run: K1 at the validation crop ({n_val} launches, {2 * B} x 192^2 uint8 -> {S}^2, "
+          f"skip_rotation): max |kernel - plain| {err_val:.3e} gray (tolerance 0.02); untrained validation loss "
+          f"{untrained_loss:.4f}")
+
+    packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
+
+    def batches(start):
+        return iterate_fused_batches(packed, B, torch.Generator().manual_seed(5), device=dev, start=start)
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    steps_per_epoch = trainer.config.steps_per_epoch
+    # K1's rotated training crops of each epoch's first step, kept for the check after the run
+    with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops:
+        torch.cuda.synchronize()
+        ext.reset_launch_counts()
+        t_run = time.perf_counter()
+        state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = dict(ext.LAUNCHES)
+    steps = RUN_EPOCHS * steps_per_epoch
+    check(state.step == steps and state.swa_count == RUN_EPOCHS - 2, f"step {state.step}, SWA count {state.swa_count}")
+    for r in records:
+        bad = [k for k, v in r["train_metrics"].items() if not math.isfinite(v)]
+        check(not bad and math.isfinite(r["val_loss"]), f"epoch {r['epoch']}: non-finite {bad or 'validation loss'}")
+    final_loss = records[-1]["val_loss"]
+    check(final_loss < untrained_loss, f"validation loss {final_loss} is not below the untrained {untrained_loss}")
+    check(launches["warp_roi_rotate"] == steps + RUN_EPOCHS * n_val,
+          f"K1 launched {launches['warp_roi_rotate']} times in {steps} steps and {RUN_EPOCHS} validations")
+    check(launches["gaussian_noise"] == steps, f"K3 launched {launches['gaussian_noise']} times in {steps} steps")
+    check(launches["equalize"] >= 1, "K2 never launched in the training run")
+    check(sorted(os.listdir(outdir)) == ["best.ckpt", "last.ckpt", "resume.pt", "swa.ckpt"],
+          f"the run wrote {sorted(os.listdir(outdir))}")
+    check(len(train_crops) == RUN_EPOCHS, f"{len(train_crops)} training crops kept, not {RUN_EPOCHS}")
+    for images, _, _, _, _, skip, _ in train_crops:
+        check(not skip and tuple(images.shape) == (B, RUN_SRC, RUN_SRC), f"training K1 at {tuple(images.shape)}")
+    err_train = k1_against_plain(K1, train_crops, "training run's crop")
+    print(f"training run: K1 at the training crop ({RUN_EPOCHS} launches of the run checked, {B} x {RUN_SRC}^2 uint8 "
+          f"-> {S}^2, rotated): max |kernel - plain| {err_train:.3e} gray (tolerance 0.02)")
+
+    # swa.ckpt read back by load_posenet against the trainer's SWA variables, on the card
+    loaded = load_posenet(os.path.join(outdir, "swa.ckpt")).to(dev)
+    reference = NetworkWithPointHead(**loaded.get_config()).to(dev).eval()
+    reference.load_state_dict(trainer.variables_of(state, swa=True))
+    torch.backends.cudnn.deterministic = True
+    x = torch.rand((2 * B, S, S, 1), generator=torch.Generator().manual_seed(9)).to(dev) - 0.5
+    with torch.no_grad():
+        a, b = loaded(x), reference(x)
+    torch.backends.cudnn.deterministic = False
+    differ = [k for k in b if k != "rot" and not torch.equal(a[k], b[k])]
+    check(not differ and torch.equal(a["rot"].value, b["rot"].value), f"swa.ckpt outputs differ: {differ}")
+
+    # the resume file into a fresh trainer
+    fresh = make_trainer()
+    resumed, extra = load_train_state(fresh, os.path.join(outdir, "resume.pt"))
+    pairs = [(fresh.model.state_dict(), trainer.model.state_dict()), (resumed.opt_state.mu, state.opt_state.mu),
+             (resumed.opt_state.nu, state.opt_state.nu), (resumed.swa_params, state.swa_params),
+             (resumed.swa_buffers, state.swa_buffers)]
+    differ = [k for got, want in pairs for k in want if not torch.equal(got[k], want[k])]
+    check(not differ and (resumed.step, resumed.opt_state.count, resumed.swa_count) ==
+          (state.step, state.opt_state.count, state.swa_count) and extra["epoch"] == RUN_EPOCHS - 1,
+          f"the resume file gives back other tensors: {differ[:5]}")
+    n_tensors = sum(len(want) for _, want in pairs)
+    shutil.rmtree(outdir)
+
+    for r in records:
+        print(f"training run epoch {r['epoch'] + 1}/{RUN_EPOCHS}: {r['steps']} steps in {r['train_s'] * 1e3:.1f} ms, "
+              f"{r['images_per_s']:.1f} images/s ({r['sustained_images_per_s']:.1f} sustained since step 2, "
+              f"validation and checkpoints included); validation {r['val_ms']:.1f} ms ({RUN_VAL} frames), "
+              f"loss {r['val_loss']:.4f}; checkpoint writes {sum(r['checkpoint_ms'].values()):.1f} ms ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["checkpoint_ms"].items()) + f") on {smi}")
+    print(f"training run: {steps} steps, validation loss {untrained_loss:.4f} -> {final_loss:.4f}; swa.ckpt outputs "
+          f"bit-equal to the SWA variables; resume file gives back {n_tensors} tensors equal; launches {launches}; "
+          f"run {run_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s (data, validation check and read-backs "
+          f"included) on {smi}")
+    W = trainer.weight_matrix(RUN_EPOCHS - 1)
+    gen = torch.Generator().manual_seed(11)
+    more = batches(state.step)
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, next(more), W, generator=gen)
+
+    return launches, max(err_val, err_train), step
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -456,18 +664,24 @@ def main() -> int:
     rows = kernel_phase(torch, np, dev)
     reference_phase(torch, np, dev)
     launches, step = training_phase(torch, np, dev, f"{name} ({smi})")
-    if "--profile" in sys.argv:
+    profile = "--profile" in sys.argv
+    if profile:
         from neuralnet_tracker_traincode_torch.train.profiling import profile_steps
 
         trace = sys.argv[sys.argv.index("--profile") + 1] if len(sys.argv) > sys.argv.index("--profile") + 1 else None
         print("profile: " + json.dumps(profile_steps(step, 5, trace)))
+    run_launches, err_run, run_step = training_run_phase(torch, np, dev, f"{name} ({smi})")
+    if profile:
+        print("profile (training run's step): " + json.dumps(profile_steps(run_step, 5)))
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], err_run)
 
     kernels = []
     for r in rows:
         (b_ms, b_by) = r.pop("bound")
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
-            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
+            launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
         ))

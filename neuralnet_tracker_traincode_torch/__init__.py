@@ -10,9 +10,11 @@ kernels for Hopper (`kernels/csrc/`), built at first use. Entry points run on
 the CUDA device unless the caller passes `device="cpu"`; on the CPU the kernel
 wrappers take their plain PyTorch versions.
 
-Ported so far: the flagship pose-estimator training step (MobileNetV1 with
-point head and NLL heads, the 8-term criterion, the full training
-augmentation). What waits is listed in ROADMAP.md.
+Ported so far: the pose-estimator training run (MobileNetV1 with point head,
+NLL heads and the quaternion or 6D rotation head, every loss option of the
+training CLI, the full training augmentation, SWA, validation, the epoch loop,
+model checkpoints in the JAX package's file layout and resumable training
+states). What waits is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,37 @@
-"""The category of each label of the fused batch (counterpart of the JAX
-package's `data/loader.py:LABEL_CATEGORIES`). The host loader itself
-(`FusedBatchLoader`, the shared-memory workers) waits (ROADMAP.md).
+"""Fused-batch packing (counterpart of the JAX package's `data/loader.py`).
+
+`pack_fused_batch` packs labelled frames held in memory into the fixed-shape
+fused-batch dict that `PoseTrainer.train_step` and `FusedValidation` take:
+images zero-padded (not rescaled) to (B, pad, pad, C) uint8, every field of
+`LABEL_SCHEMA` present (zero where a frame lacks it, masked by the per-tag
+loss weights), `hasface` label-smoothed to 0.9 / 0.1, and `tag_id`,
+`dataset_weight`, `param_index` and `coord_convention_id` per frame.
+
+A frame is any mapping of field -> array with a `meta` that carries the
+dataset `tag` and the image size `image_wh` (the JAX package's single-frame
+`Batch` is one; `Frame` is the port's). `iterate_fused_batches` draws
+training batches from a packed set held on the card. The host loader
+(`FusedBatchLoader`, its workers, HDF5 and JPEG decoding) and sequences wait
+(ROADMAP.md).
 """
 
+import dataclasses
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
+from neuralnet_tracker_traincode_torch.device import not_ported, resolve_device
+
+LABEL_SCHEMA = {
+    "pose": (4,),
+    "coord": (3,),
+    "roi": (4,),
+    "pt3d_68": (68, 3),
+    "shapeparam": (50,),
+    "hasface": (),
+}
 
 LABEL_CATEGORIES = {
     "pose": FieldCategory.quat,
@@ -13,3 +41,96 @@ LABEL_CATEGORIES = {
     "shapeparam": FieldCategory.general,
     "hasface": FieldCategory.general,
 }
+
+
+@dataclasses.dataclass
+class FrameMeta:
+    tag: Any
+    image_wh: Optional[Tuple[int, int]]
+    seq: Optional[list] = None
+
+
+class Frame(dict):
+    """One labelled frame in memory: field -> numpy array ("image" (H, W, C)
+    uint8 and labels in source pixels), with `meta`."""
+
+    def __init__(self, tag, fields: Mapping[str, Any]):
+        super().__init__(fields)
+        shape = np.shape(self["image"])
+        self.meta = FrameMeta(tag, (int(shape[1]), int(shape[0])) if len(shape) >= 2 else None)
+
+
+def _bucket(n: int, multiple: int = 64) -> int:
+    return multiple * int(np.ceil(n / multiple))
+
+
+def _image(im) -> np.ndarray:
+    if isinstance(im, torch.Tensor):
+        return im.detach().cpu().numpy()
+    if not isinstance(im, np.ndarray):
+        raise not_ported(f"packing {type(im).__name__} images (JPEG buffers come with the loader)")
+    return im
+
+
+def pack_fused_batch(
+    samples: Sequence[Mapping[str, Any]],
+    tag_ids: Sequence[int],
+    pad_size: int,
+    dataset_weights: Optional[Sequence[float]] = None,
+) -> Dict[str, np.ndarray]:
+    """Pack single frames into one fused batch dict of numpy arrays. An image
+    larger than `pad_size` grows this batch's padding to the next multiple of 64."""
+    for s in samples:
+        if getattr(getattr(s, "meta", None), "seq", None):
+            raise not_ported("packing sequences (they come with the loader)")
+    images = [_image(s["image"]) for s in samples]
+    B = len(images)
+    largest = max(max(im.shape[:2]) for im in images)
+    if largest > pad_size:
+        pad_size = _bucket(largest)
+    out: Dict[str, np.ndarray] = {"image": np.zeros((B, pad_size, pad_size, images[0].shape[-1]), np.uint8)}
+    for i, im in enumerate(images):
+        out["image"][i, : im.shape[0], : im.shape[1], :] = im
+    for k, shape in LABEL_SCHEMA.items():
+        out[k] = np.zeros((B,) + shape, np.float32)
+    out["coord_convention_id"] = np.zeros((B,), np.int32)
+    for i, f in enumerate(samples):
+        for k in LABEL_SCHEMA:
+            if k in f:
+                v = np.asarray(f[k])
+                if v.dtype == np.bool_ or k == "hasface":
+                    v = np.where(v.astype(np.float32) > 0.5, 0.9, 0.1)  # label smoothing of binary labels
+                out[k][i] = v.astype(np.float32)
+        if "coord_convention_id" in f:
+            out["coord_convention_id"][i] = int(f["coord_convention_id"])
+    out["tag_id"] = np.asarray(tag_ids, np.int32)
+    out["dataset_weight"] = np.asarray([1.0] * B if dataset_weights is None else dataset_weights, np.float32)
+    out["param_index"] = np.arange(B, dtype=np.int32)
+    return out
+
+
+def iterate_fused_batches(
+    packed: Dict[str, Any], batchsize: int, generator: Optional[torch.Generator] = None, device=None, start: int = 0
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless batches of `batchsize` frames from a packed set (one fused
+    batch dict of all frames), held on `device` (default: the card): each
+    pass draws a permutation from `generator` and drops its last incomplete
+    batch. With `start`, the first batch is the one an iterator of the same
+    generator seed gives after `start` batches (a resumed run's step)."""
+    dev = resolve_device(device)
+    data = {k: torch.as_tensor(v).to(dev) for k, v in packed.items()}
+    n = data["tag_id"].shape[0]
+    per_pass = n // batchsize
+    if per_pass == 0:
+        raise ValueError(f"{n} frames make no batch of {batchsize}")
+    passes, skip = divmod(start, per_pass)
+    for _ in range(passes):
+        torch.randperm(n, generator=generator)
+    while True:
+        order = torch.randperm(n, generator=generator)
+        for i in range(skip * batchsize, per_pass * batchsize, batchsize):
+            idx = order[i : i + batchsize].to(dev)
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
+            batch["param_index"] = torch.arange(batchsize, dtype=torch.int32, device=dev)
+            yield batch
+        skip = 0

@@ -1,19 +1,20 @@
 """Per-sample loss terms for pose estimation.
 
 Counterpart of the JAX package's `losses/losses.py`. Every loss is a callable
-(pred_dict, sample_dict) -> per-sample loss of shape (B,). The shape losses
-(`ShapeParameterLoss`, `ShapePlausibilityLoss`), `QuatPoseLoss("smooth_geodesic")`,
-the 6D rotation losses and the face-detector loss wait (ROADMAP.md).
+(pred_dict, sample_dict) -> per-sample loss of shape (B,). The face-detector
+and localizer losses wait with their heads (ROADMAP.md).
 """
 
+import math
 from typing import Literal
 
 import numpy as np
 import torch
 
-from neuralnet_tracker_traincode_torch.device import not_ported
 from neuralnet_tracker_traincode_torch.facemodel import keypoints68 as kpts68
+from neuralnet_tracker_traincode_torch.models.components import SHAPEPARAMS_GMM_NPZ, GaussianMixture
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
+from neuralnet_tracker_traincode_torch.ops import rot6d
 
 SimpleLossSwitch = Literal["l2", "l1", "smooth_l1"]
 
@@ -33,14 +34,29 @@ def elementwise_loss(kind: SimpleLossSwitch, pred, target):
     raise ValueError(kind)
 
 
+def smooth_geodesic_distance(pred_quat, target_quat):
+    smooth_zone = 1.0 * math.pi / 180.0  # one degree
+    normed_delta = Q.geodesicdistance(pred_quat, target_quat)
+    return _smooth_l1(normed_delta, torch.zeros_like(normed_delta), beta=smooth_zone) / math.pi
+
+
 class QuatPoseLoss:
-    def __init__(self, loss: Literal["approx_distance"] = "approx_distance", prefix=""):
-        if loss != "approx_distance":
-            raise not_ported(f"QuatPoseLoss({loss!r})")
+    def __init__(self, loss: Literal["approx_distance", "smooth_geodesic"] = "approx_distance", prefix=""):
         self._prefix = prefix
+        self._fn = {"approx_distance": Q.distance, "smooth_geodesic": smooth_geodesic_distance}[loss]
 
     def __call__(self, pred, sample):
-        return Q.distance(pred[self._prefix + "rot"].value, sample["pose"])
+        return self._fn(pred[self._prefix + "rot"].value, sample["pose"])
+
+
+class Rot6dReprLoss:
+    def __call__(self, pred, sample):
+        return rot6d.rotation_distance_loss(pred["rot"].value, Q.tomatrix(sample["pose"]))
+
+
+class Rot6dNormalizationSoftConstraint:
+    def __call__(self, pred, sample):
+        return rot6d.orthonormality_loss(pred["unnormalized_6drepr"])
 
 
 class PoseSizeLoss:
@@ -106,10 +122,24 @@ class BoxLoss:
 
 
 class ShapeParameterLoss:
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ShapeParameterLoss")
+    def __call__(self, pred, sample):
+        return torch.mean(torch.square(pred["shapeparam"] - sample["shapeparam"]), dim=-1)
 
 
 class ShapePlausibilityLoss:
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ShapePlausibilityLoss")
+    """-log p(shape) under a diagonal GMM prior, fudged by 0.001 / K."""
+
+    def __init__(self, gmm: GaussianMixture):
+        self.gmm = gmm
+        self.fudge_factor = 0.001 / gmm.n_components
+
+    @staticmethod
+    def from_npz(path: str = SHAPEPARAMS_GMM_NPZ) -> "ShapePlausibilityLoss":
+        return ShapePlausibilityLoss(GaussianMixture.from_npz(path))
+
+    @staticmethod
+    def from_hdf5(path: str) -> "ShapePlausibilityLoss":
+        return ShapePlausibilityLoss(GaussianMixture.from_hdf5(path))
+
+    def __call__(self, pred, sample):
+        return -self.gmm(pred["shapeparam"]) * self.fudge_factor

@@ -1,20 +1,35 @@
 """Negative log-likelihood losses with predicted uncertainty.
 
-Counterpart of the JAX package's `losses/nll.py`: the full-MVN coordinate NLL
-with a Cholesky scale mixed with a 0.1% uniform density, and the
-tangent-space rotation distribution. `BoxNLLLoss`, `Points3dNLLLoss`,
-`ShapeParamsNLLLoss` and `CoordPoseNLLLoss` wait (ROADMAP.md).
+Counterpart of the JAX package's `losses/nll.py`: gaussian and laplace
+diagonal NLLs, the full-MVN coordinate NLL with a Cholesky scale mixed with a
+0.1% uniform density, and the tangent-space rotation distribution (which
+takes a quaternion or a 3x3 matrix rotation through `as_quat`).
 """
 
 import math
+from typing import Literal
 
 import numpy as np
 import torch
 
-from neuralnet_tracker_traincode_torch.device import not_ported
+from neuralnet_tracker_traincode_torch.facemodel import keypoints68 as kpts68
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
 
+SimpleDistributionSwitch = Literal["gaussian", "laplace"]
+
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def gaussian_log_prob(x, loc, scale):
+    z = (x - loc) / scale
+    return -0.5 * z * z - torch.log(scale) - _LOG_SQRT_2PI
+
+
+def laplace_log_prob(x, loc, scale):
+    return -torch.abs(x - loc) / scale - torch.log(2.0 * scale)
+
+
+_LOG_PROB = {"gaussian": gaussian_log_prob, "laplace": laplace_log_prob}
 
 
 def mvn_log_prob_scale_tril(x, loc, scale_tril):
@@ -85,22 +100,48 @@ class QuatPoseNLLLoss:
         return -self.uniform_mixing(log_prob)
 
 
-class _NotPorted:
-    def __init__(self, *args, **kwargs):
-        raise not_ported(type(self).__name__)
+class CoordPoseNLLLoss:
+    def __init__(self, xy_weight: float, head_size_weight: float, distribution: SimpleDistributionSwitch = "gaussian"):
+        self.weights = np.asarray([xy_weight / 2.0, xy_weight / 2.0, head_size_weight], np.float32)
+        self._log_prob = _LOG_PROB[distribution]
+
+    def __call__(self, preds, sample):
+        lp = self._log_prob(sample["coord"], preds["coord"], preds["coord_scales"])
+        return torch.mean(-lp * lp.new_tensor(self.weights)[None, :], dim=-1)
 
 
-class CoordPoseNLLLoss(_NotPorted):
-    pass
+class BoxNLLLoss:
+    def __init__(self, dataname="roi", distribution: SimpleDistributionSwitch = "gaussian"):
+        self.dataname = dataname
+        self._log_prob = _LOG_PROB[distribution]
+
+    def __call__(self, pred, sample):
+        lp = self._log_prob(sample[self.dataname], pred[self.dataname], pred[self.dataname + "_scales"])
+        return torch.mean(-lp, dim=-1)
 
 
-class BoxNLLLoss(_NotPorted):
-    pass
+class Points3dNLLLoss:
+    def __init__(self, chin_weight, eye_weight, pointdimension: int = 3,
+                 distribution: SimpleDistributionSwitch = "gaussian"):
+        self._log_prob = _LOG_PROB[distribution]
+        pointweights = np.ones((68,), dtype=np.float32)
+        pointweights[kpts68.chin_left[:-1]] = chin_weight
+        pointweights[kpts68.chin_right[1:]] = chin_weight
+        pointweights[kpts68.eye_not_corners] = eye_weight
+        self.pointweights = pointweights
+        self.pointdimension = pointdimension
+
+    def __call__(self, preds, sample):
+        d = self.pointdimension  # the scales are sliced with the points
+        lp = self._log_prob(sample["pt3d_68"][:, :, :d], preds["pt3d_68"][:, :, :d], preds["pt3d_68_scales"][:, :, :d])
+        loss = -lp.new_tensor(self.pointweights)[None, :, None] * lp
+        return torch.mean(loss, dim=(-2, -1))
 
 
-class Points3dNLLLoss(_NotPorted):
-    pass
+class ShapeParamsNLLLoss:
+    def __init__(self, distribution: SimpleDistributionSwitch = "gaussian"):
+        self._log_prob = _LOG_PROB[distribution]
 
-
-class ShapeParamsNLLLoss(_NotPorted):
-    pass
+    def __call__(self, preds, sample):
+        lp = self._log_prob(sample["shapeparam"], preds["shapeparam"], preds["shapeparam_scales"])
+        return torch.mean(-lp, dim=-1)

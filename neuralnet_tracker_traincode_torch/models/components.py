@@ -1,14 +1,15 @@
-"""Model components: 2.5D rigid transform, deformable keypoints, Pascal kernel.
+"""Model components: 2.5D rigid transform, deformable keypoints, Pascal
+kernel, and the diagonal gaussian mixture of the shape prior.
 
-Counterpart of the JAX package's `models/components.py`. `GaussianMixture`
-(the shape prior of `ShapePlausibilityLoss`) waits (ROADMAP.md).
+Counterpart of the JAX package's `models/components.py`.
 """
+
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
-from neuralnet_tracker_traincode_torch.device import not_ported
 from neuralnet_tracker_traincode_torch.facemodel.bfm import BFMModel
 from neuralnet_tracker_traincode_torch.ops.mathfn import matmul_hp
 from neuralnet_tracker_traincode_torch.ops.rotrepr import RotationRepr
@@ -55,6 +56,72 @@ def pascal_kernel_2d(kernel_size: int) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+SHAPEPARAMS_GMM_NPZ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "facemodel", "assets", "shapeparams_gmm.npz"
+)
+
+
+def _require_diag(covariance_type: str, path: str):
+    if covariance_type != "diag":
+        raise ValueError(f"{path}: covariance_type {covariance_type!r}, only 'diag' is supported")
+
+
 class GaussianMixture:
-    def __init__(self, *args, **kwargs):
-        raise not_ported("GaussianMixture")
+    """Diagonal-covariance gaussian mixture log-likelihood.
+
+    The constants are computed once as the JAX package computes them: the
+    inverse scales and the normalisation in f64 numpy, then cast to f32 where
+    the JAX package's f32 arithmetic meets them (log of the f32 inverse
+    scales, summed in f32). The shape prior's file is carried as npz
+    (`facemodel/assets/shapeparams_gmm.npz`: `weights` and `means` f4, `cov`
+    f8, `covariance_type` "diag"), converted from the JAX package's
+    `shapeparams_gmm.h5` array for array; `from_hdf5` reads the h5 file where
+    h5py is installed.
+    """
+
+    def __init__(self, weights, means, cov):
+        weights, means, cov = np.asarray(weights), np.asarray(means), np.asarray(cov)
+        assert weights.shape == means.shape[:1] == cov.shape[:1]
+        assert means.shape == cov.shape
+        self.weights, self.means, self.cov = weights, means, cov
+        scales_inv = torch.from_numpy(1.0 / np.sqrt(cov)).float()
+        self._means = torch.from_numpy(means).float()
+        self._scales_inv = scales_inv
+        self._weight_term = torch.from_numpy(np.log(weights)).float()
+        norm_constant = np.float32(0.5 * means.shape[-1] * np.log(2 * np.pi))
+        self._normalization_term = torch.sum(torch.log(scales_inv), dim=-1) - float(norm_constant)
+        self._by_device = {}
+
+    @property
+    def n_components(self) -> int:
+        return self.weights.shape[0]
+
+    @staticmethod
+    def from_npz(path: str = SHAPEPARAMS_GMM_NPZ) -> "GaussianMixture":
+        with np.load(path, allow_pickle=False) as f:
+            _require_diag(str(f["covariance_type"]), path)
+            return GaussianMixture(weights=f["weights"], means=f["means"], cov=f["cov"])
+
+    @staticmethod
+    def from_hdf5(f) -> "GaussianMixture":
+        import h5py
+
+        if isinstance(f, str):
+            with h5py.File(f, "r") as file:
+                return GaussianMixture.from_hdf5(file)
+        _require_diag(f.attrs["covariance_type"], f.filename)
+        return GaussianMixture(weights=f["weights"][...], means=f["means"][...], cov=f["cov"][...])
+
+    def _constants(self, device: torch.device):
+        if device not in self._by_device:
+            self._by_device[device] = tuple(
+                t.to(device) for t in (self._means, self._scales_inv, self._weight_term, self._normalization_term)
+            )
+        return self._by_device[device]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Log-likelihood, x shape (..., D), in f32."""
+        means, scales_inv, weight_term, normalization_term = self._constants(x.device)
+        delta = x.float()[..., None, :] - means
+        exponential_term = -0.5 * torch.sum(torch.square(delta * scales_inv), dim=-1)
+        return torch.logsumexp(weight_term + exponential_term + normalization_term, dim=-1)

@@ -10,8 +10,8 @@ the JAX package's variables onto it one to one.
 JAX model's `dtype=jnp.bfloat16` does; heads cast their outputs to f32 and
 the geometry stays f32.
 
-Ported: the mobilenetv1 backbone and the quaternion heads. The other
-backbones, the 6D rotation heads and the face detector wait (ROADMAP.md).
+Ported: the mobilenetv1 backbone, the quaternion and the 6D rotation heads.
+The other backbones and the face detector wait (ROADMAP.md).
 """
 
 import contextlib
@@ -31,7 +31,7 @@ from neuralnet_tracker_traincode_torch.models.components import (
 )
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
 from neuralnet_tracker_traincode_torch.ops.mathfn import smoothclip0
-from neuralnet_tracker_traincode_torch.ops.rotrepr import QuatRepr
+from neuralnet_tracker_traincode_torch.ops.rotrepr import Mat33Repr, QuatRepr, RotationRepr
 
 
 class DirectQuaternionWithNormalization(nn.Module):
@@ -50,6 +50,25 @@ class DirectQuaternionWithNormalization(nn.Module):
     def forward(self, x) -> Dict[str, Any]:
         quats, quats_unnormalized = QuatRepr.from_features(self.linear(x).float())
         out = {"unnormalized_quat": quats_unnormalized, "rot": quats}
+        if self.enable_uncertainty:
+            out["pose_scales_tril"] = self.uncertainty_net(x)
+        return out
+
+
+class RotRepr6dWithNormalization(nn.Module):
+    def __init__(self, num_features: int, enable_uncertainty: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(num_features, 6)
+        if enable_uncertainty:
+            self.uncertainty_net = NLL.FeaturesAsTriangularScale(num_features, 3)
+        self.enable_uncertainty = enable_uncertainty
+
+    def init_bias(self):
+        self.linear.bias.copy_(0.001 * torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0]))
+
+    def forward(self, x) -> Dict[str, Any]:
+        z = self.linear(x).float()  # Gram-Schmidt and its orthonormality test in f32
+        out = {"unnormalized_6drepr": z, "rot": Mat33Repr.from_6drepr_features(z)}
         if self.enable_uncertainty:
             out["pose_scales_tril"] = self.uncertainty_net(x)
         return out
@@ -111,7 +130,7 @@ class Landmarks3dOutput(nn.Module):
     def init_bias(self):
         self.shapenet.bias.zero_()
 
-    def forward(self, z, quats: QuatRepr, coords) -> Dict[str, Any]:
+    def forward(self, z, quats: RotationRepr, coords) -> Dict[str, Any]:
         shapeparam = self.shapenet(z).float()
         pt3d_68 = rigid_transformation_25d(
             quats, coords[..., :2], coords[..., 2:], self.deformablekeypoints(shapeparam)
@@ -134,9 +153,9 @@ class LocalToGlobalCoordinateOffset(nn.Module):
         super().__init__()
         self.p = nn.Parameter(torch.zeros(num_parameter_sets, 4))
 
-    def forward(self, quats: QuatRepr, coords, set_id):
+    def forward(self, quats: RotationRepr, coords, set_id):
         psel = self.p[0:1] if set_id is None else self.p[set_id.long()]
-        offset_quat = QuatRepr.make_rotate_x(psel[..., 1])
+        offset_quat = type(quats).make_rotate_x(psel[..., 1])
         offset_transl = torch.cat([torch.zeros_like(psel[..., :1]), psel[..., 1:3]], dim=-1)
         offset_scale = smoothclip0(psel[..., 3])
         scale = coords[..., 2:] * offset_scale[..., None]
@@ -167,8 +186,6 @@ class NetworkWithPointHead(nn.Module):
         super().__init__()
         if config != "mobilenetv1":
             raise not_ported(f"backbone {config!r}")
-        if enable_6drot:
-            raise not_ported("the 6D rotation head")
         if enable_face_detector:
             raise not_ported("the face detector head")
         self.enable_point_head = enable_point_head
@@ -176,6 +193,7 @@ class NetworkWithPointHead(nn.Module):
         self.use_local_pose_offset = use_local_pose_offset
         self.backbone_args = dict(backbone_args or {})
         self.config = config
+        self.enable_6drot = enable_6drot
         self.dtype = dtype
         self.input_resolution = input_resolution
 
@@ -183,13 +201,27 @@ class NetworkWithPointHead(nn.Module):
         n = self.convnet.num_features
         self.boxnet = BoundingBox(n, enable_uncertainty)
         self.posnet = PositionSizeOutput(n, enable_uncertainty)
-        self.quatnet = DirectQuaternionWithNormalization(n, enable_uncertainty)
+        rot_head = RotRepr6dWithNormalization if enable_6drot else DirectQuaternionWithNormalization
+        self.quatnet = rot_head(n, enable_uncertainty)
         if use_local_pose_offset:
             self.local_pose_offset = LocalToGlobalCoordinateOffset(self.NUM_DATASET_CONSTANTS)
             if enable_point_head:
                 self.local_pose_offset_kpts = LocalToGlobalCoordinateOffset(self.NUM_DATASET_CONSTANTS)
         if enable_point_head:
             self.landmarks = Landmarks3dOutput(n, enable_uncertainty)
+
+    def get_config(self) -> Dict[str, Any]:
+        """The constructor arguments a checkpoint records (the JAX package's
+        `get_config`, key for key)."""
+        return {
+            "enable_point_head": self.enable_point_head,
+            "enable_face_detector": False,
+            "config": self.config,
+            "enable_uncertainty": self.enable_uncertainty,
+            "use_local_pose_offset": self.use_local_pose_offset,
+            "backbone_args": dict(self.backbone_args),
+            "enable_6drot": self.enable_6drot,
+        }
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):

@@ -13,11 +13,16 @@ it must do what the JAX package's optax chain does:
    the learning rate of the step count BEFORE the increment;
  - NLL scale parameters ('variance') train at 0.1x the learning rate.
 
-SWA, checkpoints and `train_step_multi` wait (ROADMAP.md).
+SWA keeps an equal-weight running average of the parameters and the
+BatchNorm running statistics in the `TrainState` (`update_swa`);
+`save_checkpoint` writes the current or the averaged weights in the JAX
+package's model file layout (`models/io.py`).
 """
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import os
+import tempfile
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
     TrainAugmentationConfig,
     augment_batch_for_training,
 )
-from neuralnet_tracker_traincode_torch.device import DeviceLike, not_ported, resolve_device
+from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.losses.criterion import MaskedMultiTaskCriterion
 from neuralnet_tracker_traincode_torch.models.nll import SCALE_MODULES
 from neuralnet_tracker_traincode_torch.train.schedules import exponential_up_then_steps
@@ -140,7 +145,7 @@ class TrainerConfig:
     epochs: int = 200
     samples_per_epoch: int = 10 * 1024  # `limit_train_batches` of the reference
     grad_clip_norm: float = 1.0
-    swa_start_epoch: Optional[int] = None  # SWA is not ported yet
+    swa_start_epoch: Optional[int] = None  # enables SWA when set
     aug: TrainAugmentationConfig = dataclasses.field(default_factory=TrainAugmentationConfig)
 
     @property
@@ -148,17 +153,24 @@ class TrainerConfig:
         return max(1, self.samples_per_epoch // self.batchsize)
 
 
+_SWA_BUFFERS = ("running_mean", "running_var")
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
     opt_state: AdamState
+    swa_params: Dict[str, torch.Tensor]  # running averages, own copies of the model's tensors
+    swa_buffers: Dict[str, torch.Tensor]  # the BatchNorm running statistics' averages
+    swa_count: int
 
 
 class PoseTrainer:
     """Owns the model, criterion and optimizer of a pose-network training run.
 
-    The parameters live in `model` (on `device`) and are updated in place;
-    `TrainState` carries the step count and the Adam moments.
+    The parameters and buffers live in `model` (on `device`) and are updated
+    in place; `TrainState` carries the step count, the Adam moments and the
+    SWA averages.
     """
 
     def __init__(
@@ -170,8 +182,6 @@ class PoseTrainer:
         epoch_schedule: Optional[Callable[[int], float]] = None,
         device: DeviceLike = None,
     ):
-        if config.swa_start_epoch is not None:
-            raise not_ported("SWA")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.criterion = criterion
@@ -201,7 +211,15 @@ class PoseTrainer:
         else:
             self.model.cpu().init_weights(generator)
         self.model.to(self.device)
-        return TrainState(0, self.tx.init(self.params()))
+        # SWA slots are copies: the model's tensors change in place every step.
+        # SWA averages BatchNorm's running statistics, not `num_batches_tracked` nor the constant tables.
+        return TrainState(
+            step=0,
+            opt_state=self.tx.init(self.params()),
+            swa_params={n: p.detach().clone() for n, p in self.params().items()},
+            swa_buffers={n: b.detach().clone() for n, b in self.model.named_buffers() if n.endswith(_SWA_BUFFERS)},
+            swa_count=0,
+        )
 
     def weight_matrix(self, epoch: int) -> torch.Tensor:
         return torch.as_tensor(self.criterion.weight_matrix(epoch), device=self.device)
@@ -243,7 +261,57 @@ class PoseTrainer:
         metrics = {"loss": loss.detach()}
         for name, (vals, ws) in byname.items():
             metrics[name] = vals.detach().sum() / torch.clamp((ws != 0).sum(), min=1)
-        return TrainState(state.step + 1, opt_state), metrics
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+
+    def train_step_multi(
+        self,
+        state: TrainState,
+        batches: Dict[str, Any],
+        weight_matrix: torch.Tensor,
+        aug_params: Optional[Sequence[AugmentationParameters]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """K = leading-axis length optimizer steps on `batches` (every entry
+        (K, B, ...)), with per-step metrics stacked on a leading (K,) axis:
+        the same trajectory as K `train_step` calls."""
+        K = len(next(iter(batches.values())))
+        history = []
+        for k in range(K):
+            state, m = self.train_step(
+                state, {n: v[k] for n, v in batches.items()}, weight_matrix,
+                aug_params=None if aug_params is None else aug_params[k], generator=generator,
+            )
+            history.append(m)
+        return state, {n: torch.stack([m[n] for m in history]) for n in history[0]}
+
+    @torch.no_grad()
+    def update_swa(self, state: TrainState) -> TrainState:
+        """Equal-weight running average of the parameters and the BatchNorm
+        running statistics: old + (new - old) / (n + 1), in f32."""
+        n1 = float(state.swa_count + 1)
+        current = {**self.params(), **dict(self.model.named_buffers())}
+
+        def avg(slots):
+            return {k: old + (current[k].detach() - old) / n1 for k, old in slots.items()}
+
+        return dataclasses.replace(
+            state, swa_params=avg(state.swa_params), swa_buffers=avg(state.swa_buffers), swa_count=state.swa_count + 1
+        )
+
+    # ---- checkpointing ------------------------------------------------------
+    def variables_of(self, state: TrainState, swa: bool = False) -> Dict[str, torch.Tensor]:
+        """The model's state dict, with the SWA averages in place of the
+        parameters and running statistics when `swa`."""
+        sd = {k: v.detach() for k, v in self.model.state_dict().items()}
+        if swa:
+            sd.update(state.swa_params)
+            sd.update(state.swa_buffers)
+        return sd
+
+    def save_checkpoint(self, state: TrainState, filename: str, swa: bool = False):
+        from neuralnet_tracker_traincode_torch.models import io as model_io
+
+        model_io.save_model(self.model, self.variables_of(state, swa), filename)
 
 
 def nonfinite_metrics(metrics: Dict[str, torch.Tensor]) -> List[str]:
@@ -251,3 +319,26 @@ def nonfinite_metrics(metrics: Dict[str, torch.Tensor]) -> List[str]:
     names = list(metrics)
     ok = torch.isfinite(torch.stack([metrics[n].float() for n in names])).cpu().tolist()
     return [n for n, good in zip(names, ok) if not good]
+
+
+def check_not_nan(
+    metrics: Dict[str, torch.Tensor],
+    params: Dict[str, torch.Tensor],
+    batch: Dict[str, Any],
+    dump_path: Optional[str] = None,
+):
+    """NaN watchdog: when the loss is not finite, write the metrics, the
+    batch and the parameters (`torch.save`, CPU copies) to `dump_path`
+    (default: notgood.pt in the temporary directory) and raise
+    FloatingPointError. `metrics["loss"]` may be a scalar or the (K,) losses
+    of several steps; reading it is one device sync."""
+    loss = float(torch.as_tensor(metrics["loss"]).double().sum())
+    if np.isfinite(loss):
+        return
+    dump_path = dump_path or os.path.join(tempfile.gettempdir(), "notgood.pt")
+    cpu = lambda tree: {k: torch.as_tensor(v).detach().cpu() for k, v in tree.items()}  # noqa: E731
+    try:
+        torch.save({"metrics": cpu(metrics), "batch": cpu(batch), "params": cpu(params)}, dump_path)
+    except Exception as e:  # noqa: BLE001 - the dump must not mask the error
+        print(f"Failed writing NaN dump: {e}")
+    raise FloatingPointError(f"Non-finite loss detected: {loss}; dump at {dump_path}")

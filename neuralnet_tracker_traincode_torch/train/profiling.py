@@ -1,5 +1,5 @@
-"""Profiling of the training step (counterpart of the JAX package's
-`train/profiling.py`).
+"""Profiling of the training step and the throughput meter (counterpart of
+the JAX package's `train/profiling.py`).
 
 `PoseTrainer.train_step` marks its stages with `torch.profiler.record_function`
 ranges named in `STAGES`; they cost a few microseconds a step when no
@@ -56,3 +56,32 @@ def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str
             {"name": n[:90], "per_step": c / steps, "ms_per_step": us / steps / 1e3} for n, (c, us) in ranked
         ],
     }
+
+
+class ThroughputMeter:
+    """Images per second on the host's clock, after `warmup_steps` steps
+    (the first steps build kernels and pick algorithms)."""
+
+    def __init__(self, warmup_steps: int = 1):
+        self.warmup_steps = warmup_steps
+        self.reset()
+
+    def reset(self):
+        self._seen_steps = 0
+        self._images = 0
+        self._t0 = None
+
+    def step(self, batchsize: int):
+        self._seen_steps += 1
+        if self._seen_steps == self.warmup_steps:
+            self._t0 = time.perf_counter()
+            self._images = 0
+        elif self._seen_steps > self.warmup_steps:
+            self._images += batchsize
+
+    @property
+    def images_per_sec(self) -> float:
+        # 0, not nan, when warmup took every step so far
+        if self._t0 is None or self._images == 0:
+            return 0.0
+        return self._images / (time.perf_counter() - self._t0)

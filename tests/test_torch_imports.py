@@ -1,7 +1,8 @@
 """The port stands alone: none of its modules, nor `chip_smoke.py`, imports
-JAX, flax, optax or the JAX package (parsed, not executed), and nothing on
-its import path needs triton, h5py or cv2, which the machine with the card
-may lack. Its data files are its own copies."""
+JAX, flax, optax, msgpack, matplotlib or the JAX package (parsed, not
+executed), and nothing on its import path needs triton, h5py or cv2, which
+the machine with the card may lack. Its data files are its own copies, and
+the shape prior loads from its npz."""
 
 import ast
 import filecmp
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "neuralnet_tracker_traincode_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "neuralnet_tracker_traincode_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib", "neuralnet_tracker_traincode_tpu"}
 NOT_AT_IMPORT = {"triton", "h5py", "cv2"}
 
 
@@ -49,3 +50,17 @@ def test_port_has_its_own_copy_of_the_keypoint_model():
     rel = os.path.join("facemodel", "assets", "bfm_keypoints_subset.npz")
     ours = os.path.join(PORT, rel)
     assert filecmp.cmp(ours, os.path.join(ROOT, "neuralnet_tracker_traincode_tpu", rel), shallow=False)
+
+
+def test_the_shape_prior_loads_without_h5py(monkeypatch):
+    """`ShapePlausibilityLoss.from_npz` and the loss setup need no h5py."""
+    import sys
+
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.losses.losses import ShapePlausibilityLoss
+    from neuralnet_tracker_traincode_torch.train.run import LossOptions, setup_losses
+
+    monkeypatch.setitem(sys.modules, "h5py", None)  # any import of h5py now raises
+    assert ShapePlausibilityLoss.from_npz().gmm.n_components == 2
+    crit = setup_losses(LossOptions(), [Tag.POSE_WITH_LANDMARKS])
+    assert "nll_shp_gmm" in [term.name for term in crit.terms]

@@ -145,3 +145,73 @@ def test_default_device_is_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+SIXD_NET = dict(SMALL_NET, enable_6drot=True)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_6d_rotation_model_forward_matches_jax(train):
+    """The 6D head through the bridge: Gram-Schmidt in f32, the identity
+    fallback, the local pose offsets as matrices; eval mode adds the
+    quaternion from the matrix."""
+    jmodel, variables = jax_posenet_variables(5, **SIXD_NET)
+    _, x, conv = _inputs(5, 3)
+    ref = jmodel.apply(variables, jnp.asarray(x), coord_convention_id=jnp.asarray(conv), train=train,
+                       mutable=["batch_stats"] if train else False)
+    ref = ref[0] if train else ref
+    model = torch_posenet(variables, **SIXD_NET).train(train)
+    with torch.no_grad():
+        out = model(t(x), coord_convention_id=t(conv))
+    assert type(out["rot"]).__name__ == "Mat33Repr" and out["rot"].value.shape == (3, 3, 3)
+    np.testing.assert_allclose(out["rot"].value.numpy(), np.asarray(ref["rot"].value), rtol=1e-4, atol=1e-5)
+    keys = set(_OUT_KEYS) - {"unnormalized_quat"} | {"unnormalized_6drepr"}
+    for k in sorted(keys):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=1e-4, atol=1e-5, err_msg=k)
+    assert ("pose" in out) == (not train)
+    if not train:
+        np.testing.assert_allclose(out["pose"].numpy(), np.asarray(ref["pose"]), rtol=1e-4, atol=1e-5)
+
+
+def test_6d_head_init_and_config_match_jax():
+    from neuralnet_tracker_traincode_tpu.models.posenet import NetworkWithPointHead as JNet
+
+    model = TNet(**SIXD_NET)
+    model.init_weights(torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(model.quatnet.linear.bias.detach().numpy(),
+                                  np.float32(0.001) * np.asarray([1, 0, 0, 0, 1, 0], np.float32))
+    assert model.get_config() == JNet(**SIXD_NET).get_config()
+    assert TNet(**SMALL_NET).get_config() == JNet(**SMALL_NET).get_config()
+
+
+@pytest.mark.parametrize("net", ["6d", "quat_blurpool", "no_uncertainty_no_points"])
+def test_weight_bridge_inverse_restores_the_jax_tree(net):
+    """`posenet_variables_to_jax` gives back the JAX package's variables tree
+    exactly (keys, shapes, dtypes, values), and from_jax(to_jax(sd)) == sd."""
+    import jax
+
+    from neuralnet_tracker_traincode_torch.models.weights import posenet_variables_to_jax
+
+    cfg = {
+        "6d": SIXD_NET,
+        "quat_blurpool": dict(SMALL_NET, backbone_args={"widen_factor": 0.25, "use_blurpool": True}),
+        "no_uncertainty_no_points": dict(SMALL_NET, enable_uncertainty=False, enable_point_head=False),
+    }[net]
+    _, variables = jax_posenet_variables(6, **cfg)
+    sd = posenet_state_dict_from_jax(variables, cfg)
+    back = posenet_variables_to_jax(sd, cfg)
+    flat = lambda tree: {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}  # noqa: E731
+    got, want = flat(back), flat(variables)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == np.float32 and got[k].shape == np.shape(v), k
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+    again = posenet_state_dict_from_jax(back, cfg)
+    assert set(again) == set(sd)
+    for k in sd:
+        assert torch.equal(again[k], sd[k]), k
+    if net == "6d":
+        ref = export_posenet_state_dict(variables, cfg)
+        assert set(sd) == set(ref)
+        for k, v in ref.items():
+            np.testing.assert_array_equal(sd[k].numpy(), np.asarray(v), err_msg=k)

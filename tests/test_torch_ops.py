@@ -1,14 +1,17 @@
 """Parity of the port's math ops (`ops/quaternion.py`, `ops/affine2d.py`,
-`ops/rotrepr.py`, `ops/mathfn.py`) with the JAX package's, on random inputs
-made with numpy. Tolerance: f32, 1e-5 absolute and relative (elementwise
-formulas in the same order; transcendental functions of two libraries)."""
+`ops/rotrepr.py`, `ops/rot6d.py`, `ops/mathfn.py`) with the JAX package's, on
+random inputs made with numpy. Tolerance: f32, 1e-5 absolute and relative
+(elementwise formulas in the same order; transcendental functions of two
+libraries; the 3x3 products summed in another order)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from neuralnet_tracker_traincode_tpu.ops import affine2d as JA, mathfn as JM, quaternion as JQ, rotrepr as JR
-from neuralnet_tracker_traincode_torch.ops import affine2d as TA, mathfn as TM, quaternion as TQ, rotrepr as TR
+import torch
+
+from neuralnet_tracker_traincode_tpu.ops import affine2d as JA, mathfn as JM, quaternion as JQ, rot6d as J6, rotrepr as JR
+from neuralnet_tracker_traincode_torch.ops import affine2d as TA, mathfn as TM, quaternion as TQ, rot6d as T6, rotrepr as TR
 from tests.torch_port_helpers import t
 
 N = 64
@@ -45,7 +48,7 @@ _QUAT_CASES = {
 
 
 def _args(module, *arrays):
-    conv = jnp.asarray if module in (JQ, JM, JR) else t
+    conv = jnp.asarray if module in (JQ, JM, JR, J6) else t
     return [conv(a) for a in arrays]
 
 
@@ -127,4 +130,70 @@ def test_quat_repr_matches_jax(name):
     seed = 200 + sorted(_REPR_CASES).index(name)
     ref = _REPR_CASES[name](JR, np.random.RandomState(seed))
     out = _REPR_CASES[name](TR, np.random.RandomState(seed))
+    _check(_np(out), ref)
+
+
+def _sixd(rng, n=N):
+    """6D features: random, plus degenerate rows (x parallel to y, x zero,
+    y zero, all zero) that must fall back to the identity."""
+    z = rng.randn(n, 6).astype(np.float32)
+    z[0, 3:] = 2.5 * z[0, :3]
+    z[1, :3] = 0.0
+    z[2, 3:] = 0.0
+    z[3] = 0.0
+    return z
+
+
+_ROT6D_CASES = {
+    "tomatrix": lambda m, r: m.tomatrix(*_args(m, _sixd(r))),
+    "tomatrix_batch_dims": lambda m, r: m.tomatrix(*_args(m, _sixd(r).reshape(8, 8, 6))),
+    "frommatrix": lambda m, r: m.frommatrix(*_args(m, _rotmats(r))),
+    "orthonormality_loss": lambda m, r: m.orthonormality_loss(*_args(m, _sixd(r))),
+    "rotation_distance_loss": lambda m, r: m.rotation_distance_loss(*_args(m, _rotmats(r), _rotmats(r))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ROT6D_CASES))
+def test_rot6d_op_matches_jax(name):
+    seed = 300 + sorted(_ROT6D_CASES).index(name)
+    ref = _ROT6D_CASES[name](J6, np.random.RandomState(seed))
+    out = _ROT6D_CASES[name](T6, np.random.RandomState(seed))
+    _check(_np(out), ref)
+
+
+def test_rot6d_falls_back_to_identity_on_degenerate_input_only():
+    m = T6.tomatrix(t(_sixd(np.random.RandomState(5))))
+    eye = torch.eye(3)
+    assert all(torch.equal(m[i], eye) for i in range(4))
+    good = m[4:]
+    assert not any(torch.equal(g, eye) for g in good)
+    np.testing.assert_allclose((good @ good.transpose(1, 2)).numpy(), np.broadcast_to(np.eye(3), good.shape), atol=1e-5)
+
+
+def test_rot6d_orthonormality_test_is_immune_to_autocast():
+    """Under bf16 autocast a matmul-based M M^T would be rounded past the
+    1e-3 threshold and turn good rotations into the identity."""
+    z = t(_sixd(np.random.RandomState(6)))[4:]
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        m = T6.tomatrix(z)
+    assert m.dtype == torch.float32
+    np.testing.assert_array_equal(m.numpy(), T6.tomatrix(z).numpy())
+    assert not any(torch.equal(g, torch.eye(3)) for g in m)
+
+
+_MAT33_CASES = {
+    "from_6drepr_features": lambda m, r: m.Mat33Repr.from_6drepr_features(_args(m, _sixd(r))[0]).value,
+    "rotate_points": lambda m, r: m.Mat33Repr(_args(m, _rotmats(r)[:8])[0]).rotate_points(
+        _args(m, r.randn(8, 68, 3).astype(np.float32))[0]),
+    "mult": lambda m, r: m.Mat33Repr(_args(m, _rotmats(r))[0]).mult(m.Mat33Repr(_args(m, _rotmats(r))[0])).value,
+    "make_rotate_x": lambda m, r: m.Mat33Repr.make_rotate_x(_args(m, r.uniform(-3, 3, N).astype(np.float32))[0]).value,
+    "as_quat": lambda m, r: m.Mat33Repr(_args(m, _rotmats(r))[0]).as_quat(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_MAT33_CASES))
+def test_mat33_repr_matches_jax(name):
+    seed = 400 + sorted(_MAT33_CASES).index(name)
+    ref = _MAT33_CASES[name](JR, np.random.RandomState(seed))
+    out = _MAT33_CASES[name](TR, np.random.RandomState(seed))
     _check(_np(out), ref)

@@ -6,6 +6,10 @@ package uses and injected into the port, since `jax.random` and
 `torch.Generator` streams differ.
 """
 
+import functools
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,6 +115,16 @@ def _terms(L, NLL):
         ("box", L.BoxLoss("l2"), 0.01),
         ("quatreg", L.QuaternionNormalizationSoftConstraint(), 1e-6),
     ]
+
+
+@functools.cache
+def cli_setup_losses():
+    """`setup_losses` of the JAX package's training CLI (`scripts/train_poseestimator.py`)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("train_poseestimator", os.path.join(root, "scripts", "train_poseestimator.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.setup_losses
 
 
 def flagship_criteria():
