@@ -32,7 +32,7 @@ Phases (any failure ends the run with a non-zero exit code):
  6. with `--profile`: 5 more steps under `torch.profiler`, summarised on a
     `profile:` line (host time per stage, device busy share, kernel launches
     per step, the top kernels), and a Chrome trace if a path is given; the
-    same for 5 steps of phase 7's trainer after its run;
+    same for 5 steps of phase 7's and of phase 9's trainers after their runs;
  7. a training run (`train/run.py:run_training`): the 6D-rotation network
     (MobileNetV1 x1.0, point head, NLL heads, bf16 autocast) with the training
     CLI's full loss setup (NLL, point head, ROI, 6D: 12 terms, the shape prior
@@ -43,20 +43,47 @@ Phases (any failure ends the run with a non-zero exit code):
     validation crops (`skip_rotation`, 192^2 padded sources) are held against
     the plain version; then the run, with the launch counts reset just before
     and read just after, and K1's rotated training crops of the first step of
-    each epoch (64 x 160^2 sources) held against the plain version after it.
+    each epoch (64 x 160^2 sources) held against the plain version after it,
+    with K3's launches of the same steps and every 16th K2 launch (the run's
+    own gates, sigmas and seeds; K2 bit-equal, K3 within 1e-6).
     It fails unless every loss is finite, the final
     validation loss is below the untrained model's, `swa.ckpt` read back by
     `load_posenet` gives outputs bit-equal to the trainer's SWA variables, and
     the resume file loaded into a fresh trainer gives back every tensor. It
     prints per-epoch images/s, validation and checkpoint milliseconds and the
     phase's seconds;
- 8. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
-    from phase 7's run), then `{"ok": true, "device": ...}` as the last line.
+ 8. the eval path (`eval/predictor.py`, `eval/report.py`): phase 7's
+    `best.ckpt` and `swa.ckpt` loaded from disk and its untrained network,
+    each through `Predictor.evaluate` over phase 7's 256 validation frames
+    (half-pixel offset, head ROI from the landmarks, expansion 1.1), one row
+    of the evaluation table each, printed with the card. It fails unless
+    both trained rows have a geodesic error below the untrained one, every
+    predicted quaternion is unit and finite, a second pass under bf16
+    autocast with TF32 on for cuDNN and cuBLAS gives bit-equal rows, and `warp_affine` on the card is within 1e-3 gray of the same call
+    on the CPU (128 frames). It prints the Predictor's milliseconds per chunk
+    of 128 by stage (packing and copy, crop, forward and backtransform,
+    metrics);
+ 9. the convergence gate of the JAX package's `tests/test_convergence.py`:
+    4,096 synthetic frames at 160^2 from seed 3 (rows 0-399 validation, the
+    rest training), the training CLI's defaults with `--with-nll-loss
+    --with-swa` (quaternion head, point head, ROI training; SWA after epoch
+    10), bf16, batch 128, 16 epochs of 10,240 samples through `run_training`;
+    then the Predictor on `best.ckpt` and `swa.ckpt` over the frames without
+    extreme poses, with the head ROI. It fails unless `best.ckpt` reaches a
+    geodesic error below 16 degrees and NME3d below 16%, and K1 at the run's
+    rotated crops (the first step of each epoch, 128 x 160^2), K3 at the same
+    steps and every 80th K2 launch (128 x 129^2, as phase 7 holds them)
+    agree with their plain versions; it prints the rows, images/s per epoch
+    and the phase's seconds;
+ 10. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+    from phase 7's run, `launches_convergence_run` from phase 9's), then
+    `{"ok": true, "device": ...}` as the last line.
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -71,6 +98,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, SRC, S, THETA = 64, 448, 129, 30.0
 STEPS_WARMUP, STEPS_TIMED = 3, 20
 RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
+# the convergence gate: tests/test_convergence.py of the JAX package
+CONV_N, CONV_SEED, CONV_VAL, CONV_B, CONV_EPOCHS, CONV_SAMPLES = 4096, 3, 400, 128, 16, 10240
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -171,6 +200,48 @@ def k1_captured(K1, keep):
         yield captured
     finally:
         K1.warp_roi_rotate = launch
+
+
+@contextlib.contextmanager
+def wrapper_captured(module, name, every):
+    """Within the block, the kernel wrapper `module.name` that the pipeline
+    calls also keeps a copy of the arguments and output of its first call and
+    of every `every`-th call after it; for `k2_k3_against_plain`."""
+    captured, launch, seen = [], getattr(module, name), [0]
+
+    def capture(*args):
+        out = launch(*args)
+        if seen[0] % every == 0:
+            captured.append((tuple(a.clone() if hasattr(a, "clone") else a for a in args), out.clone()))
+        seen[0] += 1
+        return out
+
+    setattr(module, name, capture)
+    try:
+        yield captured
+    finally:
+        setattr(module, name, launch)
+
+
+def k2_k3_against_plain(torch, K2, K3, equalized, noised, what):
+    """Captured K2 launches bit-equal to `equalize_plain` and captured K3
+    launches within 1e-6 of `add_gaussian_noise_plain` at their own
+    offsets; returns the largest errors by kernel."""
+    check(equalized and noised, f"{what}: {len(equalized)} K2 and {len(noised)} K3 launches captured")
+    err = {"equalize": 0.0, "gaussian_noise": 0.0}
+    for (x, gate), out in equalized:
+        ref = K2.equalize_plain(x, gate)
+        err["equalize"] = max(err["equalize"], float((out - ref).abs().max()))
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"K2 ({what}, {tuple(x.shape)}) is not bit-equal to its plain version: max {err['equalize']}")
+    for (x, seeds, sigma, offset), out in noised:
+        d = float((out - K3.add_gaussian_noise_plain(x, seeds, sigma, offset)).abs().max())
+        err["gaussian_noise"] = max(err["gaussian_noise"], d)
+        check(d <= 1e-6, f"K3 ({what}, {tuple(x.shape)}, offset {offset}) disagrees with its plain version: {d}")
+    shapes = {tuple(x.shape) for (x, *_), _ in equalized + noised}
+    print(f"{what}: K2 at {len(equalized)} launches bit-equal to its plain version, K3 at {len(noised)} launches max "
+          f"|kernel - plain| {err['gaussian_noise']:.3e} (tolerance 1e-6), shapes {sorted(shapes)}")
+    return err
 
 
 def k1_against_plain(K1, captured, what):
@@ -285,7 +356,7 @@ def kernel_phase(torch, np, dev):
     k1_ops = float((cs * SRC * taps_y * 2 + cs * cs * taps_x * 2).sum()) + B * 3 * cs * cs * 3
     rows.append(dict(
         name="warp_roi_rotate", source="neuralnet_tracker_traincode_torch/kernels/csrc/warp.cu",
-        replaces="neuralnet_tracker_traincode_tpu/augmentation/warp_pallas.py:132", max_abs_err=err_k1,
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/warp_pallas.py:193", max_abs_err=err_k1,
         ms=time_ms(torch, lambda: launch_k1(images), flush), ms_stream=stream_ms(torch, launch_k1, rotating(torch, images)),
         plain_ms=time_ms(torch, lambda: K1.warp_roi_rotate_plain(images, kp, S, cs, True), flush),
         bound=bound_ms(B * SRC * SRC + B * 6 * 4 + B * S * S * 4, f32_ops=k1_ops), library_ms=None,
@@ -313,7 +384,7 @@ def kernel_phase(torch, np, dev):
 
     rows.append(dict(
         name="equalize", source="neuralnet_tracker_traincode_torch/kernels/csrc/equalize.cu",
-        replaces="neuralnet_tracker_traincode_tpu/augmentation/equalize_pallas.py:114", max_abs_err=err_k2,
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/equalize_pallas.py:123", max_abs_err=err_k2,
         ms=time_ms(torch, lambda: launch_k2(x), flush), ms_stream=stream_ms(torch, launch_k2, k2_inputs),
         plain_ms=time_ms(torch, lambda: K2.equalize_plain(x, gate), flush),
         bound=bound_ms(2 * B * P * 4 + B * 4, f32_ops=4 * B * P), library_ms=None,
@@ -361,7 +432,7 @@ def kernel_phase(torch, np, dev):
     k3_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=(13 * n_on + 3 * (B - n_on)) * P, i32_ops=50 * n_on * P)
     rows.append(dict(
         name="gaussian_noise", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
-        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:76", max_abs_err=err_k3,
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:83", max_abs_err=err_k3,
         ms=time_ms(torch, lambda: launch_k3(x), flush), ms_stream=stream_ms(torch, launch_k3, k3_inputs),
         plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_plain(x, seeds, sigma, -0.5), flush),
         bound=k3_bound, library_ms=None,
@@ -370,7 +441,7 @@ def kernel_phase(torch, np, dev):
     k3_all_on_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=13 * B * P, i32_ops=50 * B * P)
     rows.append(dict(
         name="gaussian_noise_from_bits", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
-        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:98", max_abs_err=err_k3b,
+        replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:109", max_abs_err=err_k3b,
         ms=time_ms(torch, lambda: launch_k3b(x, b1, b2), flush),
         ms_stream=stream_ms(torch, launch_k3b, rotating(torch, x, b1, b2)),
         plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma), flush),
@@ -491,16 +562,16 @@ def training_phase(torch, np, dev, name):
 
 
 def synthetic_frames(n, seed, dev):
-    """Marker frames rendered on the card, as the port's in-memory `Frame`s."""
+    """Marker frames rendered on the card, as the port's single-frame `Batch`es."""
     from neuralnet_tracker_traincode_torch.data.fields import Tag
-    from neuralnet_tracker_traincode_torch.data.loader import Frame
+    from neuralnet_tracker_traincode_torch.data.batch import frame
     from neuralnet_tracker_traincode_torch.data.synthetic import make_labels, render_marker_images
 
     quats, coords, pt3d, shapeparams, rois = make_labels(n, RUN_SRC, seed=seed, device=dev)
     images = render_marker_images(pt3d, coords, RUN_SRC)
     host = [a.cpu().numpy() for a in (images[..., None], quats, coords, pt3d, shapeparams, rois)]
     names = ("image", "pose", "coord", "pt3d_68", "shapeparam", "roi")
-    return [Frame(Tag.POSE_WITH_LANDMARKS, {k: a[i] for k, a in zip(names, host)}) for i in range(n)]
+    return [frame(Tag.POSE_WITH_LANDMARKS, {k: a[i] for k, a in zip(names, host)}) for i in range(n)]
 
 
 def training_run_phase(torch, np, dev, smi):
@@ -508,7 +579,9 @@ def training_run_phase(torch, np, dev, smi):
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
     from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
     from neuralnet_tracker_traincode_torch.kernels import warp as K1
     from neuralnet_tracker_traincode_torch.models.io import load_posenet
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
@@ -535,6 +608,7 @@ def training_run_phase(torch, np, dev, smi):
     trainer = make_trainer()
     check(len(trainer.criterion.terms) == 12, f"setup_losses gave {len(trainer.criterion.terms)} terms, not 12")
     state = trainer.init_state(torch.Generator().manual_seed(0))
+    untrained_model = copy.deepcopy(trainer.model)  # for phase 8
     validation = FusedValidation(trainer, val_frames, batchsize=2 * B)
     pad = validation._batches[0]["image"].shape[1]
     check(pad == 192, f"validation pads {RUN_SRC}^2 sources to {pad}, not 192")
@@ -563,8 +637,11 @@ def training_run_phase(torch, np, dev, smi):
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
     steps_per_epoch = trainer.config.steps_per_epoch
-    # K1's rotated training crops of each epoch's first step, kept for the check after the run
-    with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops:
+    # K1's rotated training crops of each epoch's first step, and K3's launches of the same steps (one a step) and
+    # every steps_per_epoch-th K2 launch, kept for the checks after the run
+    with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops, \
+            wrapper_captured(K2, "equalize", steps_per_epoch) as equalized, \
+            wrapper_captured(K3, "add_gaussian_noise", steps_per_epoch) as noised:
         torch.cuda.synchronize()
         ext.reset_launch_counts()
         t_run = time.perf_counter()
@@ -591,6 +668,9 @@ def training_run_phase(torch, np, dev, smi):
     err_train = k1_against_plain(K1, train_crops, "training run's crop")
     print(f"training run: K1 at the training crop ({RUN_EPOCHS} launches of the run checked, {B} x {RUN_SRC}^2 uint8 "
           f"-> {S}^2, rotated): max |kernel - plain| {err_train:.3e} gray (tolerance 0.02)")
+    errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "training run")
+    errs["warp_roi_rotate"] = max(err_val, err_train)
+    del train_crops, equalized, noised
 
     # swa.ckpt read back by load_posenet against the trainer's SWA variables, on the card
     loaded = load_posenet(os.path.join(outdir, "swa.ckpt")).to(dev)
@@ -615,7 +695,6 @@ def training_run_phase(torch, np, dev, smi):
           (state.step, state.opt_state.count, state.swa_count) and extra["epoch"] == RUN_EPOCHS - 1,
           f"the resume file gives back other tensors: {differ[:5]}")
     n_tensors = sum(len(want) for _, want in pairs)
-    shutil.rmtree(outdir)
 
     for r in records:
         print(f"training run epoch {r['epoch'] + 1}/{RUN_EPOCHS}: {r['steps']} steps in {r['train_s'] * 1e3:.1f} ms, "
@@ -635,7 +714,187 @@ def training_run_phase(torch, np, dev, smi):
         nonlocal state
         state, _ = trainer.train_step(state, next(more), W, generator=gen)
 
-    return launches, max(err_val, err_train), step
+    return launches, errs, step, dict(outdir=outdir, val_frames=val_frames, untrained=untrained_model)
+
+
+def eval_samples(frames):
+    """The eval loader's samples of `frames`: labels offset by half a pixel
+    and the head ROI from the landmarks, as the JAX package's
+    `make_validation_dataset` builds them (no full face model: the head
+    sphere)."""
+    from neuralnet_tracker_traincode_torch.data.host_transforms import PutRoiFromLandmarks, offset_points_by_half_pixel_np
+
+    put = PutRoiFromLandmarks(extend_to_forehead=True)
+    return [put(offset_points_by_half_pixel_np(f)) for f in frames]
+
+
+def report_rows(torch, np, dev, nets, samples, data, smi, repeat=False):
+    """One evaluation-table row per network through `Predictor.evaluate`
+    (expansion 1.1, head ROI), the quaternions checked unit and finite, and
+    with `repeat` each row computed a second time under bf16 autocast with
+    TF32 on, bit-equal. Returns the
+    rows and each stage's milliseconds per chunk of the last network (the
+    first one pays the device's warm-up)."""
+    from neuralnet_tracker_traincode_torch.eval import metrics as M
+    from neuralnet_tracker_traincode_torch.eval.predictor import Predictor
+    from neuralnet_tracker_traincode_torch.eval.report import RoiConfig, TableBuilder, add_report_row
+
+    builder, rows, stages = TableBuilder(), {}, {}
+    for name, net in nets.items():
+        predictor = Predictor(net, RoiConfig().expansion_factor, device=dev)
+        stage_ms = {}
+        rows[name] = add_report_row(builder, predictor, samples, name, data, RoiConfig(), stage_ms=stage_ms)
+        stages = stage_ms
+        if repeat:  # under the training's settings, which the eval must not see: bf16 autocast, TF32 on
+            cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+            saved = (cudnn.allow_tf32, matmul.allow_tf32)
+            cudnn.allow_tf32 = matmul.allow_tf32 = True
+            try:
+                with torch.autocast(dev.type, dtype=torch.bfloat16):
+                    again = add_report_row(TableBuilder(), predictor, samples, name, data, RoiConfig())
+            finally:
+                cudnn.allow_tf32, matmul.allow_tf32 = saved
+            check(json.dumps(again) == json.dumps(rows[name]), f"{name}: a second pass gives another row: {again}")
+        quats = predictor.evaluate(M.PredExtractor("pose"), samples)
+        norm = np.linalg.norm(quats, axis=-1)
+        check(quats.shape == (len(samples), 4) and bool(np.isfinite(quats).all()) and float(np.abs(norm - 1).max()) < 1e-5,
+              f"{name}: predicted quaternions not unit and finite (|q| in [{norm.min()}, {norm.max()}])")
+    table = builder.build()
+    print(table)
+    print(f"(table above: {len(samples)} frames, {smi})")
+    return rows, stages
+
+
+def eval_phase(torch, np, dev, smi, run):
+    """Phase 8: the eval path on phase 7's checkpoints and its validation frames."""
+    from neuralnet_tracker_traincode_torch.augmentation.geometric import focus_roi_transform, no_roi_randomization
+    from neuralnet_tracker_traincode_torch.augmentation.warp import warp_affine
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
+
+    t_phase = time.perf_counter()
+    samples = eval_samples(run["val_frames"])
+    nets = {"untrained": CheckpointPoseNetwork(run["untrained"], dev)}
+    for f in ("best.ckpt", "swa.ckpt"):
+        nets[f] = CheckpointPoseNetwork(os.path.join(run["outdir"], f), dev)
+        check(nets[f].model.enable_6drot, f"{f} is not the 6D network")
+    rows, stages = report_rows(torch, np, dev, nets, samples, "phase 7 validation", smi, repeat=True)
+    geo = {k: r[5] for k, r in rows.items()}
+    check(geo["best.ckpt"] < geo["untrained"] and geo["swa.ckpt"] < geo["untrained"], f"geodesic errors {geo}")
+
+    # the eval crop on the card against the same call on the CPU, one chunk
+    images = torch.from_numpy(np.stack([s["image"] for s in samples[:128]]))
+    rois = torch.from_numpy(np.stack([s["roi"] for s in samples[:128]]))
+    tr = focus_roi_transform(rois, no_roi_randomization((len(rois),), 1.1), S)
+    on_card = warp_affine(images.to(dev), tr, S).cpu()
+    err = float((on_card - warp_affine(images, tr, S)).abs().max())
+    check(err <= 1e-3, f"warp_affine card vs CPU: {err} gray")
+    print(f"eval: rows bit-equal on a second pass (bf16 autocast, TF32 on); quaternions unit and finite; geodesic "
+          f"untrained {geo['untrained']:.3f}, best {geo['best.ckpt']:.3f}, swa {geo['swa.ckpt']:.3f} deg; warp_affine card vs "
+          f"CPU max {err:.3e} gray ({len(rois)} x {RUN_SRC}^2 -> {S}^2); Predictor ms per chunk of 128 (swa.ckpt, "
+          f"median of {len(stages['crop_ms'])} chunks): "
+          + ", ".join(f"{k} {statistics.median(v):.2f}" for k, v in stages.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return stages
+
+
+def convergence_phase(torch, np, dev, smi):
+    """Phase 9: the convergence gate of the JAX package's
+    `tests/test_convergence.py` on the card."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.run import LossOptions, run_training, setup_losses
+    from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phases 5 and 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    frames = synthetic_frames(CONV_N, CONV_SEED, dev)
+    val_frames, train_frames = frames[:CONV_VAL], frames[CONV_VAL:]  # the aflw2k3d split of `pipelines.py`
+    opts = LossOptions(epochs=CONV_EPOCHS, with_nll_loss=True)  # the CLI's defaults with --with-nll-loss
+    tags = [Tag.POSE_WITH_LANDMARKS]
+    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                 dtype=torch.bfloat16)
+    cfg = TrainerConfig(batchsize=CONV_B, epochs=CONV_EPOCHS, samples_per_epoch=CONV_SAMPLES,
+                        swa_start_epoch=CONV_EPOCHS * 2 // 3,  # --with-swa
+                        aug=TrainAugmentationConfig(inputsize=S, rotation_aug_angle=THETA, extension_factor=1.1))
+    trainer = PoseTrainer(model, setup_losses(opts, tags), cfg, LABEL_CATEGORIES, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(1234))
+    validation = FusedValidation(trainer, val_frames, batchsize=2 * CONV_B)
+    packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
+
+    def batches(start):
+        return iterate_fused_batches(packed, CONV_B, torch.Generator().manual_seed(CONV_SEED), device=dev, start=start)
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_convergence_")
+    steps_per_epoch = cfg.steps_per_epoch
+    t_data = time.perf_counter() - t_phase
+    try:
+        # as in phase 7: K1 and K3 at each epoch's first step, every steps_per_epoch-th K2 launch
+        with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops, \
+                wrapper_captured(K2, "equalize", steps_per_epoch) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", steps_per_epoch) as noised:
+            torch.cuda.synchronize()
+            ext.reset_launch_counts()
+            t_run = time.perf_counter()
+            state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = dict(ext.LAUNCHES)
+        steps = CONV_EPOCHS * steps_per_epoch
+        check(state.step == steps, f"the run took {state.step} steps, not {steps}")
+        check(launches["warp_roi_rotate"] == steps + CONV_EPOCHS * len(validation._batches),
+              f"K1 launched {launches['warp_roi_rotate']} times")
+        check(launches["gaussian_noise"] == steps and launches["equalize"] >= 1, f"launches {launches}")
+        check(len(train_crops) == CONV_EPOCHS, f"{len(train_crops)} training crops kept, not {CONV_EPOCHS}")
+        for images, _, _, _, _, skip, _ in train_crops:
+            check(not skip and tuple(images.shape) == (CONV_B, RUN_SRC, RUN_SRC), f"K1 at {tuple(images.shape)}")
+        err_k1 = k1_against_plain(K1, train_crops, "convergence run's crop")
+        errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "convergence run")
+        errs["warp_roi_rotate"] = err_k1
+        del train_crops, equalized, noised
+
+        quats = np.stack([f["pose"] for f in frames])
+        coords = np.stack([f["coord"] for f in frames])
+        keep = indices_without_extreme_poses(quats, coords)
+        samples = eval_samples([frames[i] for i in keep])
+        t_eval = time.perf_counter()
+        nets = {f: CheckpointPoseNetwork(os.path.join(outdir, f), dev) for f in ("best.ckpt", "swa.ckpt")}
+        rows, stages = report_rows(torch, np, dev, nets, samples, f"synthetic {CONV_N} (seed {CONV_SEED})", smi)
+        eval_s = time.perf_counter() - t_eval
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for r in records:
+        print(f"convergence run epoch {r['epoch'] + 1}/{CONV_EPOCHS}: {r['steps']} steps in {r['train_s']:.2f} s, "
+              f"{r['images_per_s']:.1f} images/s ({r['sustained_images_per_s']:.1f} sustained); validation "
+              f"{r['val_ms']:.1f} ms, loss {r['val_loss']:.4f}; checkpoints {sum(r['checkpoint_ms'].values()):.1f} ms")
+    best_geo, best_nme = rows["best.ckpt"][5], rows["best.ckpt"][8]
+    print(f"convergence gate: best.ckpt geodesic {best_geo:.3f} deg (< 16), NME3d {best_nme:.3f}% (< 16); swa.ckpt "
+          f"geodesic {rows['swa.ckpt'][5]:.3f}, NME3d {rows['swa.ckpt'][8]:.3f}; {len(samples)} of {CONV_N} frames "
+          f"without extreme poses; K1 at the run's crops max |kernel - plain| {err_k1:.3e} gray; launches "
+          f"{launches}; data {t_data:.2f} s, run {run_s:.2f} s ({steps * CONV_B / run_s:.1f} images/s with "
+          f"validation and checkpoints), eval {eval_s:.2f} s (Predictor ms per chunk of 128, swa.ckpt, median of "
+          f"{len(stages['crop_ms'])} chunks: "
+          + ", ".join(f"{k} {statistics.median(v):.2f}" for k, v in stages.items())
+          + f"), phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    check(best_geo < 16.0 and best_nme < 16.0, f"convergence gate failed: geodesic {best_geo}, NME3d {best_nme}")
+    W = trainer.weight_matrix(CONV_EPOCHS - 1)
+    gen = torch.Generator().manual_seed(11)
+    more = batches(state.step)
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, next(more), W, generator=gen)
+
+    return launches, errs, step
 
 
 def main() -> int:
@@ -670,10 +929,18 @@ def main() -> int:
 
         trace = sys.argv[sys.argv.index("--profile") + 1] if len(sys.argv) > sys.argv.index("--profile") + 1 else None
         print("profile: " + json.dumps(profile_steps(step, 5, trace)))
-    run_launches, err_run, run_step = training_run_phase(torch, np, dev, f"{name} ({smi})")
+    run_launches, errs_run, run_step, run = training_run_phase(torch, np, dev, f"{name} ({smi})")
+    try:
+        if profile:
+            print("profile (training run's step): " + json.dumps(profile_steps(run_step, 5)))
+        eval_phase(torch, np, dev, f"{name} ({smi})", run)
+    finally:
+        shutil.rmtree(run["outdir"], ignore_errors=True)
+    conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
     if profile:
-        print("profile (training run's step): " + json.dumps(profile_steps(run_step, 5)))
-    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], err_run)
+        print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
+    for r in rows:  # the errors at the runs' own launches join those of phase 3
+        r["max_abs_err"] = max(r["max_abs_err"], errs_run.get(r["name"], 0.0), errs_conv.get(r["name"], 0.0))
 
     kernels = []
     for r in rows:
@@ -681,6 +948,7 @@ def main() -> int:
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
+            launches_convergence_run=conv_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

@@ -14,7 +14,9 @@ Ported so far: the pose-estimator training run (MobileNetV1 with point head,
 NLL heads and the quaternion or 6D rotation head, every loss option of the
 training CLI, the full training augmentation, SWA, validation, the epoch loop,
 model checkpoints in the JAX package's file layout and resumable training
-states). What waits is listed in ROADMAP.md.
+states) and the eval path (the Predictor's crop, f32 forward and
+backtransform, the metrics, the rotation alignments and the evaluation
+table). What waits is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

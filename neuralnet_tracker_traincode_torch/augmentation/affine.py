@@ -21,6 +21,10 @@ def position_normalization(w: int, h: int) -> Affine2d:
     return Affine2d.range_remap_2d([0.0, 0.0], [float(w), float(h)], [-1.0, -1.0], [1.0, 1.0])
 
 
+def position_unnormalization(w: int, h: int) -> Affine2d:
+    return Affine2d.range_remap_2d([-1.0, -1.0], [1.0, 1.0], [0.0, 0.0], [float(w), float(h)])
+
+
 def transform_points(tr: Affine2d, points: torch.Tensor) -> torch.Tensor:
     assert points.shape[-1] in (2, 3), f"Bad point array shape: {points.shape}"
     m = tr.tensor()

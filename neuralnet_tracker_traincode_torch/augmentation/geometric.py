@@ -113,6 +113,11 @@ def focus_roi_components(roi, params: RoiFocusRandomizationParameters, new_size:
     return view_roi, _center_rotation_tr(params.angles, new_size) @ tr
 
 
+def focus_roi_transform(roi, params: RoiFocusRandomizationParameters, new_size: int, round_roi: bool = True) -> Affine2d:
+    """Per-sample source->crop transform (ROI expansion + in-plane rotation)."""
+    return focus_roi_components(roi, params, new_size, round_roi)[1]
+
+
 def sample_flip_rot90(generator: Optional[torch.Generator], batchshape, p_rot: float = 0.01):
     """(do_flip bool, rot_dir in {-1, 0, +1} float): flip with p=0.5, +-90 deg
     with p=p_rot/2 each."""

@@ -8,8 +8,8 @@
 
 `sample_augmentation_parameters` draws every random value from a
 `torch.Generator`; `augment_batch_for_training` applies explicit draws, so a
-test can hand both packages the same ones. The crop evaluation path
-(`crop_for_eval`) waits (ROADMAP.md).
+test can hand both packages the same ones. `crop_for_eval` is the
+deterministic eval crop (the gather warp of `warp.py`, 2x oversampled).
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -21,6 +21,7 @@ from neuralnet_tracker_traincode_torch.augmentation.geometric import (
     RoiFocusRandomizationParameters,
     flip_rot90_transform,
     focus_roi_components,
+    focus_roi_transform,
     make_roi_randomization_parameters,
     no_roi_randomization,
     sample_flip_rot90,
@@ -33,9 +34,10 @@ from neuralnet_tracker_traincode_torch.augmentation.intensity import (
     sample_noise_parameters,
     sample_stage1_parameters,
 )
+from neuralnet_tracker_traincode_torch.augmentation.warp import warp_affine
 from neuralnet_tracker_traincode_torch.augmentation.warp_fast import warp_roi_rotate
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
-from neuralnet_tracker_traincode_torch.device import DeviceLike, not_ported, resolve_device
+from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
 
 
@@ -173,5 +175,14 @@ def augment_batch_for_training(
     return x - 0.5, labels
 
 
-def crop_for_eval(*args, **kwargs):
-    raise not_ported("crop_for_eval (the eval path)")
+def crop_for_eval(
+    images: torch.Tensor, roi: torch.Tensor, inputsize: int, expansion_factor: float = 1.2, oversample: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic eval crop on the images' device: (whitened f32 images
+    (B, S, S, C), backtransform (B, 2, 3) from crop to source pixels). No ROI
+    randomization, the expansion factor only."""
+    B = images.shape[0]
+    roi = torch.as_tensor(roi, dtype=torch.float32).to(images.device)
+    tr = focus_roi_transform(roi, no_roi_randomization((B,), expansion_factor, images.device), inputsize)
+    x = warp_affine(images, tr, inputsize, oversample) * (1.0 / 256.0) - 0.5
+    return x, tr.inv().tensor()

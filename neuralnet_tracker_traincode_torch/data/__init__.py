@@ -1,1 +1,2 @@
-"""Label schema and field categories."""
+"""Label schema, field categories, the Batch container and the host-side
+sample transforms."""

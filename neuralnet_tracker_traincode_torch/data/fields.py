@@ -1,5 +1,5 @@
 """Semantic field categories and dataset tags (the port's own copy of the
-JAX package's `data/fields.py`, as far as the training step needs it)."""
+JAX package's `data/fields.py`, as far as training and eval need it)."""
 
 import enum
 
@@ -15,6 +15,17 @@ class FieldCategory(enum.StrEnum):
 
 
 imagelike_categories = (FieldCategory.image, FieldCategory.semseg)
+
+# The fields of a pose sample (the runtime names of the HDF5 pose schema).
+POSE_FIELD_CATEGORIES = {
+    "image": FieldCategory.image,
+    "pose": FieldCategory.quat,
+    "coord": FieldCategory.xys,
+    "roi": FieldCategory.roi,
+    "pt3d_68": FieldCategory.points,
+    "shapeparam": FieldCategory.general,
+    "hasface": FieldCategory.general,
+}
 
 
 class Tag(enum.Enum):

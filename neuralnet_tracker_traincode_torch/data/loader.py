@@ -8,21 +8,22 @@ loss weights), `hasface` label-smoothed to 0.9 / 0.1, and `tag_id`,
 `dataset_weight`, `param_index` and `coord_convention_id` per frame.
 
 A frame is any mapping of field -> array with a `meta` that carries the
-dataset `tag` and the image size `image_wh` (the JAX package's single-frame
-`Batch` is one; `Frame` is the port's). `iterate_fused_batches` draws
-training batches from a packed set held on the card. The host loader
+dataset `tag` and the image size `image_wh`: a single-frame `Batch` of
+either package (`data/batch.py:frame` makes the port's).
+`iterate_fused_batches` draws training batches from a packed set held on
+the card. The host loader
 (`FusedBatchLoader`, its workers, HDF5 and JPEG decoding) and sequences wait
 (ROADMAP.md).
 """
 
-import dataclasses
-from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
+from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES
 from neuralnet_tracker_traincode_torch.device import not_ported, resolve_device
+from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
 
 LABEL_SCHEMA = {
     "pose": (4,),
@@ -33,35 +34,7 @@ LABEL_SCHEMA = {
     "hasface": (),
 }
 
-LABEL_CATEGORIES = {
-    "pose": FieldCategory.quat,
-    "coord": FieldCategory.xys,
-    "roi": FieldCategory.roi,
-    "pt3d_68": FieldCategory.points,
-    "shapeparam": FieldCategory.general,
-    "hasface": FieldCategory.general,
-}
-
-
-@dataclasses.dataclass
-class FrameMeta:
-    tag: Any
-    image_wh: Optional[Tuple[int, int]]
-    seq: Optional[list] = None
-
-
-class Frame(dict):
-    """One labelled frame in memory: field -> numpy array ("image" (H, W, C)
-    uint8 and labels in source pixels), with `meta`."""
-
-    def __init__(self, tag, fields: Mapping[str, Any]):
-        super().__init__(fields)
-        shape = np.shape(self["image"])
-        self.meta = FrameMeta(tag, (int(shape[1]), int(shape[0])) if len(shape) >= 2 else None)
-
-
-def _bucket(n: int, multiple: int = 64) -> int:
-    return multiple * int(np.ceil(n / multiple))
+LABEL_CATEGORIES = {k: POSE_FIELD_CATEGORIES[k] for k in LABEL_SCHEMA}
 
 
 def _image(im) -> np.ndarray:
@@ -87,7 +60,7 @@ def pack_fused_batch(
     B = len(images)
     largest = max(max(im.shape[:2]) for im in images)
     if largest > pad_size:
-        pad_size = _bucket(largest)
+        pad_size = ceil_to_multiple(largest)
     out: Dict[str, np.ndarray] = {"image": np.zeros((B, pad_size, pad_size, images[0].shape[-1]), np.uint8)}
     for i, im in enumerate(images):
         out["image"][i, : im.shape[0], : im.shape[1], :] = im

@@ -23,6 +23,7 @@ import torch
 from neuralnet_tracker_traincode_torch.augmentation.pipeline import augment_batch_for_training
 from neuralnet_tracker_traincode_torch.data.loader import pack_fused_batch
 from neuralnet_tracker_traincode_torch.train.loop import _NOT_LABELS, PoseTrainer
+from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
 
 
 class FusedValidation:
@@ -38,7 +39,7 @@ class FusedValidation:
         if missing:
             raise ValueError(f"the criterion has no loss group for the validation tags {sorted(map(str, missing))}: "
                              "build it with setup_losses(options, tag_order, validation_tags=...)")
-        pad = 64 * int(np.ceil(max(max(s.meta.image_wh) for s in samples) / 64))
+        pad = ceil_to_multiple(max(max(s.meta.image_wh) for s in samples))
         dev = self.trainer.device
         batches = []
         for i in range(0, len(samples), self.batchsize):

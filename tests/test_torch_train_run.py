@@ -34,7 +34,8 @@ from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugment
 from neuralnet_tracker_traincode_torch.data import synthetic as TS
 from neuralnet_tracker_traincode_torch.data.fields import Tag as TTag
 from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES as TCATS
-from neuralnet_tracker_traincode_torch.data.loader import Frame, iterate_fused_batches, pack_fused_batch
+from neuralnet_tracker_traincode_torch.data.batch import frame
+from neuralnet_tracker_traincode_torch.data.loader import iterate_fused_batches, pack_fused_batch
 from neuralnet_tracker_traincode_torch.models.io import load_posenet
 from neuralnet_tracker_traincode_torch.models.weights import posenet_state_dict_from_jax
 from neuralnet_tracker_traincode_torch.train.checkpointing import load_train_state, save_train_state
@@ -66,7 +67,7 @@ def _jax_frames(n, size, seed):
 
 
 def _port_frames(jframes):
-    return [Frame(getattr(TTag, f.meta.tag.name), {k: v for k, v in f.items()}) for f in jframes]
+    return [frame(getattr(TTag, f.meta.tag.name), {k: v for k, v in f.items()}) for f in jframes]
 
 
 def test_pack_fused_batch_matches_jax():
@@ -85,12 +86,12 @@ def test_pack_fused_batch_matches_jax():
 
 
 def test_pack_fused_batch_smooths_hasface_and_refuses_what_waits():
-    f = Frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(True)))
-    g = Frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(0.0)))
+    f = frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(True)))
+    g = frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(0.0)))
     np.testing.assert_array_equal(pack_fused_batch([f, g], [0, 0], 8)["hasface"], np.float32([0.9, 0.1]))
     with pytest.raises(NotImplementedError, match="JPEG"):
-        pack_fused_batch([Frame(TTag.ONLY_POSE, dict(image=b"\xff\xd8"))], [0], 8)
-    seq = Frame(TTag.ONLY_POSE, dict(image=np.zeros((4, 4, 1), np.uint8)))
+        pack_fused_batch([frame(TTag.ONLY_POSE, dict(image=b"\xff\xd8"))], [0], 8)
+    seq = frame(TTag.ONLY_POSE, dict(image=np.zeros((4, 4, 1), np.uint8)))
     seq.meta.seq = [0, 2]
     with pytest.raises(NotImplementedError, match="sequences"):
         pack_fused_batch([seq], [0], 8)
