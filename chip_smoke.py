@@ -75,9 +75,37 @@ Phases (any failure ends the run with a non-zero exit code):
     steps and every 80th K2 launch (128 x 129^2, as phase 7 holds them)
     agree with their plain versions; it prints the rows, images/s per epoch
     and the phase's seconds;
- 10. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
-    from phase 7's run, `launches_convergence_run` from phase 9's), then
-    `{"ok": true, "device": ...}` as the last line.
+ 10. the face localizer (`train/localizer.py`, `eval/localizer.py`): the
+    training CLI's `LocalizerNet` (bf16, batch 64, lr 1e-3, image
+    augmentation on) for 4 epochs of 1,024 samples (the CLI: 50 of 10,240)
+    on 2,048 frames at 256^2 rendered on the card here, half marker faces
+    (`data/synthetic.py`, their ROI, hasface true) and half noise (the
+    pixels of other marker frames shuffled, a random box, hasface false),
+    batches from the CLI's sampler. K2 and K3 are held
+    to their plain versions at the run's own launches (64 x 224 x 288, every
+    16th; K2 bit-equal, K3 within 1e-6) and timed there with phase 3's
+    `ms_stream`. It fails unless every loss is finite, `last.ckpt` read back
+    by `load_model` equals the trained weights bit for bit, and the trained
+    network is ahead of the untrained one at threshold 0.5 in accuracy and
+    corner RMSE under both eval protocols on 256 held-out frames (an RMSE of
+    no detection at all counts as the worst), each row bit-equal on a second
+    pass under bf16 autocast with TF32 on. It prints images/s per epoch;
+ 11. the other backbones: resnet18 with BlurPool (with the face detector
+    head), efficientnet_b0, efficientnet_b4 and hybrid_vit, each full width
+    inside `NetworkWithPointHead` with the point head and the NLL heads, for
+    3 + 10 flagship steps (batch 64, the 8-term criterion, bf16, as phase 5)
+    with K1, K2 and K3 held to their plain versions at their first launch,
+    a model file round trip (the face detector's `hasface` bit-equal after
+    it), and a Predictor pass over 256 frames whose rows are bit-equal on a
+    second pass. It prints ms per step for each;
+ 12. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+    from phase 7's run, `launches_convergence_run` from phase 9's,
+    `launches_localizer_run` from phase 10's, `launches_backbones` from
+    phase 11's steps), then `{"ok": true, "device": ...}` as the last line.
+
+Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
+torchvision and matplotlib import, whether libjpeg is found and whether
+`native/nntc_loader.so` loads; it fails nothing.
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
@@ -100,6 +128,12 @@ STEPS_WARMUP, STEPS_TIMED = 3, 20
 RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
 # the convergence gate: tests/test_convergence.py of the JAX package
 CONV_N, CONV_SEED, CONV_VAL, CONV_B, CONV_EPOCHS, CONV_SAMPLES = 4096, 3, 400, 128, 16, 10240
+# the localizer: scripts/train_localizer.py's defaults, cut to 4 epochs of 1,024 samples
+LOC_SRC, LOC_TRAIN, LOC_VAL, LOC_B, LOC_EPOCHS, LOC_SAMPLES = 256, 2048, 256, 64, 4, 1024
+# the other backbones: (config, backbone_args, face detector head)
+BACKBONES = [("resnet18", {"use_blurpool": True}, True), ("efficientnet_b0", {}, False),
+             ("efficientnet_b4", {}, False), ("hybrid_vit", {}, False)]
+BACKBONE_WARMUP, BACKBONE_STEPS, BACKBONE_EVAL = 3, 10, 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -579,6 +613,7 @@ def training_run_phase(torch, np, dev, smi):
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
     from neuralnet_tracker_traincode_torch.kernels import equalize as K2
     from neuralnet_tracker_traincode_torch.kernels import ext
     from neuralnet_tracker_traincode_torch.kernels import noise as K3
@@ -632,8 +667,9 @@ def training_run_phase(torch, np, dev, smi):
 
     packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
 
-    def batches(start):
-        return iterate_fused_batches(packed, B, torch.Generator().manual_seed(5), device=dev, start=start)
+    def batches(start):  # the training CLI's sampler
+        sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=5)
+        return iterate_fused_batches(packed, B, sampler, device=dev, start=start)
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
     steps_per_epoch = trainer.config.steps_per_epoch
@@ -804,6 +840,7 @@ def convergence_phase(torch, np, dev, smi):
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
     from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
     from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
     from neuralnet_tracker_traincode_torch.kernels import equalize as K2
     from neuralnet_tracker_traincode_torch.kernels import ext
@@ -831,8 +868,9 @@ def convergence_phase(torch, np, dev, smi):
     validation = FusedValidation(trainer, val_frames, batchsize=2 * CONV_B)
     packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
 
-    def batches(start):
-        return iterate_fused_batches(packed, CONV_B, torch.Generator().manual_seed(CONV_SEED), device=dev, start=start)
+    def batches(start):  # the training CLI's sampler
+        sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=CONV_SEED)
+        return iterate_fused_batches(packed, CONV_B, sampler, device=dev, start=start)
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_convergence_")
     steps_per_epoch = cfg.steps_per_epoch
@@ -897,7 +935,258 @@ def convergence_phase(torch, np, dev, smi):
     return launches, errs, step
 
 
+def host_probe():
+    """Which of the loader's candidate carriers this machine has; prints only."""
+    import ctypes
+    import ctypes.util
+    import importlib
+
+    found = {}
+    for mod in ("h5py", "PIL", "cv2", "torchvision", "matplotlib"):
+        try:
+            found[mod] = getattr(importlib.import_module(mod), "__version__", "yes")
+        except Exception as e:  # noqa: BLE001 - a probe: any failure to import is the answer
+            found[mod] = f"no ({type(e).__name__})"
+    found["libjpeg"] = ctypes.util.find_library("jpeg") or "not found"
+    so = os.path.join(ROOT, "native", "nntc_loader.so")
+    if not os.path.exists(so):
+        found["native/nntc_loader.so"] = "absent (built from native/nntc_loader.cpp, not committed)"
+    else:
+        try:
+            ctypes.CDLL(so)
+            found["native/nntc_loader.so"] = "loads"
+        except OSError as e:
+            found["native/nntc_loader.so"] = f"does not load ({e})"
+    print("host probe: " + json.dumps(found))
+
+
+def localizer_frames(torch, np, n, seed, dev):
+    """Frames for the localizer rendered on the card, as `Tag.FACE_DETECTION`
+    `Batch`es: the first half marker faces at LOC_SRC^2 with their ROI and
+    hasface true, the second half noise with a random box and hasface false.
+    The noise is the pixels of other marker frames shuffled, so that the two
+    halves have the same gray-level histogram and only the markers' shape
+    tells them apart."""
+    from neuralnet_tracker_traincode_torch.data.batch import frame
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.synthetic import make_labels, render_marker_images
+
+    half = n // 2
+    _, coords, pt3d, _, rois = make_labels(n, LOC_SRC, seed=seed, device=dev)
+    rendered = render_marker_images(pt3d, coords, LOC_SRC)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shuffle = torch.argsort(torch.rand((n - half, LOC_SRC * LOC_SRC), generator=g, device=dev), dim=-1)
+    noise = torch.gather(rendered[half:].reshape(n - half, -1), 1, shuffle).reshape(n - half, LOC_SRC, LOC_SRC)
+    lo = torch.rand((n - half, 2), generator=g, device=dev) * (0.6 * LOC_SRC)
+    size = (0.15 + 0.25 * torch.rand((n - half, 1), generator=g, device=dev)) * LOC_SRC
+    images = torch.cat([rendered[:half], noise])[..., None].cpu().numpy()
+    roi = torch.cat([rois[:half], torch.cat([lo, lo + size], -1)]).cpu().numpy()
+    return [frame(Tag.FACE_DETECTION, dict(image=images[i], roi=roi[i], hasface=np.asarray(i < half))) for i in range(n)]
+
+
+def localizer_phase(torch, np, dev, smi):
+    """Phase 10: the face localizer's training run and evaluation."""
+    from neuralnet_tracker_traincode_torch.augmentation.localizer_pipeline import LocalizerAugConfig
+    from neuralnet_tracker_traincode_torch.data.loader import iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
+    from neuralnet_tracker_traincode_torch.eval.localizer import LocalizerEvaluator, result_lines
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.models.io import load_model
+    from neuralnet_tracker_traincode_torch.models.localizer import LocalizerNet
+    from neuralnet_tracker_traincode_torch.train.localizer import (
+        LocalizerTrainer,
+        LocalizerTrainerConfig,
+        run_localizer_training,
+    )
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    train_frames = localizer_frames(torch, np, LOC_TRAIN, 21, dev)
+    held_out = localizer_frames(torch, np, LOC_VAL, 22, dev)
+    packed = pack_fused_batch(train_frames, [0] * len(train_frames), LOC_SRC)
+    sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=21)
+    cfg = LocalizerTrainerConfig(batchsize=LOC_B, lr=1e-3, epochs=LOC_EPOCHS, samples_per_epoch=LOC_SAMPLES,
+                                 aug=LocalizerAugConfig(enable_image_aug=True))
+    trainer = LocalizerTrainer(LocalizerNet(dtype=torch.bfloat16), cfg, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(1234))
+    untrained = copy.deepcopy(trainer.model)
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_localizer_")
+    spe = cfg.steps_per_epoch
+    P = 224 * 288
+    try:
+        # K3's launch of each epoch's first step and every spe-th K2 launch, kept for the checks after the run
+        with wrapper_captured(K2, "equalize", spe) as equalized, wrapper_captured(K3, "add_gaussian_noise", spe) as noised:
+            torch.cuda.synchronize()
+            ext.reset_launch_counts()
+            t_run = time.perf_counter()
+            state, records = run_localizer_training(trainer, state, iterate_fused_batches(packed, LOC_B, sampler, device=dev),
+                                                    outdir, torch.Generator().manual_seed(7))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = dict(ext.LAUNCHES)
+        steps = LOC_EPOCHS * spe
+        check(state.step == steps, f"the localizer took {state.step} steps, not {steps}")
+        check(all(math.isfinite(r["loss"]) for r in records), f"non-finite localizer losses: {records}")
+        check(launches["gaussian_noise"] == steps and launches["equalize"] >= 1 and launches["warp_roi_rotate"] == 0,
+              f"localizer launches {launches}")
+        for (x, *_), _ in equalized + noised:
+            check(tuple(x.reshape(x.shape[0], -1).shape) == (LOC_B, P), f"localizer K2/K3 at {tuple(x.shape)}")
+        errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "localizer run")
+        # K2 and K3 at this shape, timed as phase 3 times them, on the run's own inputs
+        (xe, gate), _ = equalized[0]
+        (xn, seeds, sigma, offset), _ = noised[0]
+        gate, xn = gate.to(torch.int32).contiguous(), xn.reshape(LOC_B, P)
+        eq_out, n_out = torch.empty_like(xe), torch.empty_like(xn)
+        n_on = int((sigma > 0).sum())
+        loc = {
+            "equalize": (stream_ms(torch, lambda xs: ext.extension().equalize(xs, gate, eq_out), rotating(torch, xe)),
+                         bound_ms(2 * LOC_B * P * 4 + LOC_B * 4, f32_ops=4 * LOC_B * P)),
+            "gaussian_noise": (stream_ms(torch, lambda xs: ext.extension().gaussian_noise(xs, seeds, sigma, n_out, offset),
+                                         rotating(torch, xn)),
+                               bound_ms(2 * LOC_B * P * 4 + 8 * LOC_B, f32_ops=(13 * n_on + 3 * (LOC_B - n_on)) * P,
+                                        i32_ops=50 * n_on * P)),
+        }
+        del equalized, noised
+        for k, (ms, (b, by)) in loc.items():
+            print(f"localizer shape ({LOC_B}, {P}): {k} ms_stream {ms:.4f} ms, bound {b:.4f} ms ({by}), "
+                  f"{launches[k]} launches in {steps} steps")
+        loaded = load_model(os.path.join(outdir, "last.ckpt"), [LocalizerNet])
+        want = trainer.model.state_dict()
+        differ = [k for k, v in loaded.state_dict().items()
+                  if not k.endswith("num_batches_tracked") and not torch.equal(v, want[k].cpu())]
+        check(not differ, f"last.ckpt read back differs from the trained weights: {differ[:5]}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    samples = [dict(image=f["image"], roi=f["roi"], hasface=float(f["hasface"])) for f in held_out]
+    results = {}
+    t_eval = time.perf_counter()
+    for name, net in (("untrained", untrained), ("trained", trainer.model)):
+        evaluator = LocalizerEvaluator(net, device=dev)
+        for protocol in ("full", "crop"):
+            rows = evaluator.evaluate(samples, protocol)
+            # again under the training's settings, which the eval must not see: bf16 autocast, TF32 on
+            cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+            saved = (cudnn.allow_tf32, matmul.allow_tf32)
+            cudnn.allow_tf32 = matmul.allow_tf32 = True
+            try:
+                with torch.autocast(dev.type, dtype=torch.bfloat16):
+                    again = evaluator.evaluate(samples, protocol)
+            finally:
+                cudnn.allow_tf32, matmul.allow_tf32 = saved
+            check(json.dumps(again) == json.dumps(rows), f"localizer {name} {protocol}: a second pass gives {again}")
+            results[name, protocol] = rows
+            print(f"localizer eval, {name} network, {protocol} protocol ({len(samples)} held-out frames, half faces):\n"
+                  + result_lines(rows))
+    eval_s = time.perf_counter() - t_eval
+    for protocol in ("full", "crop"):
+        (acc, rmse), (acc0, rmse0) = results["trained", protocol][0.5], results["untrained", protocol][0.5]
+        check(acc > acc0, f"localizer {protocol}: trained accuracy {acc} is not above the untrained {acc0} at 0.5")
+        check(math.isfinite(rmse) and (not math.isfinite(rmse0) or rmse < rmse0),
+              f"localizer {protocol}: trained corner RMSE {rmse} is not below the untrained {rmse0} at 0.5")
+    for r in records:
+        print(f"localizer run epoch {r['epoch'] + 1}/{LOC_EPOCHS}: {r['steps']} steps in {r['train_s'] * 1e3:.1f} ms, "
+              f"{r['images_per_s']:.1f} images/s, loss {r['loss']:.4f}")
+    print(f"localizer: {steps} steps (batch {LOC_B}, bf16, image augmentation), loss {records[0]['loss']:.4f} -> "
+          f"{records[-1]['loss']:.4f}; last.ckpt read back bit-equal; eval rows bit-equal on a second pass; launches "
+          f"{launches}; run {run_s:.2f} s, eval {eval_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, errs, loc
+
+
+def backbones_phase(torch, np, dev, smi):
+    """Phase 11: the flagship step, a model file and the Predictor with each other backbone."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.io import load_posenet
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig, nonfinite_metrics
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, B).items()}
+    samples = eval_samples(synthetic_frames(BACKBONE_EVAL, 6, dev))
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_backbones_")
+    errs = {"warp_roi_rotate": 0.0, "equalize": 0.0, "gaussian_noise": 0.0}
+    steps = BACKBONE_WARMUP + BACKBONE_STEPS
+    step_ms = {}
+    torch.cuda.synchronize()
+    ext.reset_launch_counts()
+    try:
+        for config, args, face in BACKBONES:
+            model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config=config,
+                                         backbone_args=args, enable_face_detector=face, dtype=torch.bfloat16)
+            cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
+                                aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+            trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            W = trainer.weight_matrix(50)
+            gen = torch.Generator().manual_seed(7)
+            losses = []
+            # the first launch of each kernel in these steps, for the checks after them
+            with k1_captured(K1, lambda skip, n: n == 0) as crops, wrapper_captured(K2, "equalize", 10**9) as equalized, \
+                    wrapper_captured(K3, "add_gaussian_noise", 10**9) as noised:
+                for i in range(steps):
+                    if i == BACKBONE_WARMUP:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    state, m = trainer.train_step(state, batch, W, generator=gen)
+                    losses.append(m)
+                torch.cuda.synchronize()
+                step_ms[config] = (time.perf_counter() - t0) / BACKBONE_STEPS * 1e3
+            bad = [b for b in (nonfinite_metrics(m) for m in losses) if b]
+            check(not bad, f"{config}: non-finite losses {bad[:3]}")
+            check(len(crops) == 1, f"{config}: {len(crops)} K1 launches captured")
+            errs["warp_roi_rotate"] = max(errs["warp_roi_rotate"], k1_against_plain(K1, crops, f"{config} step"))
+            for k, v in k2_k3_against_plain(torch, K2, K3, equalized, noised, f"{config} step").items():
+                errs[k] = max(errs[k], v)
+            del crops, equalized, noised
+
+            # the model file, read back
+            path = os.path.join(outdir, f"{config}.ckpt")
+            trainer.save_checkpoint(state, path)
+            loaded = load_posenet(path)
+            want = trainer.variables_of(state)
+            differ = [k for k, v in loaded.state_dict().items()
+                      if not k.endswith("num_batches_tracked") and not torch.equal(v, want[k].cpu())]
+            check(not differ and loaded.get_config() == model.get_config(), f"{config}: the model file differs: {differ[:5]}")
+            if face:
+                reference = NetworkWithPointHead(**loaded.get_config()).to(dev).eval()
+                reference.load_state_dict(want)
+                x = torch.rand((2 * B, S, S, 1), generator=torch.Generator().manual_seed(9)).to(dev) - 0.5
+                torch.backends.cudnn.deterministic = True
+                with torch.no_grad():
+                    a, b = loaded.to(dev)(x), reference(x)
+                torch.backends.cudnn.deterministic = False
+                check(a["hasface"].shape == (2 * B,) and bool(((a["hasface"] > 0) & (a["hasface"] < 1)).all())
+                      and torch.equal(a["hasface"], b["hasface"]), f"{config}: the face detector's hasface differs")
+            report_rows(torch, np, dev, {config: CheckpointPoseNetwork(trainer.model, dev)}, samples,
+                        f"phase 11 synthetic {BACKBONE_EVAL}", smi, repeat=True)
+            print(f"backbone {config} {args or ''}{' + face detector' if face else ''}: {steps} steps, loss "
+                  f"{float(losses[0]['loss']):.4f} -> {float(losses[-1]['loss']):.4f}, {step_ms[config]:.2f} ms/step "
+                  f"(batch {B}, bf16) on {smi}; model file round trip bit-equal; Predictor rows bit-equal on a second pass")
+        torch.cuda.synchronize()
+        launches = dict(ext.LAUNCHES)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    n = len(BACKBONES) * steps
+    check(launches["warp_roi_rotate"] == n and launches["gaussian_noise"] == n and launches["equalize"] >= len(BACKBONES),
+          f"backbone launches {launches} in {n} steps")
+    print(f"backbones: ms per step {json.dumps(step_ms)}; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, errs
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -912,6 +1201,7 @@ def main() -> int:
 
     smi = card_line()
     print(smi)
+    host_probe()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}, {torch.cuda.device_count()} device(s)")
@@ -939,8 +1229,10 @@ def main() -> int:
     conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
     if profile:
         print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
+    loc_launches, errs_loc, loc_stream = localizer_phase(torch, np, dev, f"{name} ({smi})")
+    bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
     for r in rows:  # the errors at the runs' own launches join those of phase 3
-        r["max_abs_err"] = max(r["max_abs_err"], errs_run.get(r["name"], 0.0), errs_conv.get(r["name"], 0.0))
+        r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (errs_run, errs_conv, errs_loc, errs_bb)])
 
     kernels = []
     for r in rows:
@@ -948,11 +1240,17 @@ def main() -> int:
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
-            launches_convergence_run=conv_launches[r["name"]],
+            launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
+            launches_backbones=bb_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
         ))
+        if r["name"] in loc_stream:  # at the localizer's shape, (64, 224 x 288)
+            ms, (b, _) = loc_stream[r["name"]]
+            kernels[-1].update(ms_stream_localizer=ms, bound_ms_localizer=b)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_script:.1f} s, the kernel build included, on "
+          f"{name} ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

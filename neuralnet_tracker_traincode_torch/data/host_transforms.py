@@ -5,9 +5,13 @@ as arithmetic on label arrays: the HDF5 reads come with the loader.
 
 `PutRoiFromLandmarks(extend_to_forehead=True)` takes the head-sphere
 extent (centre coord[:2], radius coord[2]) merged with the landmarks' box:
-the JAX package's branch for when the full BFM mesh is not available. The
-posed full-mesh extent waits with the full face model (ROADMAP.md).
+the JAX package's branch for when the full BFM mesh is not available. When
+`$BFM_PATH` names a file the JAX package takes the posed full-mesh extent
+instead; that waits with the full face model (ROADMAP.md), so the port
+raises rather than give another box.
 """
+
+import os
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -15,6 +19,7 @@ from scipy.spatial.transform import Rotation
 from neuralnet_tracker_traincode_torch import utils
 from neuralnet_tracker_traincode_torch.data.batch import Batch
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
+from neuralnet_tracker_traincode_torch.device import not_ported
 
 
 def offset_points_by_half_pixel_np(sample: Batch) -> Batch:
@@ -33,6 +38,9 @@ class PutRoiFromLandmarks:
 
     def __init__(self, extend_to_forehead: bool = False):
         self.extend_to_forehead = extend_to_forehead
+        path = os.environ.get("BFM_PATH")
+        if extend_to_forehead and path and os.path.isfile(path):
+            raise not_ported("the full-BFM head box")
 
     def __call__(self, sample: Batch) -> Batch:
         if "pt3d_68" not in sample:

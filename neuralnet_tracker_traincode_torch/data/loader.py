@@ -10,13 +10,16 @@ loss weights), `hasface` label-smoothed to 0.9 / 0.1, and `tag_id`,
 A frame is any mapping of field -> array with a `meta` that carries the
 dataset `tag` and the image size `image_wh`: a single-frame `Batch` of
 either package (`data/batch.py:frame` makes the port's).
-`iterate_fused_batches` draws training batches from a packed set held on
-the card. The host loader
+`plan_batches` cuts a sampler's index stream (`data/sampling.py`) into
+batch plans as the JAX loader's `FusedBatchLoader.plan_batches` does, for
+single frames; `iterate_fused_batches` makes training batches of a packed set
+held on the card from the same cut of such a stream. The host loader
 (`FusedBatchLoader`, its workers, HDF5 and JPEG decoding) and sequences wait
 (ROADMAP.md).
 """
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Sequence
+import itertools
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,28 +85,79 @@ def pack_fused_batch(
     return out
 
 
+class BatchPlan(NamedTuple):
+    """The composition of one fused batch: global indices into the concat
+    dataset and the tag id and loss weight of each sample."""
+
+    indices: List[int]
+    tag_ids: List[int]
+    weights: List[float]
+
+
+def _has_sequences(ds) -> bool:
+    """Whether a dataset, through its Concat/Subset/Transformed wrappers,
+    holds sequences (the JAX loader's `sequence_frame_count`)."""
+    if hasattr(ds, "sequence_frame_count"):
+        return True
+    if hasattr(ds, "datasets"):
+        return any(_has_sequences(d) for d in ds.datasets)
+    if hasattr(ds, "dataset"):
+        return _has_sequences(ds.dataset)
+    return False
+
+
+def plan_batches(
+    concat_dataset,
+    tags_by_dataset_index: Callable[[int], Any],
+    tag_to_id: Dict[Any, int],
+    sampler: Iterable[int],
+    batchsize: int,
+    dataset_weight_by_index: Optional[Callable[[int], float]] = None,
+) -> Iterator[BatchPlan]:
+    """Cut the sampler's stream into plans of `batchsize` single frames, with
+    the tag id and weight of each frame's dataset: the plans of the JAX
+    loader's `FusedBatchLoader.plan_batches` when every sample is one frame.
+    A finite stream ends with its last, shorter plan."""
+    if _has_sequences(concat_dataset):
+        raise not_ported("batch plans of sequences (they come with the loader)")
+    cumsizes = np.asarray(concat_dataset.cumulative_sizes)
+    n_ds = len(concat_dataset.datasets)
+    tag_id_by_ds = [tag_to_id[tags_by_dataset_index(i)] for i in range(n_ds)]
+    weight_by_ds = [1.0 if dataset_weight_by_index is None else float(dataset_weight_by_index(i)) for i in range(n_ds)]
+    it = iter(sampler)
+    while True:
+        indices = [int(i) for i in itertools.islice(it, batchsize)]
+        if not indices:
+            return
+        dsi = np.searchsorted(cumsizes, indices, side="right").tolist()
+        yield BatchPlan(indices, [tag_id_by_ds[d] for d in dsi], [weight_by_ds[d] for d in dsi])
+        if len(indices) < batchsize:
+            return
+
+
 def iterate_fused_batches(
-    packed: Dict[str, Any], batchsize: int, generator: Optional[torch.Generator] = None, device=None, start: int = 0
+    packed: Dict[str, Any], batchsize: int, sampler: Iterable[int], device=None, start: int = 0
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Endless batches of `batchsize` frames from a packed set (one fused
-    batch dict of all frames), held on `device` (default: the card): each
-    pass draws a permutation from `generator` and drops its last incomplete
-    batch. With `start`, the first batch is the one an iterator of the same
-    generator seed gives after `start` batches (a resumed run's step)."""
+    """Batches of `batchsize` frames from a packed set (one fused batch dict
+    of all frames), held on `device` (default: the card), in the order of
+    `sampler`'s indices into the set, as the training CLI's sampler gives
+    them: `make_concat_dataset_item_sampler(ConcatDataset([frames]), [1.0],
+    seed=seed)`. With `start`, the first batch is the one an iterator of an
+    equal sampler gives after `start` batches (a resumed run's step): the
+    first `start * batchsize` indices of the stream are skipped."""
     dev = resolve_device(device)
     data = {k: torch.as_tensor(v).to(dev) for k, v in packed.items()}
     n = data["tag_id"].shape[0]
-    per_pass = n // batchsize
-    if per_pass == 0:
+    if n < batchsize:
         raise ValueError(f"{n} frames make no batch of {batchsize}")
-    passes, skip = divmod(start, per_pass)
-    for _ in range(passes):
-        torch.randperm(n, generator=generator)
+    it = iter(sampler)
+    for _ in itertools.islice(it, start * batchsize):
+        pass
     while True:
-        order = torch.randperm(n, generator=generator)
-        for i in range(skip * batchsize, per_pass * batchsize, batchsize):
-            idx = order[i : i + batchsize].to(dev)
-            batch = {k: v.index_select(0, idx) for k, v in data.items()}
-            batch["param_index"] = torch.arange(batchsize, dtype=torch.int32, device=dev)
-            yield batch
-        skip = 0
+        indices = list(itertools.islice(it, batchsize))
+        if len(indices) < batchsize:
+            return
+        idx = torch.as_tensor(indices, dtype=torch.int64).to(dev)
+        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+        batch["param_index"] = torch.arange(batchsize, dtype=torch.int32, device=dev)
+        yield batch

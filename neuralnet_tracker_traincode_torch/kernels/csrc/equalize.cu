@@ -201,7 +201,7 @@ cudaError_t nntc_equalize(const float* x, const int32_t* gate, float* out, int B
     static const cudaError_t attr_err = cudaFuncGetAttributes(&attr, kernel);
     if (attr_err != cudaSuccess) return attr_err;
     if (attr.sharedSizeBytes + dyn > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-    if (dyn > 48 * 1024) {
+    if (attr.sharedSizeBytes + dyn > 48 * 1024) {  // the default limit counts static and dynamic together
         const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
         if (e != cudaSuccess) return e;
     }

@@ -1,8 +1,8 @@
 """Per-sample loss terms for pose estimation.
 
 Counterpart of the JAX package's `losses/losses.py`. Every loss is a callable
-(pred_dict, sample_dict) -> per-sample loss of shape (B,). The face-detector
-and localizer losses wait with their heads (ROADMAP.md).
+(pred_dict, sample_dict) -> per-sample loss of shape (B,); the localizer's
+take its (B, 5) output in place of the dict.
 """
 
 import math
@@ -143,3 +143,29 @@ class ShapePlausibilityLoss:
 
     def __call__(self, pred, sample):
         return -self.gmm(pred["shapeparam"]) * self.fudge_factor
+
+
+def _bce_with_logits(logits, target):
+    return torch.clamp(logits, min=0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+class HasFaceLoss:
+    """The face detector head's binary cross-entropy on its logits."""
+
+    def __call__(self, pred, sample):
+        return _bce_with_logits(pred["hasface_logits"], sample["hasface"])
+
+
+class LocalizerProbLoss:
+    """Binary cross-entropy of the localizer's face logit (pred[:, 0])."""
+
+    def __call__(self, pred, sample):
+        return _bce_with_logits(pred[:, 0], sample["hasface"])
+
+
+class LocalizerBoxLoss:
+    """Smooth-L1 (beta 0.1) of the localizer's box, weighted by `hasface`."""
+
+    def __call__(self, pred, sample):
+        err = _smooth_l1(pred[:, 1:], sample["roi"], beta=0.1)
+        return torch.mean(sample["hasface"][:, None] * err, dim=-1)

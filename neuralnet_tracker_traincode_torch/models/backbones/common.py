@@ -1,8 +1,10 @@
 """Shared backbone building blocks (counterpart of the JAX package's
 `models/backbones/common.py`): BatchNorm with the JAX package's statistics,
-BlurPool2D, global average pooling and the default weight init."""
+BlurPool2D, global average pooling, the default weight init, and dropout
+with its masks drawn from an explicit generator."""
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,3 +75,24 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None) -> to
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def device_generator(generator: Optional[torch.Generator], device: torch.device) -> Optional[torch.Generator]:
+    """A generator on `device` seeded by one draw from `generator` (the
+    trainer's host generator), for a forward's dropout and stochastic-depth
+    masks; None (torch's global generator) without one. The masks then
+    follow the trainer's generator, whose state the resume file keeps."""
+    if generator is None:
+        return None
+    seed = int(torch.randint(0, 2**62, (), generator=generator, dtype=torch.int64))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `nn.Dropout`: keep each element with probability 1 - rate,
+    scaled by 1 / (1 - rate); the mask is drawn from `generator`."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -48,6 +48,8 @@ _OUTPUTS = ("dw2_1", "dw3_1", "dw4_1", "dw5_5", "dw6")
 
 
 class MobileNet(nn.Module):
+    draws_masks = False  # whether training draws dropout or stochastic-depth masks
+
     def __init__(self, widen_factor: float = 1.0, use_blurpool: bool = False, in_channels: int = 1):
         super().__init__()
         w = widen_factor
@@ -59,7 +61,7 @@ class MobileNet(nn.Module):
             setattr(self, name, DepthWiseBlock(inplanes, int(planes * w), stride, use_blurpool))
             inplanes = int(planes * w)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator=None):
         x = F.relu(self.bn1(self.conv1(x)))
         outs = []
         for name, _, _ in _BLOCKS:

@@ -1,5 +1,6 @@
-"""Model components: 2.5D rigid transform, deformable keypoints, Pascal
-kernel, and the diagonal gaussian mixture of the shape prior.
+"""Model components: 2.5D rigid transform, deformable keypoints, the
+soft-argmax of the localizer, Pascal kernel, and the diagonal gaussian
+mixture of the shape prior.
 
 Counterpart of the JAX package's `models/components.py`.
 """
@@ -45,6 +46,25 @@ class DeformableHeadKeypoints(nn.Module):
         K = self.keyeigvecs.shape[0]
         local = matmul_hp(shapeparams, self.keyeigvecs.reshape(K, -1))
         return local.reshape(shapeparams.shape[:-1] + (68, 3)) + self.keypts
+
+
+def center_of_mass(x: torch.Tensor, half_size):
+    """Spatial soft-argmax over (B, H, W) f32 probability maps, domain
+    [-1, 1] * half_size: ((B, 2) mean, (2, H, W) grid of x and y)."""
+    B, H, W = x.shape
+    px = torch.linspace(-1.0, 1.0, W, device=x.device)[None, :]
+    py = torch.linspace(-1.0, 1.0, H, device=x.device)[:, None]
+    p = torch.stack([px.expand(H, W), py.expand(H, W)])
+    mean = half_size * torch.sum(x[:, None, :, :] * p[None, ...], dim=(2, 3))
+    return mean, p
+
+
+def center_of_mass_and_std(x: torch.Tensor, half_size, eps: float = 1.0e-4):
+    """The soft-argmax mean and the standard deviation about it, (B, 2) each."""
+    mean, p = center_of_mass(x, half_size)
+    diff = p[None, ...] - mean[..., None, None]
+    std = torch.sqrt(torch.sum(x[:, None, :, :] * diff * diff, dim=(2, 3)) + eps)
+    return mean, std
 
 
 def pascal_kernel_2d(kernel_size: int) -> np.ndarray:

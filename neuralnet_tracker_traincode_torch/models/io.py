@@ -9,7 +9,8 @@ The blob holds `{"params", "batch_stats"}` in the flax layout (written and
 read through `models/weights.py`'s bridge, by the port's own msgpack codec),
 so the JAX package's `load_model` reads a file the port wrote, and the port
 reads the JAX package's: a model trained here is evaluated and exported by
-the JAX package's tools.
+the JAX package's tools. Both classes of the JAX package's files are read
+and written: `NetworkWithPointHead` and `LocalizerNet`.
 """
 
 import json
@@ -17,9 +18,13 @@ from typing import Dict, List, Optional, Type
 
 import torch
 
-from neuralnet_tracker_traincode_torch.device import not_ported
 from neuralnet_tracker_traincode_torch.models import msgpack_codec
-from neuralnet_tracker_traincode_torch.models.weights import posenet_state_dict_from_jax, posenet_variables_to_jax
+from neuralnet_tracker_traincode_torch.models.weights import (
+    localizer_state_dict_from_jax,
+    localizer_variables_to_jax,
+    posenet_state_dict_from_jax,
+    posenet_variables_to_jax,
+)
 
 MAGIC = b"NNTTPU1\n"
 
@@ -31,11 +36,13 @@ class InvalidFileFormatError(RuntimeError):
 def save_model(model: torch.nn.Module, state_dict: Optional[Dict[str, torch.Tensor]], filename: str):
     """Write `model`'s class and config with `state_dict` (default: the
     model's own) as its variables."""
-    if type(model).__name__ != "NetworkWithPointHead":
-        raise not_ported(f"checkpoints of {type(model).__name__}")
+    name = type(model).__name__
+    if name not in ("NetworkWithPointHead", "LocalizerNet"):
+        raise InvalidFileFormatError(f"No checkpoint layout for {name}")
     config = model.get_config()
     sd = model.state_dict() if state_dict is None else state_dict
-    blob = msgpack_codec.packb(posenet_variables_to_jax(sd, config))
+    variables = localizer_variables_to_jax(sd) if name == "LocalizerNet" else posenet_variables_to_jax(sd, config)
+    blob = msgpack_codec.packb(variables)
     header = json.dumps({"class_name": type(model).__name__, "config": config}).encode("utf-8")
     with open(filename, "wb") as f:
         f.write(MAGIC)
@@ -62,18 +69,21 @@ def load_model(filename: str, classes: List[Type]) -> torch.nn.Module:
     header, variables = read_model_file(filename)
     class_by_name = {c.__name__: c for c in classes}
     name = header["class_name"]
-    if name == "LocalizerNet":
-        raise not_ported("LocalizerNet checkpoints")
     if name not in class_by_name:
         raise InvalidFileFormatError(f"Unknown model class {name}; known: {list(class_by_name)}")
     config = dict(header["config"])
     model = class_by_name[name](**config)
-    model.load_state_dict(posenet_state_dict_from_jax(variables, config))
+    if name == "LocalizerNet":
+        model.load_state_dict(localizer_state_dict_from_jax(variables))
+    else:
+        model.load_state_dict(posenet_state_dict_from_jax(variables, config))
     return model.eval()
 
 
 def load_posenet(filename: str) -> torch.nn.Module:
-    """Load a pose network checkpoint."""
+    """Load a pose network or localizer checkpoint, as the JAX package's
+    `load_posenet` does."""
+    from neuralnet_tracker_traincode_torch.models.localizer import LocalizerNet
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
 
-    return load_model(filename, [NetworkWithPointHead])
+    return load_model(filename, [NetworkWithPointHead, LocalizerNet])

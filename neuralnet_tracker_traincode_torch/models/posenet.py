@@ -10,8 +10,12 @@ the JAX package's variables onto it one to one.
 JAX model's `dtype=jnp.bfloat16` does; heads cast their outputs to f32 and
 the geometry stays f32.
 
-Ported: the mobilenetv1 backbone, the quaternion and the 6D rotation heads.
-The other backbones and the face detector wait (ROADMAP.md).
+Backbones (`create_pose_estimator_backbone`): mobilenetv1, resnet18,
+efficientnet_b0 to b4 and hybrid_vit, whose output has one feature vector
+per head; the others share their pooled features among the heads. Heads: the
+box, position and size, the quaternion or the 6D rotation, the landmarks
+and the face detector. Dropout (hybrid_vit) and stochastic depth
+(efficientnet) draw their masks from the generator `forward` is given.
 """
 
 import contextlib
@@ -21,10 +25,12 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from neuralnet_tracker_traincode_torch.device import not_ported
 from neuralnet_tracker_traincode_torch.models import nll as NLL
-from neuralnet_tracker_traincode_torch.models.backbones.common import lecun_normal_
+from neuralnet_tracker_traincode_torch.models.backbones.common import device_generator, lecun_normal_
+from neuralnet_tracker_traincode_torch.models.backbones.efficientnet import EfficientNetBackbone
+from neuralnet_tracker_traincode_torch.models.backbones.hybrid_vit import HybridVitBackbone
 from neuralnet_tracker_traincode_torch.models.backbones.mobilenet_v1 import MobileNet
+from neuralnet_tracker_traincode_torch.models.backbones.resnet import resnet18
 from neuralnet_tracker_traincode_torch.models.components import (
     DeformableHeadKeypoints,
     rigid_transformation_25d,
@@ -165,8 +171,28 @@ class LocalToGlobalCoordinateOffset(nn.Module):
         return pred_quat, torch.cat([screen_pos, scale], dim=-1)
 
 
+def create_pose_estimator_backbone(num_heads: int, config: str, args: Optional[Dict[str, Any]],
+                                   input_resolution: int = 129) -> nn.Module:
+    args = dict(args or {})
+    if config == "mobilenetv1":
+        return MobileNet(**args)
+    if config == "resnet18":
+        return resnet18(**args)
+    if config == "hybrid_vit":
+        if args:
+            print(f"WARNING: backbone arguments to {config} ignored: {args}")
+        return HybridVitBackbone(num_heads_out=num_heads, input_resolution=input_resolution)
+    if config.startswith("efficientnet_"):
+        kind = config[len("efficientnet_"):]
+        assert kind in ("b0", "b1", "b2", "b3", "b4")
+        args.pop("use_blurpool", None)
+        return EfficientNetBackbone(kind=kind, stochastic_depth_prob=0.1, **args)
+    raise ValueError(f"Unsupported backbone {config}")
+
+
 class NetworkWithPointHead(nn.Module):
-    """Pose network: grayscale crop -> backbone -> shared pooled features -> heads."""
+    """Pose network: grayscale crop -> backbone -> features (shared, or one
+    per head for hybrid_vit) -> heads."""
 
     NUM_DATASET_CONSTANTS = 8
 
@@ -184,11 +210,8 @@ class NetworkWithPointHead(nn.Module):
         input_resolution: int = 129,
     ):
         super().__init__()
-        if config != "mobilenetv1":
-            raise not_ported(f"backbone {config!r}")
-        if enable_face_detector:
-            raise not_ported("the face detector head")
         self.enable_point_head = enable_point_head
+        self.enable_face_detector = enable_face_detector
         self.enable_uncertainty = enable_uncertainty
         self.use_local_pose_offset = use_local_pose_offset
         self.backbone_args = dict(backbone_args or {})
@@ -197,7 +220,7 @@ class NetworkWithPointHead(nn.Module):
         self.dtype = dtype
         self.input_resolution = input_resolution
 
-        self.convnet = MobileNet(**self.backbone_args)
+        self.convnet = create_pose_estimator_backbone(self.num_heads, config, self.backbone_args, input_resolution)
         n = self.convnet.num_features
         self.boxnet = BoundingBox(n, enable_uncertainty)
         self.posnet = PositionSizeOutput(n, enable_uncertainty)
@@ -209,13 +232,19 @@ class NetworkWithPointHead(nn.Module):
                 self.local_pose_offset_kpts = LocalToGlobalCoordinateOffset(self.NUM_DATASET_CONSTANTS)
         if enable_point_head:
             self.landmarks = Landmarks3dOutput(n, enable_uncertainty)
+        if enable_face_detector:
+            self.face_detector = nn.Linear(n, 1)
+
+    @property
+    def num_heads(self) -> int:
+        return 3 + int(self.enable_point_head) + int(self.enable_face_detector)
 
     def get_config(self) -> Dict[str, Any]:
         """The constructor arguments a checkpoint records (the JAX package's
         `get_config`, key for key)."""
         return {
             "enable_point_head": self.enable_point_head,
-            "enable_face_detector": False,
+            "enable_face_detector": self.enable_face_detector,
             "config": self.config,
             "enable_uncertainty": self.enable_uncertainty,
             "use_local_pose_offset": self.use_local_pose_offset,
@@ -226,12 +255,16 @@ class NetworkWithPointHead(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """flax's default init: lecun-normal kernels, zero biases, then each
-        head's own bias init. Scale parameters, offsets and BN stay as built."""
+        backbone module's own init (`init_extra`) and each head's bias init.
+        Scale parameters, offsets and BN stay as built."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 lecun_normal_(mod.weight, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+        for mod in self.modules():
+            if hasattr(mod, "init_extra"):
+                mod.init_extra(generator)
         for head in (self.boxnet, self.posnet, self.quatnet, getattr(self, "landmarks", None)):
             if head is not None:
                 head.init_bias()
@@ -241,23 +274,36 @@ class NetworkWithPointHead(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device_type, dtype=self.dtype)
 
-    def forward(self, x: torch.Tensor, coord_convention_id=None) -> Dict[str, Any]:
+    def forward(self, x: torch.Tensor, coord_convention_id=None, generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
         """x: (B, H, W, C) whitened crops. Train/eval follows `self.training`;
-        eval mode adds 'pose' (the quaternion)."""
+        eval mode adds 'pose' (the quaternion). In training, the backbone's
+        dropout and stochastic-depth masks come from a generator on x's
+        device seeded by one draw from `generator` (torch's global one
+        without it)."""
         assert x.shape[1] == x.shape[2] == self.input_resolution, f"Bad input shape {x.shape}"
+        gen = device_generator(generator, x.device) if self.training and self.convnet.draws_masks else None
         with self._precision(x.device.type):
-            features, _ = self.convnet(x.permute(0, 3, 1, 2))
-            out: Dict[str, Any] = self.boxnet(features)
-            out.update(self.posnet(features))
-            out.update(self.quatnet(features))
+            features, _ = self.convnet(x.permute(0, 3, 1, 2), generator=gen)
+            if self.config == "hybrid_vit":  # one query output per head, taken from the last
+                zs = [features[:, i, :] for i in range(self.num_heads)]
+            else:
+                zs = [features] * self.num_heads
+            out: Dict[str, Any] = self.boxnet(zs.pop())
+            out.update(self.posnet(zs.pop()))
+            out.update(self.quatnet(zs.pop()))
             rots, coords = out["rot"], out["coord"]
             if self.use_local_pose_offset:
                 out["rot"], out["coord"] = self.local_pose_offset(rots, coords, coord_convention_id)
                 if self.enable_point_head:
                     rots_k, coords_k = self.local_pose_offset_kpts(rots, coords, coord_convention_id)
-                    out.update(self.landmarks(features, rots_k, coords_k))
+                    out.update(self.landmarks(zs.pop(), rots_k, coords_k))
             elif self.enable_point_head:
-                out.update(self.landmarks(features, rots, coords))
+                out.update(self.landmarks(zs.pop(), rots, coords))
+            if self.enable_face_detector:
+                logits = self.face_detector(zs.pop()).float()[..., 0]
+                out["hasface_logits"] = logits
+                out["hasface"] = torch.sigmoid(logits)
         if not self.training:
             out["pose"] = out["rot"].as_quat()
         return out

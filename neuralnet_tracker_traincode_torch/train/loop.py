@@ -11,7 +11,9 @@ it must do what the JAX package's optax chain does:
    (`torch.nn.utils.clip_grad_norm_` divides by norm + 1e-6 instead);
  - `optax.adam` (b1 0.9, b2 0.999, eps 1e-8 outside the square root) with
    the learning rate of the step count BEFORE the increment;
- - NLL scale parameters ('variance') train at 0.1x the learning rate.
+ - NLL scale parameters ('variance') train at 0.1x the learning rate;
+   the transformer blocks of hybrid_vit ('transformer') at 0.01x with
+   decoupled weight decay 0.01 (`optax.adamw`).
 
 SWA keeps an equal-weight running average of the parameters and the
 BatchNorm running statistics in the `TrainState` (`update_swa`);
@@ -38,18 +40,27 @@ from neuralnet_tracker_traincode_torch.losses.criterion import MaskedMultiTaskCr
 from neuralnet_tracker_traincode_torch.models.nll import SCALE_MODULES
 from neuralnet_tracker_traincode_torch.train.schedules import exponential_up_then_steps
 
-_GROUP_LR = {"main": 1.0, "variance": 0.1}
+_GROUP_LR = {"main": 1.0, "variance": 0.1, "transformer": 0.01}
+_GROUP_WEIGHT_DECAY = {"transformer": 0.01}
 _NOT_LABELS = ("image", "param_index", "tag_id", "dataset_weight")
 
 
 def label_parameters(model: torch.nn.Module) -> Dict[str, str]:
     """Optimizer group of each named parameter: 'variance' for the NLL scale
-    modules (the JAX package's `uncertainty*` modules), 'main' otherwise."""
+    modules (the JAX package's `uncertainty*` modules), 'transformer' for the
+    parameters under a module named `transformer` (hybrid_vit's encoder and
+    decoder, the JAX package's `transformer_*`), 'main' otherwise."""
     variance = set()
     for prefix, mod in model.named_modules():
         if isinstance(mod, SCALE_MODULES):
             variance.update(f"{prefix}.{n}" if prefix else n for n, _ in mod.named_parameters())
-    return {n: ("variance" if n in variance else "main") for n, _ in model.named_parameters()}
+
+    def label(name: str) -> str:
+        if name in variance:
+            return "variance"
+        return "transformer" if "transformer" in name.split(".") else "main"
+
+    return {n: label(n) for n, _ in model.named_parameters()}
 
 
 @dataclasses.dataclass
@@ -60,8 +71,9 @@ class AdamState:
 
 
 class ClippedGroupAdam:
-    """clip_by_global_norm(max_norm) then Adam per group, as the JAX
-    package's `make_optimizer` chains them in optax."""
+    """clip_by_global_norm(max_norm) then Adam per group (AdamW for the
+    'transformer' group), as the JAX package's `make_optimizer` chains them
+    in optax."""
 
     def __init__(
         self,
@@ -122,7 +134,10 @@ class ClippedGroupAdam:
             idx = [i for i, n in enumerate(names) if self.groups[n] == group]
             if idx:
                 lr = self.learning_rate(state.count, group)
-                torch._foreach_add_([params[names[i]] for i in idx], [upd[i] for i in idx], alpha=-lr)
+                group_params, group_upd = [params[names[i]] for i in idx], [upd[i] for i in idx]
+                if group in _GROUP_WEIGHT_DECAY:  # optax.adamw: adam + wd * params, then the learning rate
+                    torch._foreach_add_(group_upd, group_params, alpha=_GROUP_WEIGHT_DECAY[group])
+                torch._foreach_add_(group_params, group_upd, alpha=-lr)
         return AdamState(count, state.mu, state.nu)
 
 
@@ -235,7 +250,8 @@ class PoseTrainer:
         """One optimizer step on `batch` (the JAX package's fused-batch dict).
 
         The augmentation uses `aug_params` where given, else draws from
-        `generator`. Returns the new state and device scalars: 'loss' and the
+        `generator`; the network's dropout and stochastic-depth masks (of the
+        backbones that have them) draw from `generator` too. Returns the new state and device scalars: 'loss' and the
         mean of each loss term over the samples whose tag defines it."""
         dev = self.device
         with record_function("augment"):
@@ -247,7 +263,7 @@ class PoseTrainer:
             )
         self.model.train()
         with record_function("forward"):
-            out = self.model(x, coord_convention_id=labels.get("coord_convention_id"))
+            out = self.model(x, coord_convention_id=labels.get("coord_convention_id"), generator=generator)
         with record_function("loss"):
             loss, byname = self.criterion(
                 out, labels, batch["tag_id"], weight_matrix, dataset_weight=batch.get("dataset_weight")

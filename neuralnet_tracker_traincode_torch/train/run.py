@@ -135,7 +135,8 @@ def run_training(
     `best.ckpt`, `swa.ckpt` (when SWA is on) and `resume.pt` into `outdir`.
     `train_batches(step)` gives the batches from the run's step on (after a
     resume, the step the state file recorded), e.g.
-    `lambda step: iterate_fused_batches(packed, B, Generator().manual_seed(s), start=step)`.
+    `lambda step: iterate_fused_batches(packed, B, make_concat_dataset_item_sampler(
+    ConcatDataset([frames]), [1.0], seed=s), start=step)`.
     With `resume` naming an existing state file the run continues after the
     epoch it recorded, bit for bit as if it had not stopped. Returns the
     final state and one record per epoch (host seconds of the steps, images/s,

@@ -1,6 +1,7 @@
-"""Host-side helpers of the eval path (the port's own copy of the part of the
-JAX package's `utils.py` that eval needs): the AFLW euler convention,
-batching of an iterable, and the padding bucket. numpy and scipy only."""
+"""Host-side helpers (the port's own copy of the parts of the JAX package's
+`utils.py` that eval and the sampler need): the AFLW euler convention,
+batching of an iterable, the padding bucket and `cycle`. numpy and scipy
+only."""
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -40,3 +41,18 @@ def ceil_to_multiple(n: int, multiple: int = 64) -> int:
     """Round up to a multiple (the padding bucket of the packed batches and
     the Predictor)."""
     return int(-(-int(n) // multiple) * multiple)
+
+
+def cycle(iterable):
+    """Like itertools.cycle but without caching the first pass: each pass
+    iterates `iterable` anew (a sampler draws a new permutation)."""
+    iterator = iter(iterable)
+    while True:
+        try:
+            yield next(iterator)
+        except StopIteration:
+            iterator = iter(iterable)
+            try:
+                yield next(iterator)
+            except StopIteration:
+                raise ValueError("cycle() over an empty iterable")

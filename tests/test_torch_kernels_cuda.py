@@ -10,7 +10,8 @@ a magnifying and a partly outside ROI, and with `skip_rotation`. K2 runs
 at B = 64, 129^2 and at odd P, with one-bin
 and two-bin images, gates mixed, all off and all on, and from an input 4
 bytes off 16-byte alignment. K3 runs with sigma 0 and > 0 mixed, at
-offsets 0 and -0.5.
+offsets 0 and -0.5. Both run at the localizer's shape too, (64, 224 x 288),
+with the gates and sigmas drawn as its augmentation draws them and all on.
 """
 
 import math
@@ -180,6 +181,39 @@ def test_k3_kernel_with_mixed_sigma_and_offsets_matches_plain(dev, B, P, offset)
     assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
     if offset == 0.0:
         assert torch.equal(bits, out)
+
+
+P_LOCALIZER = 224 * 288  # the localizer's crops
+
+
+@pytest.mark.parametrize("gates", ["drawn", "on"])
+def test_k2_at_the_localizer_shape(dev, gates):
+    from neuralnet_tracker_traincode_torch.augmentation.intensity import sample_stage1_parameters
+
+    x = _eq_batch(64, P_LOCALIZER, 11)
+    gate = sample_stage1_parameters(torch.Generator().manual_seed(4), 64).masks[0]
+    if gates == "on":
+        gate = torch.ones_like(gate)
+    assert gate.any()
+    ext.reset_launch_counts()
+    out = K2.equalize(x.to(dev), gate.to(dev)).cpu()
+    assert ext.LAUNCHES["equalize"] == 1
+    assert torch.equal(out.view(torch.int32), K2.equalize_plain(x, gate).view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0.0, -0.5])
+@pytest.mark.parametrize("sigmas", ["drawn", "on"])
+def test_k3_at_the_localizer_shape(dev, sigmas, offset):
+    from neuralnet_tracker_traincode_torch.augmentation.intensity import sample_noise_parameters
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(64, P_LOCALIZER, generator=g)
+    noise = sample_noise_parameters(g, 64)
+    sigma = noise.sigma if sigmas == "drawn" else torch.full((64,), 16.0 / 255.0)
+    ext.reset_launch_counts()
+    out = K3.add_gaussian_noise(x.to(dev), noise.seeds.to(dev), sigma.to(dev), offset).cpu()
+    assert ext.LAUNCHES["gaussian_noise"] == 1
+    assert (out - K3.add_gaussian_noise_plain(x, noise.seeds, sigma, offset)).abs().max() <= 1e-6
 
 
 def test_k3_kernels_match_plain(dev):

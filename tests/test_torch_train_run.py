@@ -36,6 +36,7 @@ from neuralnet_tracker_traincode_torch.data.fields import Tag as TTag
 from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES as TCATS
 from neuralnet_tracker_traincode_torch.data.batch import frame
 from neuralnet_tracker_traincode_torch.data.loader import iterate_fused_batches, pack_fused_batch
+from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
 from neuralnet_tracker_traincode_torch.models.io import load_posenet
 from neuralnet_tracker_traincode_torch.models.weights import posenet_state_dict_from_jax
 from neuralnet_tracker_traincode_torch.train.checkpointing import load_train_state, save_train_state
@@ -97,10 +98,16 @@ def test_pack_fused_batch_smooths_hasface_and_refuses_what_waits():
         pack_fused_batch([seq], [0], 8)
 
 
+def _sampler(frames, seed):
+    """The training CLI's sampler over one set of frames."""
+    return make_concat_dataset_item_sampler(ConcatDataset([frames]), [1.0], seed=seed)
+
+
 def test_iterate_fused_batches_covers_each_pass_once():
-    packed = pack_fused_batch(_port_frames(_jax_frames(6, 40, seed=2)), [0] * 6, 64)
+    frames = _port_frames(_jax_frames(6, 40, seed=2))
+    packed = pack_fused_batch(frames, [0] * 6, 64)
     packed["coord_convention_id"] = np.arange(6, dtype=np.int32)
-    it = iterate_fused_batches(packed, 2, torch.Generator().manual_seed(0), device="cpu")
+    it = iterate_fused_batches(packed, 2, _sampler(frames, 0), device="cpu")
     seen = [next(it) for _ in range(3)]
     assert sorted(torch.cat([b["coord_convention_id"] for b in seen]).tolist()) == list(range(6))
     assert all(b["image"].shape == (2, 64, 64, 1) and b["param_index"].tolist() == [0, 1] for b in seen)
@@ -108,18 +115,19 @@ def test_iterate_fused_batches_covers_each_pass_once():
 
 @pytest.mark.parametrize("start", [0, 2, 3, 7])
 def test_iterate_fused_batches_starts_where_a_fresh_iterator_would_be(start):
-    """A resumed run's iterator: `start` batches into passes of 3 batches
-    (7 frames, the last dropped), the batches an iterator of the same seed
-    gives after `start` batches."""
-    packed = pack_fused_batch(_port_frames(_jax_frames(7, 40, seed=2)), [0] * 7, 64)
+    """A resumed run's iterator: `start` batches into a stream of passes of
+    7 frames (batches cross the passes), the batches an iterator of an equal
+    sampler gives after `start` batches."""
+    frames = _port_frames(_jax_frames(7, 40, seed=2))
+    packed = pack_fused_batch(frames, [0] * 7, 64)
     packed["coord_convention_id"] = np.arange(7, dtype=np.int32)
-    straight = iterate_fused_batches(packed, 2, torch.Generator().manual_seed(4), device="cpu")
+    straight = iterate_fused_batches(packed, 2, _sampler(frames, 4), device="cpu")
     want = [next(straight)["coord_convention_id"] for _ in range(start + 4)][start:]
-    resumed = iterate_fused_batches(packed, 2, torch.Generator().manual_seed(4), device="cpu", start=start)
+    resumed = iterate_fused_batches(packed, 2, _sampler(frames, 4), device="cpu", start=start)
     for w in want:
         assert torch.equal(next(resumed)["coord_convention_id"], w)
     with pytest.raises(ValueError, match="no batch"):
-        next(iterate_fused_batches(packed, 8, device="cpu"))
+        next(iterate_fused_batches(packed, 8, _sampler(frames, 4), device="cpu"))
 
 
 def test_synthetic_labels_and_images_match_jax():
@@ -191,7 +199,7 @@ def _train_batches(seed, batchsize=4):
     packed = pack_fused_batch(frames, [tags[f.meta.tag] for f in frames], 96)
 
     def batches(start):
-        return iterate_fused_batches(packed, batchsize, torch.Generator().manual_seed(seed), device="cpu", start=start)
+        return iterate_fused_batches(packed, batchsize, _sampler(frames, seed), device="cpu", start=start)
 
     return frames, batches
 
