@@ -98,20 +98,44 @@ Phases (any failure ends the run with a non-zero exit code):
     a model file round trip (the face detector's `hasface` bit-equal after
     it), and a Predictor pass over 256 frames whose rows are bit-equal on a
     second pass. It prints ms per step for each;
- 12. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 12. the host loader and the CLIs. (a) Phase 7's run (6D head, point and NLL
+    heads, the 12-term criterion, bf16, batch 64, 4 epochs of 1,024 samples,
+    SWA after epoch 1) on 2,048 training and 256 validation marker frames at
+    448^2 rendered on the card and JPEG-encoded on the host (quality 95),
+    held as `JpegFrames` (the samples `Hdf5PoseDataset` gives under
+    `use_raw_images`), through the training CLI's sampler (seed 3),
+    `FusedBatchLoader` with 4 process workers and shared memory, and
+    `device_prefetch`. It fails unless the first 8 batches of the process
+    workers and of 1 thread worker equal, field for field, packing the same
+    plans in this process after a cv2 decode; every loss is finite; the
+    final validation loss is below the untrained model's; K1, K2 and K3 agree
+    with their plain versions at the run's launches as in phase 7; and no
+    worker process outlives its iterator. It prints the loader alone
+    (batches/s and images/s over 32 batches, no training), the training
+    thread's wait in `next()` on the prefetcher (median and p90 ms a step),
+    images/s per epoch and the phase's seconds. (b) Where h5py imports:
+    `aflw2k.h5` (1,024 frames at 160^2, `write_synthetic_pose_dataset`) in a
+    temporary `$DATADIR`, the training CLI for one epoch and the eval CLI on
+    its `best.ckpt`, each as a process that must exit 0; else one line says
+    that 12b did not run;
+ 13. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
-    phase 11's steps), then `{"ok": true, "device": ...}` as the last line.
+    phase 11's steps, `launches_loader_run` from phase 12a's run), then
+    `{"ok": true, "device": ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
-`native/nntc_loader.so` loads; it fails nothing.
+`native/nntc_loader.so` loads; it fails nothing. The port decodes JPEGs
+with cv2 (phase 12a needs it) and reads HDF5 files with h5py (phase 12b
+runs only where it imports).
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
@@ -134,9 +158,48 @@ LOC_SRC, LOC_TRAIN, LOC_VAL, LOC_B, LOC_EPOCHS, LOC_SAMPLES = 256, 2048, 256, 64
 BACKBONES = [("resnet18", {"use_blurpool": True}, True), ("efficientnet_b0", {}, False),
              ("efficientnet_b4", {}, False), ("hybrid_vit", {}, False)]
 BACKBONE_WARMUP, BACKBONE_STEPS, BACKBONE_EVAL = 3, 10, 256
+# the host loader: phase 7's run on JPEG frames at 448^2 through FusedBatchLoader's process workers
+LOADER_SRC, LOADER_WORKERS, LOADER_CHECK_BATCHES, LOADER_ALONE_BATCHES = 448, 4, 8, 32
+# the CLIs through files (where h5py imports): aflw2k.h5 at 160^2
+CLI_N, CLI_SRC = 1024, 160
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
+
+
+class JpegFrames:
+    """Labelled frames held as JPEG buffers; item i is the single-frame
+    `Batch` that `Hdf5PoseDataset` gives under `use_raw_images` (the image a
+    `RawJpegBuffer`, the labels, `index` and `coord_convention_id`). Defined
+    at the top level so that the loader's spawned workers can unpickle it."""
+
+    def __init__(self, buffers, labels, size, tag):
+        self.offsets = [0]
+        for b in buffers:
+            self.offsets.append(self.offsets[-1] + len(b))
+        import numpy as np
+
+        self.blob = np.concatenate(buffers)
+        self.labels, self.size, self.tag = labels, size, tag
+
+    def __len__(self):
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        from neuralnet_tracker_traincode_torch.data.batch import Batch, Metadata
+        from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES, FieldCategory
+        from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
+
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        fields = {"image": RawJpegBuffer(self.blob[self.offsets[i]:self.offsets[i + 1]], self.size, self.size)}
+        fields.update((k, v[i]) for k, v in self.labels.items())
+        fields["index"] = np.asarray(i, np.int32)
+        fields["coord_convention_id"] = np.asarray(0, np.int32)
+        cats = {k: POSE_FIELD_CATEGORIES.get(k, FieldCategory.general) for k in fields}
+        return Batch(Metadata((self.size, self.size), 0, self.tag, None, categories=cats), fields)
 
 
 def fail(msg: str):
@@ -936,7 +999,8 @@ def convergence_phase(torch, np, dev, smi):
 
 
 def host_probe():
-    """Which of the loader's candidate carriers this machine has; prints only."""
+    """Which of the loader's libraries this machine has (cv2 decodes the
+    JPEGs, h5py reads the files); prints only."""
     import ctypes
     import ctypes.util
     import importlib
@@ -1185,6 +1249,218 @@ def backbones_phase(torch, np, dev, smi):
     return launches, errs
 
 
+def jpeg_frames(torch, np, n, seed, dev):
+    """`n` marker frames at LOADER_SRC^2 rendered on the card from `seed`,
+    encoded on the host by the port's `imencode` at the JAX writer's quality
+    (95), as `JpegFrames`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.preprocessing import imencode
+    from neuralnet_tracker_traincode_torch.data.synthetic import make_labels, render_marker_images
+
+    quats, coords, pt3d, shapeparams, rois = make_labels(n, LOADER_SRC, seed=seed, device=dev)
+    images = render_marker_images(pt3d, coords, LOADER_SRC).cpu().numpy()
+    with ThreadPoolExecutor(8) as pool:  # cv2 releases the GIL while it encodes
+        buffers = list(pool.map(lambda im: imencode(im, quality=95), images))
+    labels = {k: a.cpu().numpy() for k, a in
+              zip(("pose", "coord", "pt3d_68", "shapeparam", "roi"), (quats, coords, pt3d, shapeparams, rois))}
+    return JpegFrames(buffers, labels, LOADER_SRC, Tag.POSE_WITH_LANDMARKS)
+
+
+def loader_phase(torch, np, dev, smi):
+    """Phase 12a: phase 7's training run on JPEG frames at 448^2 through the
+    host loader (`FusedBatchLoader` with process workers and shared memory,
+    then `device_prefetch`)."""
+    import multiprocessing as mp
+
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.loader import (
+        LABEL_CATEGORIES,
+        FusedBatchLoader,
+        device_prefetch,
+        pack_fused_batch,
+        plan_batches,
+    )
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.pipelines import probe_pad_size
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.run import LossOptions, run_training, setup_losses
+    from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    train = jpeg_frames(torch, np, RUN_TRAIN, 3, dev)
+    val = jpeg_frames(torch, np, RUN_VAL, 4, dev)
+    t_data = time.perf_counter() - t_phase
+    concat = ConcatDataset([train])
+    pad = probe_pad_size([train])
+    check(pad == LOADER_SRC, f"the probe pads {LOADER_SRC}^2 frames to {pad}")
+    tags = {Tag.POSE_WITH_LANDMARKS: 0}
+
+    def loader(num_workers, worker_type):  # each with its own sampler: a sampler's iteration advances its state
+        sampler = make_concat_dataset_item_sampler(concat, [1.0], seed=3)  # the training CLI's sampler
+        return FusedBatchLoader(concat, lambda i: Tag.POSE_WITH_LANDMARKS, tags, sampler, B, pad,
+                                num_workers=num_workers, worker_type=worker_type, shared_memory=True)
+
+    # the first batches of 4 process workers and of 1 thread worker against packing the same plans here
+    plans = list(itertools.islice(plan_batches(concat, lambda i: Tag.POSE_WITH_LANDMARKS, tags,
+                                               make_concat_dataset_item_sampler(concat, [1.0], seed=3), B),
+                                  LOADER_CHECK_BATCHES))
+    want = []
+    for p in plans:
+        samples = []
+        for gi in p.indices:
+            s = train[gi]
+            s["image"] = s["image"].decode()
+            samples.append(s)
+        want.append(pack_fused_batch(samples, p.tag_ids, pad, p.weights))
+    for workers, kind in ((LOADER_WORKERS, "process"), (1, "thread")):
+        source = loader(workers, kind)
+        it = iter(source)
+        t0 = time.perf_counter()
+        got = list(itertools.islice(it, LOADER_CHECK_BATCHES))
+        first_s = time.perf_counter() - t0
+        if kind == "process":
+            # the loader alone on the same workers: once the queues are full, take what they hold (per worker its
+            # queue, a blocked put and the batch in the making), then time LOADER_ALONE_BATCHES batches at the rate
+            # the workers make them
+            time.sleep(2.0)
+            for _ in range(workers * (max(2, source.prefetch // workers) + 2)):
+                next(it)
+            t0 = time.perf_counter()
+            for _ in range(LOADER_ALONE_BATCHES):
+                next(it)
+            alone_bps = LOADER_ALONE_BATCHES / (time.perf_counter() - t0)
+            print(f"loader alone ({LOADER_WORKERS} process workers, {os.cpu_count()} host cores, {pad}^2 JPEG q95, "
+                  f"batch {B}): {alone_bps:.2f} batches/s, {alone_bps * B:.1f} images/s over {LOADER_ALONE_BATCHES} "
+                  f"batches (the first {LOADER_CHECK_BATCHES} took {first_s:.2f} s, worker start-up included) on {smi}")
+        it.close()
+        check(len(got) == LOADER_CHECK_BATCHES, f"{kind} workers gave {len(got)} batches")
+        for b, (x, y) in enumerate(zip(got, want)):
+            differ = [k for k in y if x[k].shape != y[k].shape or not np.array_equal(x[k], y[k])]
+            check(set(x) == set(y) and not differ, f"{workers} {kind} worker(s), batch {b}: {differ} differ")
+        check(not mp.active_children(), f"{len(mp.active_children())} worker processes outlived their iterator")
+    print(f"loader: the first {LOADER_CHECK_BATCHES} batches of {LOADER_WORKERS} process workers (shared memory) "
+          f"and of 1 thread worker equal, field for field, packing the same plans in this process after a cv2 decode "
+          f"({B} x {pad}^2 JPEG frames)")
+
+    opts = LossOptions(epochs=RUN_EPOCHS, with_nll_loss=True, with_pointhead=True, with_roi_train=True, enable_6drot=True)
+    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                 enable_6drot=True, dtype=torch.bfloat16)
+    cfg = TrainerConfig(batchsize=B, epochs=RUN_EPOCHS, samples_per_epoch=RUN_SAMPLES_PER_EPOCH, swa_start_epoch=1,
+                        aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+    trainer = PoseTrainer(model, setup_losses(opts, [Tag.POSE_WITH_LANDMARKS]), cfg, LABEL_CATEGORIES, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    validation = FusedValidation(trainer, val, batchsize=2 * B)
+    untrained_loss = float(validation.evaluate(0)["loss"])
+    waits, streams = [], []
+
+    def batches(start):
+        stream = device_prefetch(loader(LOADER_WORKERS, "process").iterate(start), dev, size=2)
+        streams.append(stream)
+
+        def timed():  # the training thread's wait in next() on the prefetcher
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(stream)
+                except StopIteration:
+                    return
+                waits.append((time.perf_counter() - t) * 1e3)
+                yield batch
+
+        return timed()
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    steps_per_epoch = cfg.steps_per_epoch
+    try:
+        with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops, \
+                wrapper_captured(K2, "equalize", steps_per_epoch) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", steps_per_epoch) as noised:
+            torch.cuda.synchronize()
+            ext.reset_launch_counts()
+            t_run = time.perf_counter()
+            state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = dict(ext.LAUNCHES)
+        for stream in streams:
+            stream.close()
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    check(not mp.active_children(), f"{len(mp.active_children())} loader workers outlived the run")
+    steps = RUN_EPOCHS * steps_per_epoch
+    check(state.step == steps and len(waits) == steps, f"step {state.step}, {len(waits)} batches taken")
+    for r in records:
+        bad = [k for k, v in r["train_metrics"].items() if not math.isfinite(v)]
+        check(not bad and math.isfinite(r["val_loss"]), f"loader run epoch {r['epoch']}: non-finite {bad or 'val'}")
+    final_loss = records[-1]["val_loss"]
+    check(final_loss < untrained_loss, f"validation loss {final_loss} is not below the untrained {untrained_loss}")
+    check(launches["gaussian_noise"] == steps and launches["equalize"] >= 1 and launches["warp_roi_rotate"] ==
+          steps + RUN_EPOCHS * len(validation._batches), f"loader run launches {launches}")
+    check(len(train_crops) == RUN_EPOCHS, f"{len(train_crops)} training crops kept, not {RUN_EPOCHS}")
+    for images, *_ in train_crops:
+        check(tuple(images.shape) == (B, pad, pad), f"loader run K1 at {tuple(images.shape)}")
+    errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "loader run")
+    errs["warp_roi_rotate"] = k1_against_plain(K1, train_crops, "loader run's crop")
+    del train_crops, equalized, noised
+    later = sorted(waits[1:])
+    for r in records:
+        print(f"loader run epoch {r['epoch'] + 1}/{RUN_EPOCHS}: {r['steps']} steps in {r['train_s'] * 1e3:.1f} ms, "
+              f"{r['images_per_s']:.1f} images/s ({r['sustained_images_per_s']:.1f} sustained since step 2); "
+              f"validation loss {r['val_loss']:.4f} on {smi}")
+    print(f"loader run: {steps} steps of batch {B} from {LOADER_WORKERS} process workers through device_prefetch; "
+          f"the training thread waited in next() median {statistics.median(later):.3f} ms, p90 "
+          f"{later[int(0.9 * (len(later) - 1))]:.3f} ms, max {later[-1]:.3f} ms a step after the first (first "
+          f"{waits[0]:.1f} ms, worker start-up included); validation loss {untrained_loss:.4f} -> {final_loss:.4f}; "
+          f"K1 at the run's crops max |kernel - plain| {errs['warp_roi_rotate']:.3e} gray; launches {launches}; "
+          f"data {t_data:.2f} s, run {run_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, errs
+
+
+def cli_phase(np, smi):
+    """Phase 12b: the training and eval CLIs as processes over a pose file
+    in a temporary `$DATADIR`, where h5py imports."""
+    try:
+        import h5py  # noqa: F401 - the probe: the CLIs read HDF5 files
+    except ImportError:
+        print("phase 12b: not run, h5py does not import on this host; the CLIs over HDF5 are held on the CPU by "
+              "tests/test_torch_cli.py")
+        return
+    from neuralnet_tracker_traincode_torch.data.synthetic import write_synthetic_pose_dataset
+
+    t_phase = time.perf_counter()
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_datadir_")
+    try:
+        write_synthetic_pose_dataset(os.path.join(datadir, "aflw2k.h5"), CLI_N, CLI_SRC, seed=3)
+        env = dict(os.environ, DATADIR=datadir, PYTHONPATH=ROOT)
+        outdir = os.path.join(datadir, "out")
+        runs = [
+            ["train_poseestimator", "--ds", "aflw2k", "--epochs", "1", "--samples-per-epoch", "1024", "--outdir",
+             outdir],
+            ["evaluate_pose_network", os.path.join(outdir, "NetworkWithPointHead_mobilenetv1", "best.ckpt"),
+             "--ds", "aflw2k3d"],
+        ]
+        for args in runs:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", f"neuralnet_tracker_traincode_torch.scripts.{args[0]}"]
+                                 + args[1:], env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            tail = "\n".join(res.stdout.strip().splitlines()[-6:])
+            check(res.returncode == 0, f"{args[0]} exited {res.returncode}: {res.stderr[-3000:]}")
+            print(f"phase 12b: {args[0]} exited 0 in {time.perf_counter() - t0:.1f} s; its last lines:\n{tail}")
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    print(f"phase 12b: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -1231,8 +1507,11 @@ def main() -> int:
         print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
     loc_launches, errs_loc, loc_stream = localizer_phase(torch, np, dev, f"{name} ({smi})")
     bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
+    ld_launches, errs_ld = loader_phase(torch, np, dev, f"{name} ({smi})")
+    cli_phase(np, f"{name} ({smi})")
     for r in rows:  # the errors at the runs' own launches join those of phase 3
-        r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (errs_run, errs_conv, errs_loc, errs_bb)])
+        r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0)
+                                                     for e in (errs_run, errs_conv, errs_loc, errs_bb, errs_ld)])
 
     kernels = []
     for r in rows:
@@ -1241,7 +1520,7 @@ def main() -> int:
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
             launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
-            launches_backbones=bb_launches[r["name"]],
+            launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

@@ -1,5 +1,5 @@
-"""Semantic field categories and dataset tags (the port's own copy of the
-JAX package's `data/fields.py`, as far as training and eval need it)."""
+"""Semantic field categories, dataset tags and ids, and the HDF5 field names
+(the port's own copy of the JAX package's `data/fields.py`)."""
 
 import enum
 
@@ -41,3 +41,43 @@ class Tag(enum.Enum):
     ONLY_LANDMARKS_2D = 9
     SEMSEG = 10
     POSE_WITH_LMKS_NO_SHAPE_PARAMS = 11
+
+
+class DatasetId(enum.Enum):
+    _300WLP = 2
+    SYNFACE = 5
+    WFLW_RELABEL = 6
+    AFLW2k3d = 8
+    BIWI = 9
+    WIDER = 11
+    _300VW = 12
+    LAPA = 13
+    REPO_300WLP = 15
+    WFLW_LP = 16
+    LAPA_MEGAFACE_LP = 17
+    REPO_300WLP_WO_EXTRA = 18
+    PANOPTIC_CMU = 19
+    REPLICANT_FACE = 20
+
+
+# HDF5 dataset names -> runtime field names.
+inconsistent_name_mapping = {
+    "images": "image",
+    "keys": "image",
+    "seg_image": "semseg",
+    "rois": "roi",
+    "coords": "coord",
+    "quats": "pose",
+    "pt3d_68": "pt3d_68",
+    "pt2d_68": "pt2d_68",
+    "shapeparams": "shapeparam",
+    "hasface": "hasface",
+}
+
+field_default_names = {
+    FieldCategory.image: "images",
+    FieldCategory.semseg: "semseg",
+    FieldCategory.quat: "quats",
+    FieldCategory.xys: "coords",
+    FieldCategory.roi: "rois",
+}

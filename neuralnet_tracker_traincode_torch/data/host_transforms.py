@@ -1,7 +1,7 @@
 """Host-side (numpy) per-sample transforms of the eval loaders (counterpart
 of the JAX package's `data/host_transforms.py`), and the extreme-pose filter
-of its aflw2k3d validation set (`pipelines.py:indices_without_extreme_poses`)
-as arithmetic on label arrays: the HDF5 reads come with the loader.
+of its aflw2k3d validation set as arithmetic on label arrays (the port's
+`pipelines.py:indices_without_extreme_poses` reads them from the file).
 
 `PutRoiFromLandmarks(extend_to_forehead=True)` takes the head-sphere
 extent (centre coord[:2], radius coord[2]) merged with the landmarks' box:

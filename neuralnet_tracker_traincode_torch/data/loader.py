@@ -1,31 +1,45 @@
-"""Fused-batch packing (counterpart of the JAX package's `data/loader.py`).
+"""The host loader (counterpart of the JAX package's `data/loader.py`):
+batch plans, fused-batch packing, the worker pool and the upload to the card.
 
-`pack_fused_batch` packs labelled frames held in memory into the fixed-shape
-fused-batch dict that `PoseTrainer.train_step` and `FusedValidation` take:
-images zero-padded (not rescaled) to (B, pad, pad, C) uint8, every field of
+`pack_fused_batch` packs labelled frames into the fixed-shape fused-batch
+dict that `PoseTrainer.train_step` and `FusedValidation` take: images
+zero-padded (not rescaled) to (B, pad, pad, C) uint8, every field of
 `LABEL_SCHEMA` present (zero where a frame lacks it, masked by the per-tag
 loss weights), `hasface` label-smoothed to 0.9 / 0.1, and `tag_id`,
-`dataset_weight`, `param_index` and `coord_convention_id` per frame.
+`dataset_weight`, `param_index` and `coord_convention_id` per frame. A
+sample is a single-frame `Batch` of either package (`data/batch.py:frame`
+makes the port's), or a sequence (`meta.seq`) whose frames share one
+`param_index`. Undecoded JPEGs (`data/hdf5.py:RawJpegBuffer`) are decoded
+by cv2 on `decode_threads` threads.
 
-A frame is any mapping of field -> array with a `meta` that carries the
-dataset `tag` and the image size `image_wh`: a single-frame `Batch` of
-either package (`data/batch.py:frame` makes the port's).
 `plan_batches` cuts a sampler's index stream (`data/sampling.py`) into
-batch plans as the JAX loader's `FusedBatchLoader.plan_batches` does, for
-single frames; `iterate_fused_batches` makes training batches of a packed set
-held on the card from the same cut of such a stream. The host loader
-(`FusedBatchLoader`, its workers, HDF5 and JPEG decoding) and sequences wait
-(ROADMAP.md).
+batch plans of `batchsize` frames, carrying a sequence that does not fit
+into the next plan. `FusedBatchLoader` dispatches the plans round-robin to
+thread or spawned process workers and reads the batches back in the same
+order, so the stream is the same for any worker count and type; process
+workers hand the image plane over through a shared-memory ring. Workers
+never touch CUDA. `device_prefetch` uploads batches to the card ahead of
+the consumer from pinned memory on a side stream. `iterate_fused_batches`
+makes training batches of a packed set already held on the card.
 """
 
+import atexit
+import bisect
+import collections
+import functools
 import itertools
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES
-from neuralnet_tracker_traincode_torch.device import not_ported, resolve_device
+from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
+from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
 
 LABEL_SCHEMA = {
@@ -39,13 +53,30 @@ LABEL_SCHEMA = {
 
 LABEL_CATEGORIES = {k: POSE_FIELD_CATEGORIES[k] for k in LABEL_SCHEMA}
 
+# Each slot of the shared-memory image ring starts with the producer's int64
+# sequence number, which the consumer checks on both sides of its copy-out.
+_SHM_STAMP_BYTES = 8
 
-def _image(im) -> np.ndarray:
+
+def _image_dims(im):
+    if isinstance(im, RawJpegBuffer):
+        return im.height, im.width
+    if not isinstance(im, (np.ndarray, torch.Tensor)):
+        raise TypeError(f"cannot pack a {type(im).__name__} image")
+    return tuple(im.shape[:2])
+
+
+def _materialize(im) -> np.ndarray:
+    if isinstance(im, RawJpegBuffer):
+        return im.decode()
     if isinstance(im, torch.Tensor):
         return im.detach().cpu().numpy()
-    if not isinstance(im, np.ndarray):
-        raise not_ported(f"packing {type(im).__name__} images (JPEG buffers come with the loader)")
     return im
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_pool(threads: int) -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(max_workers=threads, thread_name_prefix="nntc-decode")
 
 
 def pack_fused_batch(
@@ -53,24 +84,46 @@ def pack_fused_batch(
     tag_ids: Sequence[int],
     pad_size: int,
     dataset_weights: Optional[Sequence[float]] = None,
+    decode_threads: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
-    """Pack single frames into one fused batch dict of numpy arrays. An image
-    larger than `pad_size` grows this batch's padding to the next multiple of 64."""
-    for s in samples:
-        if getattr(getattr(s, "meta", None), "seq", None):
-            raise not_ported("packing sequences (they come with the loader)")
-    images = [_image(s["image"]) for s in samples]
-    B = len(images)
-    largest = max(max(im.shape[:2]) for im in images)
+    """Pack samples (single frames or sequences) into one fused batch dict of
+    numpy arrays. An image larger than `pad_size` grows this batch's padding
+    to the next multiple of 64. Undecoded JPEGs are decoded on
+    `decode_threads` threads (default: one)."""
+    frames, frame_tags, frame_weights, param_index = [], [], [], []
+    for si, s in enumerate(samples):
+        start = len(frames)
+        seq = getattr(getattr(s, "meta", None), "seq", None)
+        for f in ([f for q in s.undo_collate() for f in q.iter_frames()] if seq else [s]):
+            frames.append(f)
+            frame_tags.append(tag_ids[si])
+            frame_weights.append(1.0 if dataset_weights is None else dataset_weights[si])
+            param_index.append(start)
+    raw = [f["image"] for f in frames]
+    B = len(frames)
+    largest = max(max(_image_dims(im)) for im in raw)
     if largest > pad_size:
         pad_size = ceil_to_multiple(largest)
-    out: Dict[str, np.ndarray] = {"image": np.zeros((B, pad_size, pad_size, images[0].shape[-1]), np.uint8)}
-    for i, im in enumerate(images):
-        out["image"][i, : im.shape[0], : im.shape[1], :] = im
+
+    first = _materialize(raw[0])
+    images = np.zeros((B, pad_size, pad_size, first.shape[-1]), np.uint8)
+
+    def put(i, im):
+        img = first if i == 0 else _materialize(im)
+        images[i, : img.shape[0], : img.shape[1], :] = img
+
+    threads = max(1, int(decode_threads or 1))
+    if threads > 1 and sum(isinstance(im, RawJpegBuffer) for im in raw) > 1:
+        list(_decode_pool(threads).map(put, range(B), raw))  # cv2 releases the GIL while it decodes
+    else:
+        for i, im in enumerate(raw):
+            put(i, im)
+
+    out: Dict[str, np.ndarray] = {"image": images}
     for k, shape in LABEL_SCHEMA.items():
         out[k] = np.zeros((B,) + shape, np.float32)
     out["coord_convention_id"] = np.zeros((B,), np.int32)
-    for i, f in enumerate(samples):
+    for i, f in enumerate(frames):
         for k in LABEL_SCHEMA:
             if k in f:
                 v = np.asarray(f[k])
@@ -79,9 +132,9 @@ def pack_fused_batch(
                 out[k][i] = v.astype(np.float32)
         if "coord_convention_id" in f:
             out["coord_convention_id"][i] = int(f["coord_convention_id"])
-    out["tag_id"] = np.asarray(tag_ids, np.int32)
-    out["dataset_weight"] = np.asarray([1.0] * B if dataset_weights is None else dataset_weights, np.float32)
-    out["param_index"] = np.arange(B, dtype=np.int32)
+    out["tag_id"] = np.asarray(frame_tags, np.int32)
+    out["dataset_weight"] = np.asarray(frame_weights, np.float32)
+    out["param_index"] = np.asarray(param_index, np.int32)
     return out
 
 
@@ -94,16 +147,23 @@ class BatchPlan(NamedTuple):
     weights: List[float]
 
 
-def _has_sequences(ds) -> bool:
-    """Whether a dataset, through its Concat/Subset/Transformed wrappers,
-    holds sequences (the JAX loader's `sequence_frame_count`)."""
-    if hasattr(ds, "sequence_frame_count"):
-        return True
-    if hasattr(ds, "datasets"):
-        return any(_has_sequences(d) for d in ds.datasets)
-    if hasattr(ds, "dataset"):
-        return _has_sequences(ds.dataset)
-    return False
+def frame_count(ds, index: int) -> int:
+    """Frames that sample `index` of `ds` contributes, from the metadata
+    alone (through ConcatDataset, Subset and TransformedDataset wrappers): a
+    sequence's length, else 1."""
+    while True:
+        if hasattr(ds, "cumulative_sizes"):  # ConcatDataset
+            dsi = bisect.bisect_right(ds.cumulative_sizes, index)
+            start = 0 if dsi == 0 else ds.cumulative_sizes[dsi - 1]
+            ds, index = ds.datasets[dsi], index - start
+        elif hasattr(ds, "indices"):  # Subset
+            ds, index = ds.dataset, int(ds.indices[index])
+        elif hasattr(ds, "sequence_frame_count"):
+            return int(ds.sequence_frame_count(index))
+        elif hasattr(ds, "dataset"):  # TransformedDataset
+            ds = ds.dataset
+        else:
+            return 1
 
 
 def plan_batches(
@@ -114,25 +174,443 @@ def plan_batches(
     batchsize: int,
     dataset_weight_by_index: Optional[Callable[[int], float]] = None,
 ) -> Iterator[BatchPlan]:
-    """Cut the sampler's stream into plans of `batchsize` single frames, with
-    the tag id and weight of each frame's dataset: the plans of the JAX
-    loader's `FusedBatchLoader.plan_batches` when every sample is one frame.
-    A finite stream ends with its last, shorter plan."""
-    if _has_sequences(concat_dataset):
-        raise not_ported("batch plans of sequences (they come with the loader)")
+    """Cut the sampler's stream into plans of `batchsize` frames, with the tag
+    id and weight of each sample's dataset (the JAX loader's
+    `FusedBatchLoader.plan_batches`). A sequence that would overflow a plan
+    that already has samples opens the next one; a finite stream ends with
+    its last, shorter plan."""
     cumsizes = np.asarray(concat_dataset.cumulative_sizes)
     n_ds = len(concat_dataset.datasets)
     tag_id_by_ds = [tag_to_id[tags_by_dataset_index(i)] for i in range(n_ds)]
     weight_by_ds = [1.0 if dataset_weight_by_index is None else float(dataset_weight_by_index(i)) for i in range(n_ds)]
+    carry = None
     it = iter(sampler)
     while True:
-        indices = [int(i) for i in itertools.islice(it, batchsize)]
-        if not indices:
-            return
-        dsi = np.searchsorted(cumsizes, indices, side="right").tolist()
-        yield BatchPlan(indices, [tag_id_by_ds[d] for d in dsi], [weight_by_ds[d] for d in dsi])
-        if len(indices) < batchsize:
-            return
+        plan = BatchPlan([], [], [])
+        frames = 0
+        while frames < batchsize:
+            if carry is not None:
+                (gi, n), carry = carry, None
+            else:
+                try:
+                    gi = int(next(it))
+                except StopIteration:
+                    if plan.indices:
+                        yield plan
+                    return
+                n = frame_count(concat_dataset, gi)
+            if frames + n > batchsize and plan.indices:
+                carry = (gi, n)
+                break
+            dsi = int(np.searchsorted(cumsizes, gi, side="right"))
+            plan.indices.append(gi)
+            plan.tag_ids.append(tag_id_by_ds[dsi])
+            plan.weights.append(weight_by_ds[dsi])
+            frames += n
+        yield plan
+
+
+def _produce_batch(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int) -> Dict[str, np.ndarray]:
+    """The fused batch of `plan`; a short one (the stream's last) filled up
+    with repeats of its first frame at weight 0, so that shapes stay fixed."""
+    batch = pack_fused_batch([ds[gi] for gi in plan.indices], plan.tag_ids, pad_size, plan.weights, decode_threads)
+    B = batch["tag_id"].shape[0]
+    if B < batchsize:
+        batch = {k: np.concatenate([v, np.repeat(v[:1], batchsize - B, axis=0)], axis=0) for k, v in batch.items()}
+        batch["dataset_weight"][B:] = 0.0
+    return batch
+
+
+def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, parent_pid, shm_name=None,
+                         shm_slots=0):
+    """A spawned worker: the batches of the plans it is sent, in order.
+
+    With `shm_name`, the image plane of each batch goes into the next slot of
+    that shared-memory ring and the message carries (slot, seq, shape,
+    dtype, the labels); a batch whose padding outgrew its slot goes through
+    the queue whole. The ring has qsize + 3 slots: at most qsize batches wait
+    in the queue and one in a blocked put beyond the one the consumer copies
+    out, so a slot is never rewritten before it is read. The slot's stamp is
+    written before the image, so a lap would show on either side of the
+    consumer's copy. Exceptions go to the consumer. The worker ends when its
+    parent is gone (the orphan watchdog) or sends None.
+    """
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the worker never touches the card
+    shm = None
+    try:
+        slot_bytes = 0
+        if shm_name is not None:
+            from multiprocessing import shared_memory
+
+            shm = shared_memory.SharedMemory(name=shm_name)
+            slot_bytes = shm.size // shm_slots - _SHM_STAMP_BYTES
+        seq = 0
+
+        def orphaned() -> bool:
+            return os.getppid() != parent_pid
+
+        def put_or_exit(item) -> bool:
+            while True:
+                try:
+                    out_q.put(item, timeout=5)
+                    return True
+                except queue.Full:
+                    if orphaned():
+                        out_q.cancel_join_thread()
+                        return False
+
+        while True:
+            try:
+                plan = in_q.get(timeout=5)
+            except queue.Empty:
+                if orphaned():
+                    return
+                continue
+            if plan is None:
+                return
+            try:
+                batch = _produce_batch(ds, plan, batchsize, pad_size, decode_threads)
+            except Exception as e:  # noqa: BLE001 - forwarded to the consumer
+                put_or_exit(e)
+                return
+            img = batch["image"]
+            if shm is not None and img.nbytes <= slot_bytes:
+                slot = seq % shm_slots
+                offset = slot * (slot_bytes + _SHM_STAMP_BYTES)
+                np.ndarray((), np.int64, buffer=shm.buf, offset=offset)[...] = seq
+                np.ndarray(img.shape, img.dtype, buffer=shm.buf, offset=offset + _SHM_STAMP_BYTES)[...] = img
+                item = ("shm", slot, seq, img.shape, img.dtype.str, {k: v for k, v in batch.items() if k != "image"})
+            else:
+                item = batch
+            seq += 1
+            if not put_or_exit(item):
+                return
+    except (KeyboardInterrupt, EOFError, BrokenPipeError):
+        pass
+    finally:
+        if shm is not None:
+            shm.close()
+
+
+class FusedBatchLoader:
+    """Fixed-size fused training batches with background workers.
+
+    `concat_dataset` concatenates the datasets; `tags_by_dataset_index(i)`
+    gives dataset i's tag and `tag_to_id` its id; the sampler yields global
+    indices. Each batch holds `batchsize` frames (a sequence counts its
+    length). Plans are cut by one consumer of the sampler and dispatched
+    round-robin, so the stream is the same for any `num_workers` and
+    `worker_type` ("process": spawned processes, the default for more than
+    one worker; "thread": threads of this process). Each worker decodes on
+    cpu_count // num_workers threads.
+
+    Process workers unpickle the datasets (HDF5 files reopen lazily in each
+    process), so a script that iterates this loader keeps its entry point
+    under `if __name__ == "__main__":`, and what the datasets hold must
+    pickle. With `shared_memory` the image plane of each batch crosses
+    through a per-worker ring of shared-memory slots instead of the queue.
+    """
+
+    def __init__(
+        self,
+        concat_dataset,
+        tags_by_dataset_index: Callable[[int], Any],
+        tag_to_id: Dict[Any, int],
+        sampler: Iterable[int],
+        batchsize: int,
+        pad_size: int,
+        dataset_weight_by_index: Optional[Callable[[int], float]] = None,
+        prefetch: int = 4,
+        num_workers: int = 0,
+        worker_type: str = "auto",
+        shared_memory: bool = True,
+    ):
+        assert worker_type in ("auto", "thread", "process"), worker_type
+        self.ds = concat_dataset
+        self.tag_to_id = tag_to_id
+        self.sampler = sampler
+        self.batchsize = batchsize
+        self.pad_size = pad_size
+        self.shared_memory = bool(shared_memory)
+        self.num_workers = max(1, int(num_workers))
+        self.prefetch = max(prefetch, 2 * self.num_workers)
+        self.worker_type = worker_type if worker_type != "auto" else ("process" if self.num_workers > 1 else "thread")
+        # the per-dataset tables are made now, so that no callable has to cross into a worker process
+        n_ds = len(self.ds.datasets)
+        self._tags = [tags_by_dataset_index(i) for i in range(n_ds)]
+        self._weights = [1.0 if dataset_weight_by_index is None else float(dataset_weight_by_index(i))
+                         for i in range(n_ds)]
+
+    def plan_batches(self, start: int = 0) -> Iterator[BatchPlan]:
+        """The plans of the sampler's stream, from the `start`-th on."""
+        plans = plan_batches(self.ds, self._tags.__getitem__, self.tag_to_id, self.sampler, self.batchsize,
+                             self._weights.__getitem__)
+        return itertools.islice(plans, start, None)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self.iterate()
+
+    def iterate(self, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The batches from the `start`-th on (a resumed run's step: the
+        skipped plans load nothing)."""
+        plans = self.plan_batches(start)
+        if self.worker_type == "process":
+            return self._iter_process_workers(plans)
+        return self._iter_thread_workers(plans)
+
+    def _decode_threads(self) -> int:
+        return max(1, (os.cpu_count() or 1) // self.num_workers)
+
+    def _iter_thread_workers(self, plans) -> Iterator[Dict[str, np.ndarray]]:
+        W = self.num_workers
+        decode_threads = self._decode_threads()
+        per_worker = max(2, self.prefetch // W)
+        in_qs = [queue.Queue(maxsize=per_worker) for _ in range(W)]
+        out_qs = [queue.Queue(maxsize=per_worker) for _ in range(W)]
+        stop = object()
+        # the sampler is usually infinite: the threads end with the generator
+        cancel = threading.Event()
+        feeder_error = [None]
+
+        def put_with_cancel(q, item) -> bool:
+            while not cancel.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def feeder():
+            w = 0
+            try:
+                for plan in plans:
+                    if not put_with_cancel(in_qs[w], plan):
+                        return
+                    w = (w + 1) % W
+            except Exception as e:  # noqa: BLE001 - a sampler's error reaches the consumer
+                feeder_error[0] = e
+            finally:
+                for q in in_qs:
+                    put_with_cancel(q, stop)
+
+        def worker(wi):
+            try:
+                while not cancel.is_set():
+                    try:
+                        plan = in_qs[wi].get(timeout=0.1)
+                    except queue.Empty:
+                        continue
+                    if plan is stop:
+                        put_with_cancel(out_qs[wi], stop)
+                        return
+                    put_with_cancel(out_qs[wi], _produce_batch(self.ds, plan, self.batchsize, self.pad_size,
+                                                               decode_threads))
+            except Exception as e:  # noqa: BLE001 - forwarded to the consumer
+                put_with_cancel(out_qs[wi], e)
+
+        threads = [threading.Thread(target=feeder, daemon=True)]
+        threads += [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(W)]
+        for t in threads:
+            t.start()
+
+        def cleanup():
+            cancel.set()
+            for t in threads:
+                t.join(timeout=5)
+
+        atexit.register(cleanup)
+        try:
+            w = 0
+            while True:
+                item = out_qs[w].get()
+                if item is stop:  # dispatch and read-back share the order: after the last batch
+                    if feeder_error[0] is not None:
+                        raise feeder_error[0]
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+                w = (w + 1) % W
+        finally:
+            cleanup()
+            atexit.unregister(cleanup)
+
+    def _iter_process_workers(self, plans) -> Iterator[Dict[str, np.ndarray]]:
+        import multiprocessing as mp
+        from multiprocessing import shared_memory
+
+        ctx = mp.get_context("spawn")
+        W = self.num_workers
+        per_worker = max(2, self.prefetch // W)
+        in_qs = [ctx.Queue(maxsize=per_worker) for _ in range(W)]
+        out_qs = [ctx.Queue(maxsize=per_worker) for _ in range(W)]
+        shm_slots = per_worker + 3
+        shms = []
+        if self.shared_memory:
+            # slots sized for the planned batch at one uint8 channel; a larger one goes through the queue
+            stride = self.batchsize * self.pad_size * self.pad_size + _SHM_STAMP_BYTES
+            shms = [shared_memory.SharedMemory(create=True, size=stride * shm_slots) for _ in range(W)]
+        procs = [
+            ctx.Process(
+                target=_process_worker_main,
+                args=(self.ds, in_qs[i], out_qs[i], self.batchsize, self.pad_size, self._decode_threads(),
+                      os.getpid(), shms[i].name if shms else None, shm_slots),
+                daemon=True,
+            )
+            for i in range(W)
+        ]
+        # the children inherit the environment at start(): none of them may see the card
+        prev = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            if prev is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = prev
+
+        cancel = threading.Event()
+        done_feeding = threading.Event()
+        sent, received = [0] * W, [0] * W
+        feeder_error = [None]
+
+        def feeder():
+            w = 0
+            try:
+                for plan in plans:
+                    while not cancel.is_set():
+                        try:
+                            in_qs[w].put(plan, timeout=0.1)
+                            sent[w] += 1
+                            break
+                        except queue.Full:
+                            continue
+                    if cancel.is_set():
+                        return
+                    w = (w + 1) % W
+            except Exception as e:  # noqa: BLE001 - a sampler's error reaches the consumer
+                feeder_error[0] = e
+            finally:
+                done_feeding.set()
+                for q in in_qs:
+                    try:
+                        q.put(None, timeout=5)
+                    except Exception:  # noqa: BLE001 - a worker already gone
+                        pass
+
+        feeder_t = threading.Thread(target=feeder, daemon=True)
+        feeder_t.start()
+
+        def cleanup():
+            cancel.set()
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                p.join(timeout=5)
+            for q in in_qs + out_qs:
+                q.cancel_join_thread()
+                q.close()
+            for s in shms:
+                try:
+                    s.close()
+                    s.unlink()
+                except Exception:  # noqa: BLE001 - already released
+                    pass
+
+        def unpack(w, item):
+            if not (isinstance(item, tuple) and len(item) == 6 and item[0] == "shm"):
+                return item
+            _, slot, seq, shape, dtype, batch = item
+            offset = slot * (shms[w].size // shm_slots)
+            stamp = np.ndarray((), np.int64, buffer=shms[w].buf, offset=offset)
+            view = np.ndarray(shape, np.dtype(dtype), buffer=shms[w].buf, offset=offset + _SHM_STAMP_BYTES)
+            if int(stamp) != seq:
+                raise RuntimeError(f"shm ring lapped: worker {w} slot {slot} holds seq {int(stamp)}, expected {seq}")
+            batch["image"] = np.array(view)  # copied out before the slot can be rewritten
+            if int(stamp) != seq:
+                raise RuntimeError(f"shm ring lapped during the copy: worker {w} slot {slot} now holds seq "
+                                   f"{int(stamp)}, expected {seq}")
+            return batch
+
+        atexit.register(cleanup)
+        try:
+            w = 0
+            while True:
+                try:
+                    item = out_qs[w].get(timeout=0.2)
+                except queue.Empty:
+                    if done_feeding.is_set() and received[w] >= sent[w] and not feeder_t.is_alive():
+                        if feeder_error[0] is not None:
+                            raise feeder_error[0]
+                        return
+                    if not procs[w].is_alive():
+                        raise RuntimeError(f"loader worker {w} died (exit {procs[w].exitcode})")
+                    continue
+                received[w] += 1
+                if isinstance(item, Exception):
+                    raise item
+                yield unpack(w, item)
+                w = (w + 1) % W
+        finally:
+            cleanup()
+            atexit.unregister(cleanup)
+
+
+def device_prefetch(iterator: Iterable[Dict[str, Any]], device: DeviceLike = None, size: int = 2
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The batches of `iterator` as tensors on `device` (default: the card),
+    `size` batches ahead of the consumer.
+
+    On a card each host batch is copied into pinned memory when it arrives
+    (the loader may then reuse its buffers) and uploaded `non_blocking` on a
+    side stream; the consuming stream waits on the upload's event, and each
+    tensor is marked as used by it (`record_stream`), so that the caching
+    allocator does not hand its memory out while the consumer still reads it.
+    On the CPU it is a plain conversion to tensors."""
+    dev = resolve_device(device)
+    it = iter(iterator)
+    if dev.type != "cuda":
+        try:
+            for batch in it:
+                yield {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+        return
+    stream = torch.cuda.Stream(dev)
+
+    def upload(batch):
+        out = {}
+        with torch.cuda.stream(stream):
+            for k, v in batch.items():
+                src = torch.as_tensor(v)
+                pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                pinned.copy_(src)
+                out[k] = pinned.to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return out, done
+
+    buf = collections.deque()
+    try:
+        for batch in itertools.islice(it, size):
+            buf.append(upload(batch))
+        while buf:
+            out, done = buf.popleft()
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(done)
+            for t in out.values():
+                t.record_stream(consumer)
+            nxt = next(it, None)
+            if nxt is not None:
+                buf.append(upload(nxt))
+            yield out
+    finally:
+        if hasattr(it, "close"):  # a loader's workers end with its iterator
+            it.close()
 
 
 def iterate_fused_batches(

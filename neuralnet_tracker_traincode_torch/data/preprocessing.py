@@ -1,0 +1,162 @@
+"""Image codecs and ROI helpers on the host (the port's own copy of the parts
+of the JAX package's `data/preprocessing.py` that the loader, the writers
+and the CLIs use).
+
+The codecs are OpenCV's, with the JAX package's flags (JPEG quality 99
+unless given, grayscale decode by default, RGB colour images), so that a
+file written by either package decodes to the same pixels in both. cv2 and
+PIL are imported where a function needs them: importing this module needs
+neither.
+"""
+
+import enum
+from typing import Tuple
+
+import numpy as np
+
+
+def _cv2():
+    import cv2
+
+    return cv2
+
+
+class ImageFormat(enum.IntEnum):
+    JPG = 1
+    PNG = 2
+
+
+def which_image_format(buffer) -> ImageFormat:
+    head = bytes(buffer[:16].tobytes() if isinstance(buffer, np.ndarray) else buffer[:16])
+    if head.startswith(b"\xff\xd8\xff"):
+        return ImageFormat.JPG
+    if head.startswith(b"\x89PNG\r\n\x1a\n"):
+        return ImageFormat.PNG
+    raise ValueError("Unknown image format")
+
+
+def imencode(img: np.ndarray, format=ImageFormat.JPG, quality=None) -> np.ndarray:
+    """Encode an (H, W), (H, W, 1) or RGB (H, W, 3) uint8 image; JPEG at
+    `quality` (default 99), PNG lossless."""
+    cv2 = _cv2()
+    cv_format = {ImageFormat.JPG: ".JPEG", ImageFormat.PNG: ".PNG"}[format]
+    assert format == ImageFormat.JPG or quality is None
+    if img.ndim == 3 and img.shape[-1] == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_RGB2BGR)
+    if format == ImageFormat.JPG:
+        quality = 99 if quality is None else quality
+        _, img = cv2.imencode(cv_format, img, (cv2.IMWRITE_JPEG_QUALITY, quality))
+    else:
+        _, img = cv2.imencode(cv_format, img)
+    return np.frombuffer(img, dtype="uint8")
+
+
+def imdecode(blob, color=False) -> np.ndarray:
+    """color=False -> (H, W) grayscale; truthy -> (H, W, 3) RGB."""
+    cv2 = _cv2()
+    if isinstance(blob, bytes):
+        blob = np.frombuffer(blob, dtype="B")
+    img = cv2.imdecode(np.asarray(blob), cv2.IMREAD_COLOR if color else cv2.IMREAD_GRAYSCALE)
+    assert img is not None, "undecodable image buffer"
+    if color:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return img
+
+
+def imread(fn) -> np.ndarray:
+    cv2 = _cv2()
+    img = cv2.imread(fn)
+    assert img is not None, f"Failed to load image {fn}!"
+    if len(img.shape) == 3 and img.shape[-1] == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return img
+
+
+def imrescale(img, factor: float):
+    """Rescale a numpy image (area for downscale, bilinear for upscale) or a
+    PIL image (HAMMING) by `factor`."""
+    from PIL import Image
+
+    h, w = img.shape[:2] if isinstance(img, np.ndarray) else (img.height, img.width)
+    new_w, new_h = round(w * factor), round(h * factor)
+    if isinstance(img, np.ndarray):
+        cv2 = _cv2()
+        return cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_AREA if factor < 1.0 else cv2.INTER_LINEAR)
+    if isinstance(img, Image.Image):
+        return img.resize((new_w, new_h), resample=Image.HAMMING, reducing_gap=3.0)
+    raise TypeError("Unsupported input")
+
+
+def imshape(img) -> Tuple[int, int]:
+    """(height, width), numpy convention, of a numpy or PIL image."""
+    if isinstance(img, np.ndarray):
+        assert img.ndim <= 3
+        return tuple(map(int, img.shape[:2]))
+    return (img.height, img.width)
+
+
+def extend_rect(roi, padding_fraction, abs_padding):
+    x0, y0, x1, y1 = roi
+    border = max(x1 - x0, y1 - y0) * padding_fraction + abs_padding
+    return np.array([x0 - border, y0 - border, x1 + border, y1 + border])
+
+
+def squarize_roi(roi, crop=False):
+    x0, y0, x1, y1 = roi
+    roi_w, roi_h = x1 - x0, y1 - y0
+    cx, cy = 0.5 * (x1 + x0), 0.5 * (y1 + y0)
+    roi_w = min(roi_w, roi_h) if crop else max(roi_w, roi_h)
+    return (cx - roi_w * 0.5, cy - roi_w * 0.5, cx + roi_w * 0.5, cy + roi_w * 0.5)
+
+
+def compute_padding(roi, w, h):
+    x0, y0, x1, y1 = roi
+    assert all(isinstance(v, int) for v in roi)
+    return max(max(-x0, 0), max(-y0, 0), max(x1 - w, 0), max(y1 - h, 0))
+
+
+def roi_to_ints(roi):
+    x0, y0, x1, y1 = roi
+    roi_w, roi_h = round(x1 - x0), round(y1 - y0)  # keeps width == height where it was
+    x0, y0 = round(x0), round(y0)
+    return (x0, y0, x0 + roi_w, y0 + roi_h)
+
+
+def extract_image_roi(image, roi, padding_fraction, square=False, return_offset=False):
+    """Crop `roi` from `image`, zero padded beyond the borders. The offset is
+    the vector to add to landmarks so they match the crop."""
+    h, w = image.shape[:2]
+    roi = extend_rect(roi, padding_fraction, 0)
+    offset = np.array([0.0, 0.0])
+    if square:
+        roi = squarize_roi(roi)
+    roi = roi_to_ints(roi)
+    padding = compute_padding(roi, w, h)
+    if padding > 0:
+        cv2 = _cv2()
+        image = cv2.copyMakeBorder(image, padding, padding, padding, padding, cv2.BORDER_CONSTANT, value=(0, 0, 0))
+        roi = tuple((v + padding) for v in roi)
+        offset[:] = padding
+    x0, y0, x1, y1 = roi
+    image = np.ascontiguousarray(image[y0:y1, x0:x1, ...])
+    offset[0] -= x0
+    offset[1] -= y0
+    if return_offset:
+        return image, offset
+    return image
+
+
+def box_iou(box1, box2):
+    """IoU of two sets of (xmin, ymin, xmax, ymax) boxes; shape
+    box1.shape[:-1] + box2.shape[:-1]."""
+    shape1, shape2 = box1.shape[:-1], box2.shape[:-1]
+    box1 = np.reshape(box1, (-1, 4))
+    box2 = np.reshape(box2, (-1, 4))
+    lt = np.maximum(box1[:, None, :2], box2[:, :2])
+    rb = np.minimum(box1[:, None, 2:], box2[:, 2:])
+    wh = np.maximum(rb - lt, 0)
+    inter = wh[:, :, 0] * wh[:, :, 1]
+    area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    iou = inter / (area1[:, None] + area2 - inter)
+    return np.reshape(iou, shape1 + shape2)

@@ -7,10 +7,11 @@ keypoint and whose brightness follows depth, so pose, landmarks and shape
 parameters are fully determined by the image. The draws come from a numpy
 `RandomState(seed)` in the JAX package's order, so both packages make the same
 labels; the keypoints and the images are computed in torch on `device`.
-Writing the set as HDF5 (`write_synthetic_pose_dataset`) waits for the loader.
+`write_synthetic_pose_dataset` writes a set as a pose file in the JAX
+writer's schema (JPEG quality 95, the `max_image_hw` attribute).
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,3 +73,39 @@ def render_marker_images(
             img = torch.maximum(img, amp[:, k, None, None] * g)
         out[i : i + chunk] = torch.clamp(img, 0.0, 255.0).to(torch.uint8)
     return out
+
+
+def write_synthetic_pose_dataset(
+    path: str,
+    n: int,
+    image_size: int = 160,
+    seed: int = 0,
+    sequence_starts: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
+) -> str:
+    """Write `n` marker frames from `seed` as a pose file at `path`: the
+    labels and images of `make_labels` and `render_marker_images`, computed
+    on `device` (default: the card), encoded and written on the host."""
+    import h5py
+
+    from neuralnet_tracker_traincode_torch.data.fields import FieldCategory as C
+    from neuralnet_tracker_traincode_torch.data.pose_dataset import create_pose_dataset
+
+    quats, coords, pt3d, shapeparams, rois = make_labels(n, image_size, seed, device=device)
+    images = render_marker_images(pt3d, coords, image_size).cpu().numpy()
+    quats, coords, pt3d, shapeparams, rois = (a.cpu().numpy() for a in (quats, coords, pt3d, shapeparams, rois))
+    with h5py.File(path, "w") as f:
+        ds = create_pose_dataset(f, C.image, count=n)
+        for i in range(n):
+            ds[i] = images[i]
+        create_pose_dataset(f, C.quat, count=n, dtype=np.float32, data=quats)
+        create_pose_dataset(f, C.xys, count=n, dtype=np.float32, data=coords)
+        create_pose_dataset(f, C.roi, count=n, dtype=np.float32, data=rois)
+        create_pose_dataset(f, C.points, name="pt3d_68", count=n, shape_wo_batch_dim=(68, 3), dtype=np.float32,
+                            data=pt3d)
+        create_pose_dataset(f, C.general, name="shapeparams", count=n, shape_wo_batch_dim=(50,), dtype=np.float16,
+                            data=shapeparams.astype(np.float16))
+        if sequence_starts is not None:
+            f.create_dataset("sequence_starts", data=np.asarray(sequence_starts, np.int32))
+        f.attrs["max_image_hw"] = np.asarray([image_size, image_size], np.int32)  # the loader's exact pad bound
+    return path

@@ -11,12 +11,12 @@ Two protocols:
 Images are zero-padded to the largest side of the set and run in chunks of
 `batchsize` (the last one zero-filled), as the script does. The forward and
 the crops run under `eval/predictor.py:f32_eval` with the network in f32
-and eval mode. Overlays (`--vis-outdir`) wait for the drawing module and an
-image writer (ROADMAP.md).
+and eval mode. `evaluate(..., on_chunk=...)` hands each chunk's network
+inputs, predictions and targets to the caller (the CLI's overlays).
 """
 
 import copy
-from typing import Dict, Mapping, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,8 +70,8 @@ class LocalizerEvaluator:
 
     @torch.inference_mode()
     def eval_full(self, images: torch.Tensor, view_roi: torch.Tensor, roi_gt: torch.Tensor):
-        """The `full` protocol on one chunk: (face score, predicted box,
-        labelled box), the boxes in input pixels."""
+        """The `full` protocol on one chunk: (network input, face score,
+        predicted box, labelled box), the boxes in input pixels."""
         with f32_eval(self.device):
             B = images.shape[0]
             tr = Affine2d.range_remap_2d(
@@ -80,7 +80,7 @@ class LocalizerEvaluator:
             )
             x = warp_affine(images, tr, (OUT_H, OUT_W), 1) * (1.0 / 256.0) - 0.5
             score, pred_roi = self._outputs(x)
-            return score, pred_roi, transform_roi(tr, roi_gt)
+            return x, score, pred_roi, transform_roi(tr, roi_gt)
 
     @torch.inference_mode()
     def eval_crop(self, images: torch.Tensor, roi_gt: torch.Tensor, hasface: torch.Tensor):
@@ -90,7 +90,7 @@ class LocalizerEvaluator:
             x, labels = augment_batch_for_localizer(images, {"roi": roi_gt, "hasface": hasface}, cfg,
                                                     device=self.device)
             score, pred_roi = self._outputs(x)
-            return score, pred_roi, (labels["roi"] + 1.0) * self.px
+            return x, score, pred_roi, (labels["roi"] + 1.0) * self.px
 
     def evaluate(
         self,
@@ -98,10 +98,13 @@ class LocalizerEvaluator:
         protocol: str = "full",
         batchsize: int = 32,
         thresholds: Sequence[float] = THRESHOLDS,
+        on_chunk: Optional[Callable[[np.ndarray, Dict[str, np.ndarray], Dict[str, np.ndarray]], None]] = None,
     ) -> Dict[float, Tuple[float, float]]:
         """Accuracy (a fraction) and corner RMSE (pixels) at each threshold
         over `samples` (each with `image` (H, W[, C]) uint8, `roi` and an
-        optional `hasface`, 1 where absent)."""
+        optional `hasface`, 1 where absent). `on_chunk(x, preds, targets)`
+        gets each chunk's whitened network inputs (B, 224, 288, 1) and its
+        predictions and targets, the chunk's filler rows cut off."""
         assert protocol in ("full", "crop"), protocol
         pad = max(max(np.asarray(s["image"]).shape[:2]) for s in samples)
         metrics = {t: (LocalizerIsFaceMatches(t), LocalizerBoxMeanSquareErrors(t)) for t in thresholds}
@@ -125,14 +128,16 @@ class LocalizerEvaluator:
             images_d, roi_d = torch.from_numpy(images).to(dev), torch.from_numpy(roi).to(dev)
             if protocol == "full":
                 view = torch.from_numpy(aspect_corrected_full_roi(sizes)).to(dev)
-                score, pred_roi, gt_roi = self.eval_full(images_d, view, roi_d)
+                x, score, pred_roi, gt_roi = self.eval_full(images_d, view, roi_d)
             else:
-                score, pred_roi, gt_roi = self.eval_crop(images_d, roi_d, torch.from_numpy(hasface).to(dev))
+                x, score, pred_roi, gt_roi = self.eval_crop(images_d, roi_d, torch.from_numpy(hasface).to(dev))
             preds = {"hasface": score.cpu().numpy()[:B], "roi": pred_roi.cpu().numpy()[:B]}
             targets = {"hasface": hasface[:B], "roi": gt_roi.cpu().numpy()[:B]}
             for acc, mse in metrics.values():
                 acc.update(preds, targets)
                 mse.update(preds, targets)
+            if on_chunk is not None:
+                on_chunk(x[:B].cpu().numpy(), preds, targets)
         results = {}
         for t, (acc_m, mse_m) in metrics.items():
             matches = np.asarray(acc_m.compute(), np.float64)

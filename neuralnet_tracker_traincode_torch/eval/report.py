@@ -2,15 +2,15 @@
 as a library: the ROI configurations, the table (github markdown or JSON,
 the same strings as the JAX script's for the same rows), and one row of it
 from a Predictor over a loader of samples (`add_report_row`, the body of the
-script's `report()`). The CLI around it (`--ds`, DATADIR, `--vis`) comes with
-the loader (ROADMAP.md).
+script's `report()`). The CLI around it is
+`scripts/evaluate_pose_network.py`.
 """
 
 import json
 import os
 from collections import defaultdict
 from os.path import commonprefix, relpath
-from typing import List, Literal, NamedTuple
+from typing import Dict, List, Literal, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -116,13 +116,16 @@ def add_report_row(
     alignment: AlignmentScheme = "none",
     chunksize: int = 128,
     stage_ms=None,
+    errors_out: Optional[Dict[str, Optional[np.ndarray]]] = None,
 ) -> list:
     """Evaluate `predictor` over the samples of `loader` (single-frame
     Batches with the ROI of `roi_config` already put, e.g. by
     `data/host_transforms.py`: the head ROI for `use_head_roi`, else the
     face ROI) and add the row to `builder` under `model`; returns the row.
     The predictor must crop at `roi_config`'s expansion factor, which the
-    row reports. `stage_ms` goes to `Predictor.evaluate`."""
+    row reports. `stage_ms` goes to `Predictor.evaluate`. `errors_out`, where
+    given, receives the per-sample errors the CLI's `--vis` sorts by: 'rot'
+    (geodesic), 'size' and 'kpts' (NME3d, None without landmarks)."""
     if predictor.expansion_factor != roi_config.expansion_factor:
         raise ValueError(f"the predictor crops at expansion {predictor.expansion_factor}, the row reports {roi_config}")
     sample = next(iter(loader))
@@ -151,6 +154,8 @@ def add_report_row(
     e_posx, e_posy, e_size = poseerrs.T
     rmse_pos = np.sqrt(np.average(np.sum(np.square(np.vstack([e_posx, e_posy]).T), axis=1)))
     rmse_size = np.sqrt(np.average(np.square(e_size)))
+    if errors_out is not None:
+        errors_out.update(kpts=uw_nme_3d, rot=geodesic_errs, size=e_size)
     builder.add_row(
         model=model,
         data=data,

@@ -239,6 +239,11 @@ class NetworkWithPointHead(nn.Module):
     def num_heads(self) -> int:
         return 3 + int(self.enable_point_head) + int(self.enable_face_detector)
 
+    @property
+    def name_tag(self) -> str:
+        """The name of the training CLI's output directory for this network."""
+        return type(self).__name__ + "_" + self.config
+
     def get_config(self) -> Dict[str, Any]:
         """The constructor arguments a checkpoint records (the JAX package's
         `get_config`, key for key)."""

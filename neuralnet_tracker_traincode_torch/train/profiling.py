@@ -6,14 +6,18 @@ ranges named in `STAGES`; they cost a few microseconds a step when no
 profiler runs. `profile_steps` runs steps under `torch.profiler` and returns
 where the time went: host time per stage, the device's busy share, kernel
 launches per step and the kernels that take the most device time.
+`profile_batches` traces the first steps of a training run into a directory
+(the training CLI's `--profile-dir`).
 """
 
+import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, TypeVar
 
 import torch
 
 STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+T = TypeVar("T")
 
 
 def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str] = None, top: int = 12) -> Dict:
@@ -56,6 +60,40 @@ def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str
             {"name": n[:90], "per_step": c / steps, "ms_per_step": us / steps / 1e3} for n, (c, us) in ranked
         ],
     }
+
+
+def profile_batches(batches: Iterator[T], logdir: Optional[str], steps: int = 8) -> Iterator[T]:
+    """The batches of `batches`; with `logdir`, the steps that consume the
+    first `steps` of them run under `torch.profiler` (host and, where there
+    is a card, device activity), whose Chrome trace goes to
+    `logdir/trace.json`."""
+    if not logdir:
+        yield from batches
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        for i, batch in enumerate(batches):
+            if i == steps and prof is not None:
+                _stop(prof, logdir)
+                prof = None
+            yield batch
+    finally:
+        if prof is not None:
+            _stop(prof, logdir)
+
+
+def _stop(prof, logdir: str):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote profiler trace to {path}")
 
 
 class ThroughputMeter:

@@ -9,8 +9,9 @@ have taken without the stop: per epoch the
 criterion's weights, the steps with their metrics kept on the device (one
 transfer when the epoch ends: a host-bound step must not wait for the device
 every step), the NaN watchdog, validation, the SWA update, `last.ckpt`, the
-resume file and `best.ckpt`; `swa.ckpt` at the end. The dataset CLI (`--ds`)
-comes with the loader.
+resume file and `best.ckpt`; `swa.ckpt` at the end. The training CLI
+(`scripts/train_poseestimator.py`) drives it over the HDF5 datasets of
+`$DATADIR`, the batches from `FusedBatchLoader` through `device_prefetch`.
 """
 
 import dataclasses

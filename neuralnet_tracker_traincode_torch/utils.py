@@ -1,7 +1,12 @@
 """Host-side helpers (the port's own copy of the parts of the JAX package's
-`utils.py` that eval and the sampler need): the AFLW euler convention,
-batching of an iterable, the padding bucket and `cycle`. numpy and scipy
-only."""
+`utils.py` that eval, the sampler and the loader need): the AFLW euler
+convention, batching of an iterable, the padding bucket, `cycle`, the
+loader's worker count and the walk over an HDF5 file's datasets. numpy and
+scipy only; h5py is imported where a file is walked."""
+
+import fnmatch
+import os
+from typing import List
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -56,3 +61,31 @@ def cycle(iterable):
                 yield next(iterator)
             except StopIteration:
                 raise ValueError("cycle() over an empty iterable")
+
+
+def num_workers() -> int:
+    """The loader's worker count: `$NUM_WORKERS`, default 4."""
+    return int(os.environ.get("NUM_WORKERS", 4))
+
+
+def copy_attributes(src, dst):
+    for k, v in src.attrs.items():
+        dst.attrs[k] = v
+
+
+def iter_hdf_datasets(x):
+    """Every dataset under an HDF5 group, depth first."""
+    import h5py
+
+    if isinstance(x, h5py.Group):
+        for v in x.values():
+            yield from iter_hdf_datasets(v)
+    else:
+        yield x
+
+
+def glob_hdf_datasets(f, patterns: List[str]):
+    """The datasets under `f` whose full name matches one of `patterns`."""
+    for ds in iter_hdf_datasets(f):
+        if any(fnmatch.fnmatch(ds.name, pattern) for pattern in patterns):
+            yield ds

@@ -1,0 +1,171 @@
+"""The port's four CLIs (`neuralnet_tracker_traincode_torch/scripts/`), run
+in this process on the CPU (`--device cpu`) over a `$DATADIR` of synthetic
+files at a small size.
+
+ - `parse_dataset_definition` is the JAX script's on a table of `--ds`
+   strings (the JAX script is loaded from its file; its JAX imports are
+   inside `main`).
+ - The pose trainer runs one epoch (with `--profile-dir`: a Chrome trace),
+   then a second one with `--resume auto`; its model files load in the JAX
+   package's `models/io`.
+ - The pose eval CLI on the trainer's `best.ckpt` writes the row that
+   `eval/report.py:add_report_row` gives for the same checkpoint and data
+   (held against the JAX package by `test_torch_eval.py`), and overlays.
+ - The localizer's trainer and eval CLI run on a small
+   `widerfacessingle.h5`; its model file loads in the JAX package.
+ - Every flag value whose machinery is not ported raises `not_ported`
+   before any data is read.
+"""
+
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+
+from neuralnet_tracker_traincode_torch.scripts import evaluate_localizer as eval_loc_cli
+from neuralnet_tracker_traincode_torch.scripts import evaluate_pose_network as eval_cli
+from neuralnet_tracker_traincode_torch.scripts import train_localizer as train_loc_cli
+from neuralnet_tracker_traincode_torch.scripts import train_poseestimator as train_cli
+
+from torch_port_helpers import two_intra_op_threads  # noqa: F401 - autouse: full-width networks on the CPU
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_script(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("arg", ["300wlp", "300wlp+synface:10000", "aflw2k:1000+biwi+wider:0.5",
+                                 "repro_300_wlp+repro_300_wlp_woextra:3+wflw_lp", "lapa_megaface_lp+panoptic:2.5",
+                                 "replicantface:7+replicantface"])
+def test_parse_dataset_definition_is_the_jax_one(arg):
+    ids, weights = train_cli.parse_dataset_definition(arg)
+    jids, jweights = _jax_script("train_poseestimator").parse_dataset_definition(arg)
+    assert sorted(i.name for i in ids) == sorted(i.name for i in jids)
+    assert {k.name: v for k, v in weights.items()} == {k.name: v for k, v in jweights.items()}
+
+
+@pytest.fixture(scope="module")
+def datadir(tmp_path_factory):
+    import h5py
+
+    from neuralnet_tracker_traincode_torch.data.dataset_writers import write_pose_hdf5
+    from neuralnet_tracker_traincode_torch.data.synthetic import write_synthetic_pose_dataset
+
+    d = tmp_path_factory.mktemp("cli_datadir")
+    write_synthetic_pose_dataset(str(d / "aflw2k.h5"), 20, 64, seed=4, device="cpu")
+    write_synthetic_pose_dataset(str(d / "300wlp.h5"), 24, 64, seed=3, device="cpu")
+    rng = np.random.RandomState(0)
+
+    def faces():
+        for i in range(516):
+            lo = rng.uniform(4, 20, 2)
+            yield dict(image=(rng.rand(48, 56) * 255).astype(np.uint8), pose=np.float32([0, 0, 0, 1]),
+                       coord=np.float32([28, 24, 10]), roi=np.concatenate([lo, lo + 20]).astype(np.float32),
+                       hasface=np.bool_(i % 3 != 0))
+
+    with h5py.File(d / "widerfacessingle.h5", "w") as f:
+        write_pose_hdf5(f, faces(), 516, progress=False)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def pose_run(datadir, tmp_path_factory):
+    """The pose trainer for one epoch, then one more with `--resume auto`."""
+    out = str(tmp_path_factory.mktemp("pose_run"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("DATADIR", datadir)
+    mp.setenv("NUM_WORKERS", "1")
+    try:
+        common = ["--ds", "300wlp", "--batchsize", "8", "--samples-per-epoch", "16", "--device", "cpu",
+                  "--dtype", "float32", "--with-nll-loss", "--enable-6drot", "--seed", "0", "--outdir", out]
+        assert train_cli.main(common + ["--epochs", "1", "--profile-dir", os.path.join(out, "profile")]) == 0
+        first = sorted(os.listdir(os.path.join(out, "NetworkWithPointHead_mobilenetv1")))
+        assert train_cli.main(common + ["--epochs", "2", "--with-swa", "--resume", "auto"]) == 0
+    finally:
+        mp.undo()
+    return os.path.join(out, "NetworkWithPointHead_mobilenetv1"), first
+
+
+def test_pose_trainer_runs_and_resumes(pose_run, capsys):
+    outdir, first = pose_run
+    assert first == ["best.ckpt", "last.ckpt", "resume.pt"]
+    with open(os.path.join(os.path.dirname(outdir), "profile", "trace.json")) as f:  # --profile-dir's trace
+        assert json.load(f)["traceEvents"]
+    assert sorted(os.listdir(outdir)) == ["best.ckpt", "last.ckpt", "resume.pt", "swa.ckpt"]
+    from neuralnet_tracker_traincode_torch.train.checkpointing import FORMAT
+
+    with open(os.path.join(outdir, "resume.pt"), "rb") as f:
+        header = json.loads(f.read(int.from_bytes(f.read(8), "little")))
+    assert header["format"] == FORMAT and header["extra"]["epoch"] == 1  # the second run went on from epoch 1
+    from neuralnet_tracker_traincode_tpu.models import io as jio
+
+    for name in ("best.ckpt", "last.ckpt", "swa.ckpt"):
+        model, variables = jio.load_posenet(os.path.join(outdir, name))
+        assert model.enable_6drot and model.enable_uncertainty and "params" in variables
+
+
+def test_pose_eval_cli_writes_the_report_row(pose_run, datadir, tmp_path, monkeypatch):
+    from neuralnet_tracker_traincode_torch import pipelines
+    from neuralnet_tracker_traincode_torch.eval.predictor import Predictor
+    from neuralnet_tracker_traincode_torch.eval.report import TableBuilder, add_report_row
+
+    monkeypatch.setenv("DATADIR", datadir)
+    ckpt = os.path.join(pose_run[0], "best.ckpt")
+    vis = tmp_path / "vis"
+    out = tmp_path / "rows.json"
+    assert eval_cli.main([ckpt, "--ds", "aflw2k3d", "--json", str(out), "--vis", "kpts", "--vis-outdir", str(vis),
+                          "--device", "cpu"]) == 0
+    table = json.loads(out.read_text())
+    (got,) = table.values()
+    builder = TableBuilder()
+    want = add_report_row(builder, Predictor(ckpt, 1.1, device="cpu"), pipelines.make_validation_loader("aflw2k3d"),
+                          ckpt, "aflw2k3d")
+    np.testing.assert_equal([got[h][0] for h in builder._header], want)  # nan where no sample falls in a yaw bin
+    n = len(pipelines.make_validation_dataset("aflw2k3d"))
+    assert sorted(os.listdir(vis)) == [f"worst_{i:03d}.png" for i in range(min(32, n))]
+    # two ROI configurations of the sweep, and the markdown table
+    assert eval_cli.main([ckpt, "--ds", f"{datadir}/aflw2k.h5", "--roi-expansion", "1.2", "--device", "cpu",
+                          "--precision", "bfloat16"]) == 0
+
+
+def test_localizer_clis(datadir, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("DATADIR", datadir)
+    assert train_loc_cli.main(["--batchsize", "8", "--epochs", "1", "--samples-per-epoch", "16", "--device", "cpu",
+                               "--outdir", str(tmp_path)]) == 0
+    ckpt = str(tmp_path / "LocalizerNet" / "last.ckpt")
+    from neuralnet_tracker_traincode_tpu.models import io as jio
+    from neuralnet_tracker_traincode_tpu.models.localizer import LocalizerNet
+
+    model, variables = jio.load_model(ckpt, [LocalizerNet])
+    assert isinstance(model, LocalizerNet) and "batch_stats" in variables
+    capsys.readouterr()
+    for protocol in ("full", "crop"):
+        vis = tmp_path / f"vis_{protocol}"
+        assert eval_loc_cli.main([ckpt, "-n", "12", "--batchsize", "8", "--protocol", protocol, "--thresholds", "0.5",
+                                  "--vis-outdir", str(vis), "--device", "cpu"]) == 0
+        assert sorted(os.listdir(vis)) == [f"loc_{i:03d}.png" for i in range(12)]
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(line.startswith("Threshold 0.5 => Acc ") for line in lines) == 2
+    assert eval_loc_cli.main([ckpt, "--ds", f"{datadir}/widerfacessingle.h5", "-n", "8", "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("cli,argv,what", [
+    (train_cli, ["--steps-per-dispatch", "2"], "steps-per-dispatch"),
+    (train_cli, ["--plot-save-filename", "x.pdf"], "plot-save-filename"),
+    (eval_cli, ["m.ckpt", "--vis", "rot"], "--vis without"),
+    (eval_cli, ["m.onnx"], "ONNX"),
+])
+def test_flags_that_wait_raise_not_ported(cli, argv, what, monkeypatch):
+    monkeypatch.delenv("DATADIR", raising=False)  # nothing is read before the refusal
+    with pytest.raises(NotImplementedError, match=what):
+        cli.parse_args(argv)
+    with pytest.raises(NotImplementedError, match=what):
+        cli.main(argv)
+    assert cli.parse_args(["m.ckpt"] if cli is eval_cli else []).device == "cuda"

@@ -64,3 +64,43 @@ def test_the_shape_prior_loads_without_h5py(monkeypatch):
     assert ShapePlausibilityLoss.from_npz().gmm.n_components == 2
     crit = setup_losses(LossOptions(), [Tag.POSE_WITH_LANDMARKS])
     assert "nll_shp_gmm" in [term.name for term in crit.terms]
+
+
+_WITHOUT_H5PY_AND_CV2 = """
+import importlib, os, pkgutil, sys
+sys.modules["h5py"] = None  # any import of these now raises
+sys.modules["cv2"] = None
+sys.path.insert(0, {root!r})
+import neuralnet_tracker_traincode_torch as port
+target = {target!r}
+if target == "package":
+    names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    print("imported", len(names))
+else:
+    cli = importlib.import_module("neuralnet_tracker_traincode_torch.scripts." + target)
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    print("help")
+"""
+
+CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer"]
+
+
+@pytest.mark.parametrize("target", ["package"] + CLIS)
+def test_the_package_and_the_cli_help_load_without_h5py_and_cv2(target):
+    """Every module of the port imports, and each CLI prints its `--help`,
+    on a machine without h5py and cv2 (as the card's may be)."""
+    import subprocess
+    import sys
+
+    code = _WITHOUT_H5PY_AND_CV2.format(root=ROOT, target=target)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    if target == "package":
+        assert int(res.stdout.split("imported")[-1]) >= 60
+    else:
+        assert "usage:" in res.stdout and "--device" in res.stdout

@@ -5,7 +5,7 @@ and the `$BFM_PATH` repair of `PutRoiFromLandmarks`.
    dataset choice) and of a `ConcatDatasetSampler` over `SobolChoices` is
    identical to the JAX package's for the same seeds and weights.
  - `plan_batches` gives the JAX loader's `FusedBatchLoader.plan_batches`
-   plans (indices, tag ids, weights) for single frames.
+   plans (indices, tag ids, weights) for single frames and for sequences.
  - `iterate_fused_batches(..., start=s)` gives the batches a fresh iterator
    of an equal sampler gives after s batches.
  - With `extend_to_forehead` and `$BFM_PATH` naming a file, the port raises
@@ -96,13 +96,26 @@ def test_plan_batches_are_the_jax_plans(batchsize):
 
 
 def test_plan_batches_of_sequences_wait_for_the_loader():
-    class Sequences(list):
-        def sequence_frame_count(self, index):
-            return 2
+    """Sequences (here of 2 or 3 frames, through a Subset) plan as the JAX
+    loader plans them: a sequence that would overflow a plan opens the next."""
 
-    ds = TS.ConcatDataset([TS.Subset(Sequences(range(4)), [0, 1])])
-    with pytest.raises(NotImplementedError, match="sequences"):
-        next(plan_batches(ds, lambda i: Tag.ONLY_POSE, {Tag.ONLY_POSE: 0}, iter(range(4)), 2))
+    def sequences(S):
+        class Sequences(list):
+            def sequence_frame_count(self, index):
+                return 2 + index % 2
+
+        return S.ConcatDataset([S.Subset(Sequences(range(6)), [0, 1, 3, 4, 5]), list(range(3))])
+
+    jds = sequences(JS)
+    loader = FusedBatchLoader(jds, lambda i: _TAGS[i], {t: i for i, t in enumerate(_TAGS)},
+                              JS.make_concat_dataset_item_sampler(jds, [2.0, 1.0], seed=4, stop_after=30), 5, 64)
+    ref = [tuple(p) for p in loader.plan_batches()]
+    tds = sequences(TS)
+    port_tags = (Tag.POSE_WITH_LANDMARKS, Tag.ONLY_POSE)
+    out = [tuple(p) for p in plan_batches(tds, lambda i: port_tags[i], {t: i for i, t in enumerate(port_tags)},
+                                          TS.make_concat_dataset_item_sampler(tds, [2.0, 1.0], seed=4, stop_after=30),
+                                          5)]
+    assert out == ref and len(out) > 8
 
 
 def _frames(n, seed):

@@ -90,12 +90,19 @@ def test_pack_fused_batch_smooths_hasface_and_refuses_what_waits():
     f = frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(True)))
     g = frame(TTag.POSE_WITH_LANDMARKS, dict(image=np.zeros((4, 4, 1), np.uint8), hasface=np.asarray(0.0)))
     np.testing.assert_array_equal(pack_fused_batch([f, g], [0, 0], 8)["hasface"], np.float32([0.9, 0.1]))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(TypeError, match="bytes"):  # an encoded image is a `RawJpegBuffer`, not bytes
         pack_fused_batch([frame(TTag.ONLY_POSE, dict(image=b"\xff\xd8"))], [0], 8)
-    seq = frame(TTag.ONLY_POSE, dict(image=np.zeros((4, 4, 1), np.uint8)))
-    seq.meta.seq = [0, 2]
-    with pytest.raises(NotImplementedError, match="sequences"):
-        pack_fused_batch([seq], [0], 8)
+    # a sequence of two frames beside a single frame: its frames share param_index 0, as the JAX package packs it
+    rng = np.random.RandomState(0)
+    fields = dict(image=rng.randint(0, 255, (2, 4, 4, 1)).astype(np.uint8), pose=rng.rand(2, 4).astype(np.float32))
+    seq = Batch(Metadata((4, 4), 0, tag=JTag.ONLY_POSE, seq=[0, 2]), **fields)
+    port_seq = frame(TTag.ONLY_POSE, fields)
+    port_seq.meta.seq = [0, 2]
+    ref = jax_pack([seq, g], [1, 0], 8, [0.5, 1.0])
+    out = pack_fused_batch([port_seq, g], [1, 0], 8, [0.5, 1.0])
+    assert out["param_index"].tolist() == [0, 0, 2] and out["tag_id"].tolist() == [1, 1, 0]
+    for k, v in ref.items():
+        np.testing.assert_array_equal(out[k], v, err_msg=k)
 
 
 def _sampler(frames, seed):

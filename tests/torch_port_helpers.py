@@ -13,6 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from neuralnet_tracker_traincode_tpu.augmentation import geometric as JG
@@ -202,3 +203,67 @@ def normalized_labels(rng, B: int):
         "shapeparam": rng.randn(B, 50).astype(np.float32),
         "hasface": np.full((B,), 0.9, np.float32),
     }
+
+
+def _jax_video_dataset_class():
+    from neuralnet_tracker_traincode_tpu.data import pose_dataset as JP
+
+    class JaxVideoDataset(JP.Hdf5PoseVideoDataset):
+        """The JAX package's video dataset reading a frame by its index, as
+        the port does: the JAX one bounds a frame index by its count of
+        sequences (a reference defect), so it fails past that count."""
+
+        def _load_sample(self, sequence_index, index):
+            self._ensure_h5opened()
+            raw = [(name, self._get_field(ds, index)) for name, ds in self._names_datasets.items()]
+            s = JP._transform_to_pose_sample(raw, self.dataclass, self._categories)
+            s["individual"] = np.asarray(sequence_index, dtype=np.int32)
+            return self.frame_transform(s)
+
+    return JaxVideoDataset
+
+
+JaxVideoDataset = _jax_video_dataset_class()
+
+
+def write_random_pose_file(path, n, size=48, seed=0, sequence_starts=None, with_landmarks=True, big=()):
+    """A pose file of `n` smooth random images (those in `big` at 2.2x
+    `size`) with random labels, by the port's writer; no `max_image_hw`."""
+    import cv2
+    import h5py
+
+    from neuralnet_tracker_traincode_torch.data import pose_dataset as TP
+    from neuralnet_tracker_traincode_torch.data.fields import FieldCategory as C
+
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, "w") as f:
+        ds = TP.create_pose_dataset(f, C.image, count=n)
+        for i in range(n):
+            s = int(size * 2.2) if i in big else size
+            ds[i] = cv2.GaussianBlur((rng.rand(s, s + 2) * 255).astype(np.uint8), (5, 5), 2)
+        q = rng.randn(n, 4).astype(np.float32)
+        TP.create_pose_dataset(f, C.quat, count=n, dtype=np.float32, data=q / np.linalg.norm(q, axis=-1, keepdims=True))
+        TP.create_pose_dataset(f, C.xys, count=n, dtype=np.float32, data=(rng.rand(n, 3) * size).astype(np.float32))
+        TP.create_pose_dataset(f, C.roi, count=n, dtype=np.float32, data=(rng.rand(n, 4) * size).astype(np.float32))
+        if with_landmarks:
+            TP.create_pose_dataset(f, C.points, name="pt3d_68", count=n, shape_wo_batch_dim=(68, 3),
+                                   dtype=np.float32, data=(rng.rand(n, 68, 3) * size).astype(np.float32))
+            TP.create_pose_dataset(f, C.general, name="shapeparams", count=n, shape_wo_batch_dim=(50,),
+                                   dtype=np.float16, data=rng.randn(n, 50).astype(np.float16))
+        TP.create_pose_dataset(f, C.general, name="hasface", count=n, dtype=np.bool_, data=rng.rand(n) > 0.3)
+        if sequence_starts is not None:
+            f.create_dataset("sequence_starts", data=np.asarray(sequence_starts, np.int32))
+    return str(path)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_intra_op_threads():
+    """Two intra-op threads for a test module whose torch work is heavy on
+    the CPU (full-width networks, rendering): with every core's worth of
+    threads in each of several test processes sharing the host, their
+    spinning threads slow one another down many times over. Imported into
+    a module, it applies to that module's tests."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
