@@ -118,11 +118,32 @@ Phases (any failure ends the run with a non-zero exit code):
     temporary `$DATADIR`, the training CLI for one epoch and the eval CLI on
     its `best.ckpt`, each as a process that must exit 0; else one line says
     that 12b did not run;
- 13. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 13. export and the ONNX runtime (`export/`, `eval/predictor.py:
+    OnnxPoseNetwork`): from phase 7's `best.ckpt` (6D head, point and NLL
+    heads, MobileNetV1 x1.0, 129^2) the `opentrack`, `full`, fp16 and int8
+    files (int8 calibrated on the eval crops of phase 7's 256 validation
+    frames), each conformant (`validate_model`) and run in `TorchOnnxSession`
+    on the card in chunks of 128 against the eager network under `f32_eval`
+    (1e-4, 1e-4, 5e-2; a quaternion's error is that of the nearer of q and
+    -q) and against the same executor on the CPU (printed); the int8 file's
+    errors over the crops and on the export CLI's random input are printed,
+    not held (the JAX package's PTQ scheme errs above the CLI's 2e-1 on the
+    trained network, `PERF.md`), its outputs finite; then
+    `Predictor.evaluate` with `OnnxPoseNetwork` on the `full` file over the
+    256 frames: its row within 0.01 deg geodesic and 0.01 NME3d points of
+    the checkpoint's, bit-equal on a second pass. Phase 10's localizer is
+    exported and run against its eager forward (1e-4); the export CLI runs
+    as two processes on the card (pose network, `--localizer`) that must
+    exit 0 with their parity checks; the pseudo-label CLI runs over an HDF5
+    file where h5py imports (else one line says so). It prints each file's
+    size and node count, the Predictor's forward milliseconds per chunk for
+    the ONNX file and the checkpoint, and the phase's seconds;
+ 14. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
-    phase 11's steps, `launches_loader_run` from phase 12a's run), then
-    `{"ok": true, "device": ...}` as the last line.
+    phase 11's steps, `launches_loader_run` from phase 12a's run,
+    `launches_export` from phase 13), then `{"ok": true, "device": ...}` as
+    the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -162,6 +183,8 @@ BACKBONE_WARMUP, BACKBONE_STEPS, BACKBONE_EVAL = 3, 10, 256
 LOADER_SRC, LOADER_WORKERS, LOADER_CHECK_BATCHES, LOADER_ALONE_BATCHES = 448, 4, 8, 32
 # the CLIs through files (where h5py imports): aflw2k.h5 at 160^2
 CLI_N, CLI_SRC = 1024, 160
+# export and the ONNX runtime: the Predictor's chunk
+EXPORT_CHUNK = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -1157,7 +1180,7 @@ def localizer_phase(torch, np, dev, smi):
     print(f"localizer: {steps} steps (batch {LOC_B}, bf16, image augmentation), loss {records[0]['loss']:.4f} -> "
           f"{records[-1]['loss']:.4f}; last.ckpt read back bit-equal; eval rows bit-equal on a second pass; launches "
           f"{launches}; run {run_s:.2f} s, eval {eval_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s on {smi}")
-    return launches, errs, loc
+    return launches, errs, loc, trainer.model
 
 
 def backbones_phase(torch, np, dev, smi):
@@ -1461,6 +1484,164 @@ def cli_phase(np, smi):
     print(f"phase 12b: {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+def export_phase(torch, np, dev, smi, ckpt, samples, localizer):
+    """Phase 13: export and the ONNX runtime on the card, on phase 7's
+    `best.ckpt` (a copy at `ckpt`) and its validation `samples`, and phase
+    10's trained `localizer`."""
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork, OnnxPoseNetwork, Predictor
+    from neuralnet_tracker_traincode_torch.eval.report import RoiConfig, TableBuilder, add_report_row
+    from neuralnet_tracker_traincode_torch.export import onnx_export as E
+    from neuralnet_tracker_traincode_torch.export.onnx_conformance import validate_model
+    from neuralnet_tracker_traincode_torch.export.onnx_run import TorchOnnxSession
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.models.io import load_posenet, save_model
+    from neuralnet_tracker_traincode_torch.scripts.export_model import eval_crop_batches, max_errors, output_errors
+
+    t_phase = time.perf_counter()
+    outdir = os.path.dirname(ckpt)
+    torch.cuda.synchronize()
+    ext.reset_launch_counts()
+    model = load_posenet(ckpt)
+    check(model.enable_6drot and model.enable_point_head and model.enable_uncertainty, "best.ckpt is not phase 7's")
+    # the eval crops of the frames in chunks of 128 (NHWC) for the checks; of 32 for the calibration, as the CLI
+    chunks = [c.permute(0, 2, 3, 1).contiguous() for c in eval_crop_batches(samples, S, dev, len(samples), EXPORT_CHUNK)]
+    t0 = time.perf_counter()
+    files = {"opentrack": E.build_posenet_onnx(model), "full": E.build_posenet_onnx(model, outputs="full"),
+             "fp16": E.build_posenet_onnx(model, fp16=True)}
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranges = E.calibrate_conv_ranges(files["opentrack"], eval_crop_batches(samples, S, dev, len(samples)), dev)
+    calib_s = time.perf_counter() - t0
+    files["int8"] = E.build_posenet_onnx(model, quant_ranges=ranges)
+    tolerance = {"opentrack": 1e-4, "full": 1e-4, "fp16": 5e-2}
+    x_cli = torch.from_numpy(np.random.RandomState(0).rand(1, S, S, 1).astype(np.float32) - 0.5).to(dev)
+    for name, blob in files.items():
+        decoded = validate_model(blob)
+        sess = TorchOnnxSession(blob, dev)
+        full = name == "full"
+        worst = {}
+        for x in chunks:
+            for k, e in output_errors(model, sess, x, full, quat_sign_free=True).items():
+                worst[k] = max(worst.get(k, 0.0), e)
+        # the card's run against the same executor on the CPU (the plain semantics), on the first chunk
+        x = chunks[0].permute(0, 3, 1, 2)
+        on_cpu = TorchOnnxSession(blob, "cpu").run(None, {"x": x.cpu()})
+        card_cpu = max(max_errors(dict(zip(sess.output_names, sess.run(None, {"x": x}))),
+                                  dict(zip(sess.output_names, on_cpu)), quat_sign_free=True).values())
+        if name == "int8":
+            # the JAX package's PTQ scheme (per-tensor activations, min/max ranges; the file is byte-equal to its
+            # exporter's) errs above the export CLI's 2e-1 on this trained network, on the crops and on the CLI's
+            # random input alike (PERF.md): both are printed, not held
+            cli = output_errors(model, sess, x_cli)
+            check(all(math.isfinite(e) for e in list(cli.values()) + list(worst.values())), f"int8: {cli}, {worst}")
+            gated = {}
+            what = ("on the export CLI's random input: " + ", ".join(f"{k} {e:.2e}" for k, e in cli.items())
+                    + f"; over {len(samples)} eval crops in chunks of {EXPORT_CHUNK}, informational too")
+        else:
+            gated = worst
+            what = f"over {len(samples)} eval crops in chunks of {EXPORT_CHUNK} (tolerance {tolerance[name]})"
+        check(all(math.isfinite(e) and e <= tolerance[name] for e in gated.values()),
+              f"{name} file against the eager network: {gated} (tolerance {tolerance.get(name)})")
+        with open(os.path.join(outdir, f"{name}.onnx"), "wb") as f:
+            f.write(blob)
+        print(f"export {name}: {len(blob)} bytes, {len(decoded.graph.nodes)} nodes, conformant; max |file - eager| "
+              f"{what} (quaternions up to sign): " + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
+              + f"; card against the CPU executor {card_cpu:.2e} ({EXPORT_CHUNK} crops) on {smi}")
+
+    # the evaluation table from the full file against the checkpoint's, and the same row on a second pass
+    nets = {"best.ckpt": CheckpointPoseNetwork(model, dev),
+            "full.onnx": OnnxPoseNetwork(os.path.join(outdir, "full.onnx"), dev)}
+    rows, stages = {}, {}
+    for name, net in nets.items():
+        predictor = Predictor(net, RoiConfig().expansion_factor, device=dev)
+        stages[name] = {}
+        rows[name] = add_report_row(TableBuilder(), predictor, samples, name, "phase 7 validation", RoiConfig(),
+                                    stage_ms=stages[name])
+        if name == "full.onnx":
+            again = add_report_row(TableBuilder(), predictor, samples, name, "phase 7 validation", RoiConfig())
+            check(json.dumps(again) == json.dumps(rows[name]), f"the ONNX row differs on a second pass: {again}")
+    (geo, nme), (geo_c, nme_c) = ((rows[n][5], rows[n][8]) for n in ("full.onnx", "best.ckpt"))
+    check(abs(geo - geo_c) <= 0.01 and abs(nme - nme_c) <= 0.01,
+          f"ONNX row geodesic {geo}, NME3d {nme}; checkpoint row {geo_c}, {nme_c}")
+    forward = {n: statistics.median(v["forward_backtransform_ms"]) for n, v in stages.items()}
+
+    # phase 10's localizer
+    loc = copy.deepcopy(localizer).float()
+    loc.dtype = torch.float32
+    blob = E.build_localizer_onnx(loc)
+    decoded = validate_model(blob)
+    x = torch.rand((LOC_B, 224, 288, 1), generator=torch.Generator().manual_seed(13)).to(dev) - 0.5
+    loc_err = output_errors(loc, TorchOnnxSession(blob, dev), x)["logit_box"]
+    check(loc_err <= 1e-4, f"the localizer's file against its eager forward: {loc_err}")
+    loc_ckpt = os.path.join(outdir, "localizer.ckpt")
+    save_model(loc, None, loc_ckpt)
+    print(f"export localizer: {len(blob)} bytes, {len(decoded.graph.nodes)} nodes, conformant; max |file - eager| "
+          f"{loc_err:.2e} on {LOC_B} random inputs (tolerance 1e-4) on {smi}")
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+
+    # the export CLI as processes on the card, each with its own parity check
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = {"pose network": [ckpt, "--output", os.path.join(outdir, "cli.onnx")],
+            "localizer": [loc_ckpt, "--localizer", "--output", os.path.join(outdir, "cli_localizer.onnx")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", "neuralnet_tracker_traincode_torch.scripts.export_model"] + a,
+                                 env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k, a in runs.items()}
+    try:
+        outs = {k: proc.communicate(timeout=300)[0] for k, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for k, out in outs.items():
+        check(procs[k].returncode == 0, f"export_model ({k}) exited {procs[k].returncode}: {out[-3000:]}")
+        check("Parity check passed." in out, f"export_model ({k}) printed no parity result: {out[-3000:]}")
+    cli_s = time.perf_counter() - t0
+    pseudo_labels_phase(np, dev, outdir, env)
+
+    print(f"export: Predictor rows, full.onnx against best.ckpt over {len(samples)} frames: geodesic {geo:.4f} / "
+          f"{geo_c:.4f} deg, NME3d {nme:.4f} / {nme_c:.4f} %, the ONNX row bit-equal on a second pass; Predictor "
+          f"forward_backtransform ms per chunk of {EXPORT_CHUNK} (median of {len(stages['full.onnx']['crop_ms'])} "
+          f"chunks): full.onnx {forward['full.onnx']:.2f}, best.ckpt {forward['best.ckpt']:.2f}; the export CLI "
+          f"(pose network and localizer, two processes at once) exited 0 with its parity check in {cli_s:.1f} s; "
+          f"build {build_s:.2f} s (3 files), calibration {calib_s:.2f} s; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches
+
+
+def pseudo_labels_phase(np, dev, outdir, env):
+    """Phase 13, last: the pseudo-label CLI as a process on a quaternion
+    network's `--full` file over an HDF5 file, where h5py imports."""
+    try:
+        import h5py
+    except ImportError:
+        print("export: the pseudo-label CLI not run, h5py does not import on this host; it is held on the CPU by "
+              "tests/test_torch_cli.py")
+        return
+    import torch
+
+    from neuralnet_tracker_traincode_torch.data.synthetic import write_synthetic_pose_dataset
+    from neuralnet_tracker_traincode_torch.export.onnx_export import build_posenet_onnx
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+
+    net = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True)  # the pseudo-labels need quaternions
+    net.init_weights(torch.Generator().manual_seed(17))
+    path, data = os.path.join(outdir, "quat_full.onnx"), os.path.join(outdir, "label.h5")
+    with open(path, "wb") as f:
+        f.write(build_posenet_onnx(net, outputs="full"))
+    write_synthetic_pose_dataset(data, RUN_VAL, RUN_SRC, seed=4, device=dev)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "neuralnet_tracker_traincode_torch.scripts.add_pose_pseudolabels",
+                          data, "-c", path, "--overwrite", "--device", dev.type], env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"add_pose_pseudolabels exited {res.returncode}: {res.stderr[-3000:]}")
+    with h5py.File(data, "r") as f:
+        quats = f["quats"][...]
+    check(quats.shape == (RUN_VAL, 4) and np.allclose(np.linalg.norm(quats, axis=-1), 1.0, atol=1e-4),
+          f"pseudo-labels: quaternions {quats.shape}")
+    print(f"export: the pseudo-label CLI exited 0 in {time.perf_counter() - t0:.1f} s over {RUN_VAL} frames")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -1496,19 +1677,26 @@ def main() -> int:
         trace = sys.argv[sys.argv.index("--profile") + 1] if len(sys.argv) > sys.argv.index("--profile") + 1 else None
         print("profile: " + json.dumps(profile_steps(step, 5, trace)))
     run_launches, errs_run, run_step, run = training_run_phase(torch, np, dev, f"{name} ({smi})")
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")  # phase 7's best.ckpt for phase 13
     try:
+        try:
+            if profile:
+                print("profile (training run's step): " + json.dumps(profile_steps(run_step, 5)))
+            eval_phase(torch, np, dev, f"{name} ({smi})", run)
+            shutil.copy(os.path.join(run["outdir"], "best.ckpt"), export_dir)
+        finally:
+            shutil.rmtree(run["outdir"], ignore_errors=True)
+        conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
         if profile:
-            print("profile (training run's step): " + json.dumps(profile_steps(run_step, 5)))
-        eval_phase(torch, np, dev, f"{name} ({smi})", run)
+            print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
+        loc_launches, errs_loc, loc_stream, localizer = localizer_phase(torch, np, dev, f"{name} ({smi})")
+        bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
+        ld_launches, errs_ld = loader_phase(torch, np, dev, f"{name} ({smi})")
+        cli_phase(np, f"{name} ({smi})")
+        ex_launches = export_phase(torch, np, dev, f"{name} ({smi})", os.path.join(export_dir, "best.ckpt"),
+                                   eval_samples(run["val_frames"]), localizer)
     finally:
-        shutil.rmtree(run["outdir"], ignore_errors=True)
-    conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
-    if profile:
-        print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
-    loc_launches, errs_loc, loc_stream = localizer_phase(torch, np, dev, f"{name} ({smi})")
-    bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
-    ld_launches, errs_ld = loader_phase(torch, np, dev, f"{name} ({smi})")
-    cli_phase(np, f"{name} ({smi})")
+        shutil.rmtree(export_dir, ignore_errors=True)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0)
                                                      for e in (errs_run, errs_conv, errs_loc, errs_bb, errs_ld)])
@@ -1521,6 +1709,7 @@ def main() -> int:
             launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
             launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
+            launches_export=ex_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

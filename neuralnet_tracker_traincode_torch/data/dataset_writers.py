@@ -3,18 +3,15 @@
 converters, and the boxes they label with.
 
 `full_head_bbox` needs the full face model: without `$BFM_PATH` it returns
-None, as the JAX package does; with it, it raises until the full face model
-is ported (ROADMAP.md).
+None, as the JAX package does; with it, the posed full mesh's box.
 """
 
-import os
 from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory as C
 from neuralnet_tracker_traincode_torch.data.pose_dataset import create_pose_dataset
-from neuralnet_tracker_traincode_torch.device import not_ported
 
 OPTIONAL_FIELD_SPECS = {
     "pt3d_68": dict(kind=C.points, name="pt3d_68", shape_wo_batch_dim=(68, 3)),
@@ -98,9 +95,14 @@ def landmark_bbox(pt3d: np.ndarray) -> np.ndarray:
 
 
 def full_head_bbox(coord, rot, shapeparam) -> Optional[np.ndarray]:
-    """The posed full mesh's box: None without `$BFM_PATH` (the keypoint
-    model has no cranium)."""
-    path = os.environ.get("BFM_PATH")
-    if path and os.path.isfile(path):
-        raise not_ported("the full-BFM head box")
-    return None
+    """The posed full mesh's box (`rot` a scipy `Rotation`): None without
+    `$BFM_PATH` (the keypoint model has no cranium)."""
+    from neuralnet_tracker_traincode_torch.facemodel.bfm import full_model_from_env, posed_full_mesh
+
+    model = full_model_from_env()
+    if model is None:
+        return None
+    out = posed_full_mesh(model, shapeparam, rot, np.asarray(coord))
+    x0, y0 = np.amin(out[:, :2], axis=0)
+    x1, y1 = np.amax(out[:, :2], axis=0)
+    return np.asarray([x0, y0, x1, y1], np.float32)

@@ -3,15 +3,12 @@ of the JAX package's `data/host_transforms.py`), and the extreme-pose filter
 of its aflw2k3d validation set as arithmetic on label arrays (the port's
 `pipelines.py:indices_without_extreme_poses` reads them from the file).
 
-`PutRoiFromLandmarks(extend_to_forehead=True)` takes the head-sphere
-extent (centre coord[:2], radius coord[2]) merged with the landmarks' box:
-the JAX package's branch for when the full BFM mesh is not available. When
-`$BFM_PATH` names a file the JAX package takes the posed full-mesh extent
-instead; that waits with the full face model (ROADMAP.md), so the port
-raises rather than give another box.
+`PutRoiFromLandmarks(extend_to_forehead=True)` takes the box of the posed
+full mesh (`facemodel/bfm.py:FullBFMModel`) when `$BFM_PATH` names the 3DDFA
+pickle (the reference's `misc.py:9-31`); without it, the head-sphere extent
+(centre coord[:2], radius coord[2]) merged with the landmarks' box, as the
+JAX package does.
 """
-
-import os
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -19,7 +16,7 @@ from scipy.spatial.transform import Rotation
 from neuralnet_tracker_traincode_torch import utils
 from neuralnet_tracker_traincode_torch.data.batch import Batch
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
-from neuralnet_tracker_traincode_torch.device import not_ported
+from neuralnet_tracker_traincode_torch.facemodel.bfm import full_model_from_env, posed_full_mesh
 
 
 def offset_points_by_half_pixel_np(sample: Batch) -> Batch:
@@ -34,13 +31,12 @@ def offset_points_by_half_pixel_np(sample: Batch) -> Batch:
 
 class PutRoiFromLandmarks:
     """Rebuild the face ROI from the 68 landmarks: their box, or with
-    `extend_to_forehead` their box merged with the head sphere's."""
+    `extend_to_forehead` the posed full mesh's box (with `$BFM_PATH`) or
+    the landmarks' box merged with the head sphere's."""
 
     def __init__(self, extend_to_forehead: bool = False):
         self.extend_to_forehead = extend_to_forehead
-        path = os.environ.get("BFM_PATH")
-        if extend_to_forehead and path and os.path.isfile(path):
-            raise not_ported("the full-BFM head box")
+        self._full_model = full_model_from_env() if extend_to_forehead else None
 
     def __call__(self, sample: Batch) -> Batch:
         if "pt3d_68" not in sample:
@@ -50,7 +46,13 @@ class PutRoiFromLandmarks:
         lm = np.asarray(sample["pt3d_68"])
         min_ = np.amin(lm[..., :2], axis=-2)
         max_ = np.amax(lm[..., :2], axis=-2)
-        if self.extend_to_forehead:
+        if self._full_model is not None:
+            shapeparam = np.asarray(sample.get("shapeparam", np.zeros((50,), np.float32)))
+            verts = posed_full_mesh(self._full_model, shapeparam, Rotation.from_quat(np.asarray(sample["pose"])),
+                                    np.asarray(sample["coord"]))
+            min_ = np.amin(verts[..., :2], axis=-2)
+            max_ = np.amax(verts[..., :2], axis=-2)
+        elif self.extend_to_forehead:
             coord = np.asarray(sample["coord"])
             c, s = coord[..., :2], coord[..., 2:]
             min_ = np.minimum(min_, c - s)

@@ -15,7 +15,9 @@ the backtransformed coordinates. So `CheckpointPoseNetwork` and the
 Predictor's whole chunk (transform, crop, forward, backtransform) run under
 `f32_eval`: autocast off, TF32 off for cuDNN and cuBLAS and cuDNN
 deterministic (the flags restored afterwards); the network in eval mode
-under `torch.inference_mode()`. ONNX models wait for the export slice.
+under `torch.inference_mode()`. `OnnxPoseNetwork` runs an exported `.onnx`
+file in the port's executor (`export/onnx_run.py:TorchOnnxSession`) on the
+same device, under the same `f32_eval`.
 """
 
 import contextlib
@@ -33,7 +35,7 @@ from neuralnet_tracker_traincode_torch.augmentation.geometric import focus_roi_t
 from neuralnet_tracker_traincode_torch.augmentation.warp import warp_affine
 from neuralnet_tracker_traincode_torch.data.batch import Batch, Metadata
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
-from neuralnet_tracker_traincode_torch.device import DeviceLike, not_ported, resolve_device
+from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.eval.metrics import as_numpy
 from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
 
@@ -97,11 +99,59 @@ class CheckpointPoseNetwork(InferenceNetwork):
         return out
 
 
-class OnnxPoseNetwork:
-    """ONNX models wait for the export slice (ROADMAP.md)."""
+class OnnxPoseNetwork(InferenceNetwork):
+    """An exported pose network (`.onnx`) in `TorchOnnxSession` on `device`
+    (default: the card), its opentrack output names mapped to the eval's.
+
+    Files with a `model_version` other than 2, 3 and 4 give quaternions in
+    the legacy coordinates, remapped here; a graph whose batch dimension is
+    fixed runs one frame at a time. The input resolution comes from the
+    graph's input shape, 129 where it is symbolic or implausible (a raw
+    `dim_value` of -1 decodes as a huge unsigned varint)."""
+
+    NAMEMAP = {
+        "pos_size": "coord",
+        "quat": "pose",
+        "box": "roi",
+        "eyes": "eyeparam",
+        "pos_size_scales": "coord_scales",
+        "pos_size_std": "coord_scales",
+        "rotaxis_scales_tril": "pose_scales_tril",
+        "rotaxis_std": "pose_scales_tril",
+        "rot_conc_tril": "pose_conc_tril",
+        "box_scales": "roi_scales",
+        "box_std": "roi_scales",
+    }
 
     def __init__(self, modelfile: str, device: DeviceLike = None):
-        raise not_ported(f"ONNX models ({modelfile})")
+        from neuralnet_tracker_traincode_torch.export.onnx_run import TorchOnnxSession
+
+        self.device = resolve_device(device)
+        self.session = TorchOnnxSession(modelfile, self.device)
+        self.output_names = [self.NAMEMAP.get(n, n) for n in self.session.output_names]
+        self._legacy_coords = self.session.model_version not in (2, 3, 4)
+        # legacy exports may list initializers among the graph's inputs: the data input is the first
+        dims = next(iter(self.session.input_dims.values()), None) or []
+        plausible = [d is not None and 0 < d < 10_000 for d in dims]
+        self._input_resolution = int(dims[-1]) if len(dims) == 4 and plausible[-1] else 129
+        self._single_frame = bool(dims) and plausible[0]
+
+    @property
+    def input_resolution(self) -> int:
+        return self._input_resolution
+
+    def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = images.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()  # the graphs take NCHW
+        if self._single_frame:
+            per_frame = [self.session.run(None, {"x": x[i : i + 1]}) for i in range(x.shape[0])]
+            outputs = [torch.cat(o) for o in zip(*per_frame)]
+        else:
+            outputs = self.session.run(None, {"x": x})
+        outputs = dict(zip(self.output_names, outputs))
+        if self._legacy_coords:
+            q = outputs["pose"]
+            outputs["pose"] = torch.stack([-q[..., 2], -q[..., 1], -q[..., 0], q[..., 3]], dim=-1)
+        return outputs
 
 
 def load_pose_network(filename: str, device: DeviceLike = None) -> InferenceNetwork:

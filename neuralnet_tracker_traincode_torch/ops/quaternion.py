@@ -4,9 +4,11 @@ Counterpart of the JAX package's `ops/quaternion.py`: Hamilton products,
 vector rotation, quat<->matrix conversions (best-conditioned-of-four
 candidate selection in `from_matrix`), the rotation vector between two
 rotations and the distances the losses use. Plain functions on tensors,
-elementwise f32. `from_rotvec`, `slerp` and `quat_average` wait (ROADMAP.md).
+elementwise f32; `quat_average` (the pseudo-labels' ensemble mean) is host
+numpy. `from_rotvec` and `slerp` wait (ROADMAP.md).
 """
 
+import numpy as np
 import torch
 
 # Component indices (scipy convention, real last).
@@ -145,3 +147,22 @@ def distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def geodesicdistance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.norm(rotation_delta(a, b), dim=-1)
+
+
+def quat_average(quats) -> np.ndarray:
+    """Ensemble mean of quaternions (E, N, 4) -> (N, 4), host numpy: each
+    sample's quaternions are sign-aligned on their pivot axis (the largest
+    summed magnitude), averaged and normalized (the reference's
+    `torchquaternion.py:239-256`)."""
+    quats = np.array(quats, copy=True)
+    E, N, D = quats.shape
+    assert D == 4
+    pivot_axes = np.argmax(np.sum(np.abs(quats), axis=0), axis=-1)
+    mask = np.take_along_axis(quats, pivot_axes[None, :, None], axis=-1)[..., 0] < 0.0
+    quats[mask, :] *= -1
+    quats = np.average(quats, axis=0)
+    norms = np.linalg.norm(quats, axis=-1, keepdims=True)
+    if not np.all(norms > 0.5):
+        print("quat_average: rotation predictions differ wildly (or there is a bug)")
+    quats /= norms
+    return quats

@@ -332,7 +332,8 @@ def make_validation_dataset(
 ):
     """The eval CLI's samples of dataset `name` (or of the pose file at a
     `.h5` path): labels offset by half a pixel, the ROI from the landmarks
-    (with the head sphere for `use_head_roi`), in `order` where given."""
+    (with `use_head_roi`: the posed full mesh's box under `$BFM_PATH`, else the
+    head sphere's), in `order` where given."""
     transforms = [offset_points_by_half_pixel_np, PutRoiFromLandmarks(extend_to_forehead=use_head_roi)]
     transforms += list(additional_transforms or [])
 

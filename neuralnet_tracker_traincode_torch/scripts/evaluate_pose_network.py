@@ -6,11 +6,13 @@ its flags and table).
         model_files/NetworkWithPointHead_mobilenetv1/best.ckpt --ds aflw2k3d [--json out.json] [--device cpu]
 
 `--ds` takes names of the dataset registry ("+"-joined) or a `.h5` path.
-Each row is `eval/report.py:add_report_row` over the Predictor in f32
-(`--precision bfloat16`: under bf16 autocast instead). `--vis kpts|rot|size`
-with `--vis-outdir` writes overlays of the 32 worst samples as PNGs; the
-interactive browser (`--vis` without `--vis-outdir`) and ONNX models are not
-ported yet.
+A file is a checkpoint or an exported `.onnx` file (`eval/predictor.py:
+OnnxPoseNetwork`, run in the port's executor on `--device`). Each row is
+`eval/report.py:add_report_row` over the Predictor in f32 (`--precision
+bfloat16`: a checkpoint's forward under bf16 autocast instead; an ONNX file
+stays f32, as the JAX package's executor does). `--vis kpts|rot|size` with
+`--vis-outdir` writes overlays of the 32 worst samples as PNGs; the
+interactive browser (`--vis` without `--vis-outdir`) is not ported yet.
 """
 
 import argparse
@@ -23,7 +25,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Evaluate pose networks")
-    parser.add_argument("filenames", help="checkpoint files", type=str, nargs="*")
+    parser.add_argument("filenames", help="checkpoint or onnx model files", type=str, nargs="*")
     parser.add_argument("--device", default="cuda", type=str, help="cuda (default) or cpu")
     parser.add_argument("--comprehensive-roi", action="store_true", default=False)
     parser.add_argument("--alignment-scheme", choices=["perspective", "opal23", "none"], default="none")
@@ -46,8 +48,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
     if args.vis != "none" and not args.vis_outdir:
         raise not_ported("--vis without --vis-outdir (the interactive browser needs matplotlib)")
-    if any(f.endswith(".onnx") for f in args.filenames):
-        raise not_ported("ONNX models")
     return args
 
 
@@ -73,12 +73,12 @@ def bf16_network(net):
 def report(net_filename, data_name, roi_config, args, builder, device):
     """One row: `net_filename` on dataset `data_name` at `roi_config`."""
     from neuralnet_tracker_traincode_torch import pipelines
-    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork, Predictor
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork, Predictor, load_pose_network
     from neuralnet_tracker_traincode_torch.eval.report import add_report_row
 
     loader = pipelines.make_validation_loader(data_name, use_head_roi=roi_config.use_head_roi)
-    net = CheckpointPoseNetwork(net_filename, device)
-    if args.precision == "bfloat16":
+    net = load_pose_network(net_filename, device)
+    if args.precision == "bfloat16" and isinstance(net, CheckpointPoseNetwork):
         net = bf16_network(net)
     predictor = Predictor(net, roi_config.expansion_factor, device=device)
     errors = {}

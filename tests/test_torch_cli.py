@@ -1,5 +1,5 @@
-"""The port's four CLIs (`neuralnet_tracker_traincode_torch/scripts/`), run
-in this process on the CPU (`--device cpu`) over a `$DATADIR` of synthetic
+"""The port's CLIs (`neuralnet_tracker_traincode_torch/scripts/`), run in
+this process on the CPU (`--device cpu`) over a `$DATADIR` of synthetic
 files at a small size.
 
  - `parse_dataset_definition` is the JAX script's on a table of `--ds`
@@ -13,6 +13,16 @@ files at a small size.
    (held against the JAX package by `test_torch_eval.py`), and overlays.
  - The localizer's trainer and eval CLI run on a small
    `widerfacessingle.h5`; its model file loads in the JAX package.
+ - The export CLI on the trainer's `best.ckpt` (6D, point and NLL heads,
+   full width), chained as the JAX package's `tests/test_cli_smoke.py`
+   chains it: `--full` (byte-equal to the JAX script's file for the same
+   checkpoint), `--half`, `--quantize` with `--calib-ds` on a synthetic
+   `.h5` (every backbone conv int8), `--torch-checkpoint` (the JAX
+   package's reference-format state dict, key for key and value for value)
+   and `--localizer`; each passes its own parity check. The pose eval CLI
+   on the `--full` file gives the checkpoint's row within 1e-3, and
+   `add_pose_pseudolabels` on it writes the labels the JAX CLI writes from
+   the same file, within 1e-4.
  - Every flag value whose machinery is not ported raises `not_ported`
    before any data is read.
 """
@@ -24,8 +34,10 @@ import os
 import numpy as np
 import pytest
 
+from neuralnet_tracker_traincode_torch.scripts import add_pose_pseudolabels as pseudo_cli
 from neuralnet_tracker_traincode_torch.scripts import evaluate_localizer as eval_loc_cli
 from neuralnet_tracker_traincode_torch.scripts import evaluate_pose_network as eval_cli
+from neuralnet_tracker_traincode_torch.scripts import export_model as export_cli
 from neuralnet_tracker_traincode_torch.scripts import train_localizer as train_loc_cli
 from neuralnet_tracker_traincode_torch.scripts import train_poseestimator as train_cli
 
@@ -160,7 +172,6 @@ def test_localizer_clis(datadir, tmp_path, monkeypatch, capsys):
     (train_cli, ["--steps-per-dispatch", "2"], "steps-per-dispatch"),
     (train_cli, ["--plot-save-filename", "x.pdf"], "plot-save-filename"),
     (eval_cli, ["m.ckpt", "--vis", "rot"], "--vis without"),
-    (eval_cli, ["m.onnx"], "ONNX"),
 ])
 def test_flags_that_wait_raise_not_ported(cli, argv, what, monkeypatch):
     monkeypatch.delenv("DATADIR", raising=False)  # nothing is read before the refusal
@@ -169,3 +180,136 @@ def test_flags_that_wait_raise_not_ported(cli, argv, what, monkeypatch):
     with pytest.raises(NotImplementedError, match=what):
         cli.main(argv)
     assert cli.parse_args(["m.ckpt"] if cli is eval_cli else []).device == "cuda"
+
+
+@pytest.fixture(scope="module")
+def full_onnx(pose_run, tmp_path_factory):
+    """`export_model --full` on the trainer's best.ckpt."""
+    path = str(tmp_path_factory.mktemp("export") / "model_full.onnx")
+    assert export_cli.main([os.path.join(pose_run[0], "best.ckpt"), "--output", path, "--full", "--device", "cpu"]) == 0
+    return path
+
+
+def test_export_full_is_the_jax_scripts_file(pose_run, full_onnx, tmp_path, monkeypatch):
+    import sys
+
+    ckpt = os.path.join(pose_run[0], "best.ckpt")
+    theirs = str(tmp_path / "jax_full.onnx")
+    monkeypatch.setattr(sys, "argv", ["export_model.py", ckpt, "--output", theirs, "--full", "--no-parity-check"])
+    _jax_script("export_model").main()
+    with open(full_onnx, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("flags", [["--half"], ["--quantize", "--calib-samples", "16"], ["--torch-checkpoint"]],
+                         ids=lambda f: f[0].lstrip("-"))
+def test_export_cli_variants(pose_run, datadir, flags, tmp_path, capsys):
+    import torch
+
+    from neuralnet_tracker_traincode_torch.export import onnx_conformance, onnx_run
+
+    ckpt = os.path.join(pose_run[0], "best.ckpt")
+    out = str(tmp_path / "m.onnx")
+    argv = [ckpt, "--output", out, "--device", "cpu"] + flags
+    if flags[0] == "--quantize":
+        argv += ["--calib-ds", os.path.join(datadir, "aflw2k.h5")]
+    if flags[0] == "--torch-checkpoint":
+        argv.append(str(tmp_path / "m.pt"))
+    assert export_cli.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "Parity check passed." in printed
+    with open(out, "rb") as f:
+        blob = f.read()
+    onnx_conformance.validate_model(blob)
+    model = onnx_run.load_model(blob)
+    assert model.output_names[:3] == ["pos_size", "quat", "box"]
+    if flags[0] == "--half":
+        assert any(v.dtype == np.float16 for v in model.initializers.values())
+    if flags[0] == "--quantize":
+        assert "Calibrating on 16 samples" in printed
+        assert len([v for v in model.initializers.values() if v.dtype == np.int8 and v.ndim == 4]) == 27
+    if flags[0] == "--torch-checkpoint":
+        from neuralnet_tracker_traincode_tpu.export.onnx_export import clear_denormals
+        from neuralnet_tracker_traincode_tpu.models import io as jio
+        from neuralnet_tracker_traincode_tpu.models.torch_export import export_posenet_state_dict
+
+        saved = torch.load(str(tmp_path / "m.pt"), weights_only=False)
+        jmodel, variables = jio.load_posenet(ckpt)
+        want = export_posenet_state_dict(clear_denormals(variables), jmodel.get_config())
+        assert saved["class_name"] == "NetworkWithPointHead" and saved["config"]["enable_6drot"]
+        assert set(want) <= set(saved["state_dict"])
+        for k, v in want.items():
+            np.testing.assert_array_equal(saved["state_dict"][k].numpy(), v, err_msg=k)
+
+
+def test_export_localizer_cli(tmp_path, capsys):
+    import jax
+
+    from neuralnet_tracker_traincode_tpu.export import onnx_export as JE
+    from neuralnet_tracker_traincode_tpu.models import io as jio
+    from neuralnet_tracker_traincode_tpu.models.localizer import LocalizerNet as JLoc
+    from neuralnet_tracker_traincode_torch.models.io import save_model
+    from neuralnet_tracker_traincode_torch.models.localizer import LocalizerNet
+
+    import torch
+
+    net = LocalizerNet()
+    net.init_weights(torch.Generator().manual_seed(2))
+    ckpt, out = str(tmp_path / "loc.ckpt"), str(tmp_path / "loc.onnx")
+    save_model(net, None, ckpt)
+    assert export_cli.main([ckpt, "--output", out, "--localizer", "--device", "cpu"]) == 0
+    assert "Parity check passed." in capsys.readouterr().out
+    jmodel, variables = jio.load_model(ckpt, [JLoc])
+    with open(out, "rb") as f:
+        assert f.read() == JE.build_localizer_onnx(jmodel, JE.clear_denormals(jax.tree_util.tree_map(np.asarray,
+                                                                                                     variables)))
+
+
+def test_pose_eval_cli_on_an_onnx_file(pose_run, full_onnx, datadir, tmp_path, monkeypatch):
+    monkeypatch.setenv("DATADIR", datadir)
+    rows = {}
+    for name, path in (("onnx", full_onnx), ("ckpt", os.path.join(pose_run[0], "best.ckpt"))):
+        out = tmp_path / f"{name}.json"
+        assert eval_cli.main([path, "--ds", "aflw2k3d", "--json", str(out), "--device", "cpu"]) == 0
+        (rows[name],) = json.loads(out.read_text()).values()
+    assert set(rows["onnx"]) == set(rows["ckpt"]) and "NME3d%" in rows["onnx"]
+    for k, v in rows["ckpt"].items():
+        if isinstance(v[0], str):
+            assert rows["onnx"][k] == v
+        else:
+            np.testing.assert_allclose(np.asarray(rows["onnx"][k], np.float64), np.asarray(v, np.float64), rtol=0,
+                                       atol=1e-3, err_msg=k)
+
+
+def test_pseudolabel_cli_matches_jax(full_onnx, datadir, tmp_path):
+    """On a quaternion network's `--full` file (the pseudo-labels average
+    `unnormalized_quat`: the trainer's 6D network's file is refused)."""
+    import argparse
+    import shutil
+
+    import h5py
+    import torch
+
+    from neuralnet_tracker_traincode_torch.models.io import save_model
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from torch_port_helpers import SMALL_NET
+
+    net = NetworkWithPointHead(**SMALL_NET)
+    net.init_weights(torch.Generator().manual_seed(5))
+    ckpt, quat_onnx = str(tmp_path / "quat.ckpt"), str(tmp_path / "quat_full.onnx")
+    save_model(net, None, ckpt)
+    assert export_cli.main([ckpt, "--output", quat_onnx, "--full", "--device", "cpu"]) == 0
+    paths = {k: str(tmp_path / f"{k}.h5") for k in ("port", "jax", "6d")}
+    for p in paths.values():
+        shutil.copy(os.path.join(datadir, "aflw2k.h5"), p)
+    with pytest.raises(ValueError, match="unnormalized_quat"):
+        pseudo_cli.main([paths["6d"], "-c", full_onnx, "--device", "cpu"])
+    assert pseudo_cli.main([paths["port"], "-c", quat_onnx, "-b", "8", "--overwrite", "--device", "cpu"]) == 0
+    _jax_script("add_pose_pseudolabels").fitall(argparse.Namespace(
+        filename=paths["jax"], checkpoints=[quat_onnx], batchsize=8, hdfgroupname="", dryrun=False, overwrite=True))
+    with h5py.File(paths["port"], "r") as a, h5py.File(paths["jax"], "r") as b:
+        for key, shape in (("quats", (20, 4)), ("coords", (20, 3)), ("pt3d_68", (20, 68, 3)), ("shapeparams", (20, 50))):
+            ours, theirs = a[key][...], b[key][...]
+            assert ours.shape == theirs.shape == shape and ours.dtype == np.float32, key
+            np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-4, err_msg=key)
+        np.testing.assert_allclose(np.linalg.norm(a["quats"][...], axis=-1), 1.0, atol=1e-5)

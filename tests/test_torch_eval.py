@@ -15,6 +15,8 @@ Tolerances:
    and JSON strings equal to the JAX script's for the same rows.
  - The eval forward and `Predictor.predict_batch` under an outer bf16
    autocast with the TF32 flags on: bit-equal.
+ - `load_pose_network` on an exported `.onnx` file: the Predictor's
+   predictions within 1e-4 of the checkpoint network's.
 
 The file takes about 65 s alone on one CPU process: the first network's
 flax init and the JAX Predictor's first jit take about 30 s of it, the JAX
@@ -354,6 +356,22 @@ def test_cv2_backend_matches_jax(ragged_frames):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-3, err_msg=k)
 
 
-def test_onnx_models_wait_for_the_export_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="ONNX"):
-        load_pose_network(str(tmp_path / "net.onnx"), device="cpu")
+def test_onnx_models_wait_for_the_export_slice(ragged_frames, tmp_path):
+    """(The name is that of the refusal this test held before the export
+    slice.) `load_pose_network` reads an exported `.onnx` file into an
+    `OnnxPoseNetwork`; the Predictor over it gives the checkpoint network's
+    predictions within 1e-4."""
+    from neuralnet_tracker_traincode_torch.eval.predictor import OnnxPoseNetwork
+    from neuralnet_tracker_traincode_torch.export.onnx_export import build_posenet_onnx
+
+    images, rois = ragged_frames
+    _, tnet = _jax_and_port_nets("quat")
+    path = tmp_path / "net.onnx"
+    path.write_bytes(build_posenet_onnx(tnet.model, outputs="full"))
+    onnx_net = load_pose_network(str(path), device="cpu")
+    assert isinstance(onnx_net, OnnxPoseNetwork) and onnx_net.input_resolution == 129
+    out = Predictor(onnx_net, 1.1, device="cpu").predict_batch(images, rois)
+    ref = Predictor(tnet, 1.1, device="cpu").predict_batch(images, rois)
+    assert set(ref.keys()) <= set(out.keys())
+    for k in ("pose", "coord", "roi", "pt3d_68", "shapeparam"):
+        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), rtol=0, atol=1e-4, err_msg=k)

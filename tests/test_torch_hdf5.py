@@ -239,11 +239,16 @@ def test_boxes_of_the_writers(tmp_path, monkeypatch):
     monkeypatch.delenv("BFM_PATH", raising=False)
     assert TW.full_head_bbox(np.float32([1, 2, 3]), None, np.zeros(50)) is None
     assert JW.full_head_bbox(np.float32([1, 2, 3]), None, np.zeros(50)) is None
-    blob = tmp_path / "bfm.pkl"
-    blob.write_bytes(b"")
-    monkeypatch.setenv("BFM_PATH", str(blob))
-    with pytest.raises(NotImplementedError, match="full-BFM"):
-        TW.full_head_bbox(np.float32([1, 2, 3]), None, np.zeros(50))
+    from scipy.spatial.transform import Rotation
+
+    from torch_port_helpers import write_synthetic_bfm_pickle
+
+    monkeypatch.setenv("BFM_PATH", write_synthetic_bfm_pickle(tmp_path / "bfm.pkl"))
+    rot = Rotation.random(random_state=rng)
+    coord, shape = np.float32([40, 35, 20]), rng.randn(50).astype(np.float32)
+    box = TW.full_head_bbox(coord, rot, shape)
+    np.testing.assert_array_equal(box, JW.full_head_bbox(coord, rot, shape))
+    assert box.dtype == np.float32 and box.shape == (4,) and np.all(box[2:] > box[:2])
 
 
 def _video_file(P, C, path):

@@ -1,6 +1,7 @@
 """The port stands alone: none of its modules, nor `chip_smoke.py`, imports
-JAX, flax, optax, msgpack, matplotlib or the JAX package (parsed, not
-executed), and nothing on its import path needs triton, h5py or cv2, which
+JAX, flax, optax, msgpack, matplotlib, onnx, onnxruntime or the JAX package
+(parsed, not executed: the export writes and runs ONNX files with its own
+code), and nothing on its import path needs triton, h5py or cv2, which
 the machine with the card may lack. Its data files are its own copies, and
 the shape prior loads from its npz."""
 
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "neuralnet_tracker_traincode_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib", "neuralnet_tracker_traincode_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib", "onnx", "onnxruntime",
+             "neuralnet_tracker_traincode_tpu"}
 NOT_AT_IMPORT = {"triton", "h5py", "cv2"}
 
 
@@ -39,6 +41,7 @@ def _imports(tree):
 
 @pytest.mark.parametrize("path", _sources())
 def test_port_module_imports_nothing_of_jax(path):
+    """(Nor onnx and onnxruntime, in the export modules and everywhere else.)"""
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read(), path)
     found = list(_imports(tree))
@@ -87,7 +90,15 @@ else:
     print("help")
 """
 
-CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer"]
+CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
+        "add_pose_pseudolabels"]
+
+
+def test_the_export_and_cli_modules_are_covered():
+    for name in ("onnx_proto", "onnx_conformance", "onnx_run", "onnx_export"):
+        assert os.path.join("neuralnet_tracker_traincode_torch", "export", name + ".py") in _sources()
+    for name in CLIS:
+        assert os.path.join("neuralnet_tracker_traincode_torch", "scripts", name + ".py") in _sources()
 
 
 @pytest.mark.parametrize("target", ["package"] + CLIS)

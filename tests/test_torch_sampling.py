@@ -8,9 +8,9 @@ and the `$BFM_PATH` repair of `PutRoiFromLandmarks`.
    plans (indices, tag ids, weights) for single frames and for sequences.
  - `iterate_fused_batches(..., start=s)` gives the batches a fresh iterator
    of an equal sampler gives after s batches.
- - With `extend_to_forehead` and `$BFM_PATH` naming a file, the port raises
-   `not_ported` (the JAX package would take the full-mesh box); without it
-   the head-sphere box is the JAX package's.
+ - With `extend_to_forehead` and `$BFM_PATH` naming a 3DDFA pickle (a
+   synthetic one), the box is the posed full mesh's, equal to the JAX
+   transform's; without it the head-sphere box is the JAX package's.
 """
 
 import itertools
@@ -155,12 +155,28 @@ def _pose_frame(rng):
 
 
 def test_bfm_path_with_forehead_box_is_not_ported(tmp_path, monkeypatch):
-    blob = tmp_path / "bfm.pkl"
-    blob.write_bytes(b"not read")
-    monkeypatch.setenv("BFM_PATH", str(blob))
-    with pytest.raises(NotImplementedError, match="full-BFM head box"):
-        PutRoiFromLandmarks(extend_to_forehead=True)
-    PutRoiFromLandmarks(extend_to_forehead=False)  # the landmarks' box needs no face model
+    """(The name is that of the refusal this test held before the full face
+    model was ported.) With `$BFM_PATH`: the posed full mesh's box, equal to
+    the JAX transform's, with and without a `shapeparam` label."""
+    from scipy.spatial.transform import Rotation
+
+    from torch_port_helpers import write_synthetic_bfm_pickle
+
+    monkeypatch.setenv("BFM_PATH", write_synthetic_bfm_pickle(tmp_path / "bfm.pkl"))
+    rng = np.random.RandomState(1)
+    for with_shape in (True, False):
+        fields = _pose_frame(rng)
+        fields["pose"] = Rotation.random(random_state=rng).as_quat().astype(np.float32)
+        if with_shape:
+            fields["shapeparam"] = rng.randn(50).astype(np.float32)
+        out = PutRoiFromLandmarks(extend_to_forehead=True)(frame(Tag.POSE_WITH_LANDMARKS, fields))
+        ref = JPut(extend_to_forehead=True)(JBatch(JMetadata((100, 100), 0, categories={}),
+                                                    **{k: v.copy() for k, v in fields.items()}))
+        np.testing.assert_array_equal(out["roi"], ref["roi"])
+        assert out["roi"].dtype == np.float32
+    unposed = PutRoiFromLandmarks(extend_to_forehead=False)(frame(Tag.POSE_WITH_LANDMARKS, fields))
+    np.testing.assert_array_equal(unposed["roi"], np.concatenate([fields["pt3d_68"][:, :2].min(0),
+                                                                  fields["pt3d_68"][:, :2].max(0)]))
     monkeypatch.setenv("BFM_PATH", str(tmp_path / "missing.pkl"))
     PutRoiFromLandmarks(extend_to_forehead=True)  # a path that names no file is the head sphere
     monkeypatch.delenv("BFM_PATH")

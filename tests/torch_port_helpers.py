@@ -256,6 +256,29 @@ def write_random_pose_file(path, n, size=48, seed=0, sequence_starts=None, with_
     return str(path)
 
 
+BFM_VERTICES = 15000  # more than the largest fixed-up eye row (14327)
+
+
+def write_synthetic_bfm_pickle(path, seed: int = 20260817) -> str:
+    """A pickle in the layout of the 3DDFA `bfm_noneck_v3.pkl` (which is not
+    distributable), with random contents at head-radius scale: a flattened
+    mean shape `u`, per-coordinate eigvector columns (more than the 40 and 10
+    the model keeps), and the 68 keypoints as flattened coordinate indices."""
+    import pickle
+
+    rnd = np.random.RandomState(seed)
+    vidx = np.sort(rnd.choice(BFM_VERTICES, size=68, replace=False)).astype(np.int64)
+    blob = {
+        "u": (rnd.uniform(-1.0, 1.0, size=(3 * BFM_VERTICES, 1)) * 1.0e5).astype(np.float32),
+        "w_shp": rnd.normal(size=(3 * BFM_VERTICES, 45)).astype(np.float32) * 1e-3,
+        "w_exp": rnd.normal(size=(3 * BFM_VERTICES, 12)).astype(np.float32) * 1e2,
+        "keypoints": np.stack([3 * vidx, 3 * vidx + 1, 3 * vidx + 2], axis=1).ravel().astype(np.float64),
+    }
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+    return str(path)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def two_intra_op_threads():
     """Two intra-op threads for a test module whose torch work is heavy on
