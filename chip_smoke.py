@@ -67,14 +67,16 @@ Phases (any failure ends the run with a non-zero exit code):
     4,096 synthetic frames at 160^2 from seed 3 (rows 0-399 validation, the
     rest training), the training CLI's defaults with `--with-nll-loss
     --with-swa` (quaternion head, point head, ROI training; SWA after epoch
-    10), bf16, batch 128, 16 epochs of 10,240 samples through `run_training`;
-    then the Predictor on `best.ckpt` and `swa.ckpt` over the frames without
-    extreme poses, with the head ROI. It fails unless `best.ckpt` reaches a
-    geodesic error below 16 degrees and NME3d below 16%, and K1 at the run's
-    rotated crops (the first step of each epoch, 128 x 160^2), K3 at the same
-    steps and every 80th K2 launch (128 x 129^2, as phase 7 holds them)
-    agree with their plain versions; it prints the rows, images/s per epoch
-    and the phase's seconds;
+    10), bf16, batch 128, 16 epochs of 10,240 samples through `run_training`
+    at the CLI's default on the card, 8 steps a dispatch (one CUDA graph
+    replay); then the Predictor on `best.ckpt` and `swa.ckpt` over the frames
+    without extreme poses, with the head ROI. It fails unless `best.ckpt`
+    reaches a geodesic error below 16 degrees and NME3d below 16%, and K1 and
+    K3 at every training launch and every 4th K2 launch (each step's first)
+    agree with their plain versions: the warm-up's, eager, and the graph's,
+    whose copies, made inside the graph, hold the last replay's inputs and
+    outputs (128 x 160^2 and 128 x 129^2); it prints the rows, images/s per
+    epoch and the phase's seconds;
  10. the face localizer (`train/localizer.py`, `eval/localizer.py`): the
     training CLI's `LocalizerNet` (bf16, batch 64, lr 1e-3, image
     augmentation on) for 4 epochs of 1,024 samples (the CLI: 50 of 10,240)
@@ -138,12 +140,36 @@ Phases (any failure ends the run with a non-zero exit code):
     file where h5py imports (else one line says so). It prints each file's
     size and node count, the Predictor's forward milliseconds per chunk for
     the ONNX file and the checkpoint, and the phase's seconds;
- 14. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 14. several optimizer steps in one dispatch (`PoseTrainer.train_step_multi`,
+    one replay of a CUDA graph of K whole steps). (a) Phase 5's flagship
+    configuration: from one saved state, 16 eager steps twice (is eager
+    deterministic run to run?), then 2 replays of K = 8 on the same batches
+    and draws; every metric, parameter, buffer, Adam moment and the count
+    must be bit-equal to the eager steps' (or within the eager runs' own
+    difference, printed as the floor), and K1, K2 and K3 launched in the
+    replays (counted, with the capture's warm-up). K1 at one step's own
+    inputs under the plan it reads back, the step's rounded host plan and a
+    larger one (printed: are the crops equal?); one eager device part under
+    `torch.cuda.set_sync_debug_mode("error")`. ms per step, eager / graph /
+    graph / eager with CUDA events (10 replays of K = 8, or 80 eager steps,
+    each) at batch 64 and 128; each graph's capture and instantiate seconds
+    and pool MB; with `--profile`, the graph path's profile. (b) resnet18 +
+    BlurPool (face detector), efficientnet_b0 (stochastic depth) and
+    hybrid_vit (dropout): 2 replays of K = 4 against 8 eager steps, as in
+    (a), ms per step. (c) Phase 7's run through `run_training(...,
+    steps_per_dispatch=8)` on phase 7's frames: every loss finite, the final
+    validation loss below the untrained model's, the resume file read back
+    into a fresh trainer gives every tensor, and the first block of each
+    epoch, rerun eagerly on a second trainer from the same state, generator
+    and batches, bit-equal to the graph's, with K1, K2 and K3 held to their
+    plain versions in the rerun as phase 7 holds them; images/s per epoch
+    beside phase 7's;
+ 15. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
-    `launches_export` from phase 13), then `{"ok": true, "device": ...}` as
-    the last line.
+    `launches_export` from phase 13, `launches_multistep` from phase 14
+    (a)'s graph run), then `{"ok": true, "device": ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -170,6 +196,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, SRC, S, THETA = 64, 448, 129, 30.0
 STEPS_WARMUP, STEPS_TIMED = 3, 20
+# several steps in one dispatch (phase 14): K, the replays timed, the backbones and their K
+MS_K, MS_TIMED_REPLAYS, MS_BACKBONE_K = 8, 10, 4
+MS_BACKBONES = [("resnet18", {"use_blurpool": True}, True), ("efficientnet_b0", {}, False), ("hybrid_vit", {}, False)]
 RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
 # the convergence gate: tests/test_convergence.py of the JAX package
 CONV_N, CONV_SEED, CONV_VAL, CONV_B, CONV_EPOCHS, CONV_SAMPLES = 4096, 3, 400, 128, 16, 10240
@@ -307,8 +336,8 @@ def k1_captured(K1, keep):
     same kind; for `k1_against_plain`."""
     captured, launch, seen = [], K1.warp_roi_rotate, {False: 0, True: 0}
 
-    def capture(images, view_roi, angles, out_size, theta_max_deg, skip_rotation=False):
-        out = launch(images, view_roi, angles, out_size, theta_max_deg, skip_rotation)
+    def capture(images, view_roi, angles, out_size, theta_max_deg, skip_rotation=False, plan=None):
+        out = launch(images, view_roi, angles, out_size, theta_max_deg, skip_rotation, plan=plan)
         if keep(skip_rotation, seen[skip_rotation]):
             captured.append((images.clone(), view_roi.clone(), angles.clone(), out_size, theta_max_deg, skip_rotation,
                              out.clone()))
@@ -384,9 +413,10 @@ def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def synthetic_batch(np, n):
-    """The training batch of the JAX package's bench.py, at batch n."""
-    rng = np.random.RandomState(0)
+def synthetic_batch(np, n, seed=0):
+    """The training batch of the JAX package's bench.py, at batch n (other
+    seeds give other images and points)."""
+    rng = np.random.RandomState(seed)
     return {
         "image": rng.randint(0, 256, size=(n, SRC, SRC, 1), dtype=np.uint8),
         "pose": np.tile(np.asarray([0.0, 0, 0, 1], np.float32), (n, 1)),
@@ -836,7 +866,8 @@ def training_run_phase(torch, np, dev, smi):
         nonlocal state
         state, _ = trainer.train_step(state, next(more), W, generator=gen)
 
-    return launches, errs, step, dict(outdir=outdir, val_frames=val_frames, untrained=untrained_model)
+    return launches, errs, step, dict(outdir=outdir, val_frames=val_frames, untrained=untrained_model,
+                                      train_frames=train_frames, records=records, untrained_loss=untrained_loss)
 
 
 def eval_samples(frames):
@@ -925,7 +956,12 @@ def convergence_phase(torch, np, dev, smi):
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
-    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch
+    from neuralnet_tracker_traincode_torch.data.loader import (
+        LABEL_CATEGORIES,
+        iterate_fused_batches,
+        pack_fused_batch,
+        stack_batches,
+    )
     from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
     from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
     from neuralnet_tracker_traincode_torch.kernels import equalize as K2
@@ -933,6 +969,7 @@ def convergence_phase(torch, np, dev, smi):
     from neuralnet_tracker_traincode_torch.kernels import noise as K3
     from neuralnet_tracker_traincode_torch.kernels import warp as K1
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.scripts.train_poseestimator import steps_per_dispatch
     from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
     from neuralnet_tracker_traincode_torch.train.run import LossOptions, run_training, setup_losses
     from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
@@ -953,32 +990,39 @@ def convergence_phase(torch, np, dev, smi):
     state = trainer.init_state(torch.Generator().manual_seed(1234))
     validation = FusedValidation(trainer, val_frames, batchsize=2 * CONV_B)
     packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
+    steps_per_epoch = cfg.steps_per_epoch
+    K = steps_per_dispatch(0, CONV_B, steps_per_epoch, dev.type)  # the training CLI's default on the card
 
-    def batches(start):  # the training CLI's sampler
+    def batches(start):  # the training CLI's sampler, K batches a group
         sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=CONV_SEED)
-        return iterate_fused_batches(packed, CONV_B, sampler, device=dev, start=start)
+        it = iterate_fused_batches(packed, CONV_B, sampler, device=dev, start=start)
+        return it if K == 1 else stack_batches(it, K)
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_convergence_")
-    steps_per_epoch = cfg.steps_per_epoch
     t_data = time.perf_counter() - t_phase
     try:
-        # as in phase 7: K1 and K3 at each epoch's first step, every steps_per_epoch-th K2 launch
-        with k1_captured(K1, lambda skip, n: not skip and n % steps_per_epoch == 0) as train_crops, \
-                wrapper_captured(K2, "equalize", steps_per_epoch) as equalized, \
-                wrapper_captured(K3, "add_gaussian_noise", steps_per_epoch) as noised:
+        # K1 and K3 at every training launch, every 4th K2 launch (each step's first of its 4): the warm-up's,
+        # eager, and the graph's, whose copies (made inside the graph) hold the last replay's inputs and outputs
+        with k1_captured(K1, lambda skip, n: not skip) as train_crops, \
+                wrapper_captured(K2, "equalize", 4) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", 1) as noised:
             torch.cuda.synchronize()
             ext.reset_launch_counts()
             t_run = time.perf_counter()
-            state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7))
+            state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7),
+                                          steps_per_dispatch=K)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t_run
             launches = dict(ext.LAUNCHES)
         steps = CONV_EPOCHS * steps_per_epoch
-        check(state.step == steps, f"the run took {state.step} steps, not {steps}")
-        check(launches["warp_roi_rotate"] == steps + CONV_EPOCHS * len(validation._batches),
+        warm = trainer.graph_stats["warmup_steps"]
+        check(K == 8 and state.step == steps, f"the run took {state.step} steps in blocks of {K}, not {steps} of 8")
+        check(launches["warp_roi_rotate"] == steps + warm + CONV_EPOCHS * len(validation._batches),
               f"K1 launched {launches['warp_roi_rotate']} times")
-        check(launches["gaussian_noise"] == steps and launches["equalize"] >= 1, f"launches {launches}")
-        check(len(train_crops) == CONV_EPOCHS, f"{len(train_crops)} training crops kept, not {CONV_EPOCHS}")
+        check(launches["gaussian_noise"] == steps + warm and launches["equalize"] == 4 * (steps + warm),
+              f"launches {launches}")
+        check(len(train_crops) == warm + K * trainer.graph_stats["captures"],
+              f"{len(train_crops)} training crops kept for {trainer.graph_stats}")
         for images, _, _, _, _, skip, _ in train_crops:
             check(not skip and tuple(images.shape) == (CONV_B, RUN_SRC, RUN_SRC), f"K1 at {tuple(images.shape)}")
         err_k1 = k1_against_plain(K1, train_crops, "convergence run's crop")
@@ -1003,8 +1047,9 @@ def convergence_phase(torch, np, dev, smi):
     best_geo, best_nme = rows["best.ckpt"][5], rows["best.ckpt"][8]
     print(f"convergence gate: best.ckpt geodesic {best_geo:.3f} deg (< 16), NME3d {best_nme:.3f}% (< 16); swa.ckpt "
           f"geodesic {rows['swa.ckpt'][5]:.3f}, NME3d {rows['swa.ckpt'][8]:.3f}; {len(samples)} of {CONV_N} frames "
-          f"without extreme poses; K1 at the run's crops max |kernel - plain| {err_k1:.3e} gray; launches "
-          f"{launches}; data {t_data:.2f} s, run {run_s:.2f} s ({steps * CONV_B / run_s:.1f} images/s with "
+          f"without extreme poses; K1 at the run's crops max |kernel - plain| {err_k1:.3e} gray; {K} steps a "
+          f"dispatch, graphs {trainer.graph_stats}; launches {launches} ({warm} warm-up steps); data {t_data:.2f} s, "
+          f"run {run_s:.2f} s ({steps * CONV_B / run_s:.1f} images/s with "
           f"validation and checkpoints), eval {eval_s:.2f} s (Predictor ms per chunk of 128, swa.ckpt, median of "
           f"{len(stages['crop_ms'])} chunks: "
           + ", ".join(f"{k} {statistics.median(v):.2f}" for k, v in stages.items())
@@ -1016,7 +1061,7 @@ def convergence_phase(torch, np, dev, smi):
 
     def step():
         nonlocal state
-        state, _ = trainer.train_step(state, next(more), W, generator=gen)
+        state, _ = trainer.train_step_multi(state, next(more), W, generator=gen)
 
     return launches, errs, step
 
@@ -1642,6 +1687,385 @@ def pseudo_labels_phase(np, dev, outdir, env):
     print(f"export: the pseudo-label CLI exited 0 in {time.perf_counter() - t0:.1f} s over {RUN_VAL} frames")
 
 
+def host_kept(batch):
+    """`batch` (tensors on the card) with host copies of its fields, as
+    `device_prefetch_stacked` keeps them: a step's host part then plans K1
+    without waiting for the card."""
+    from neuralnet_tracker_traincode_torch.data.loader import StackedBatch
+
+    return StackedBatch(batch, {k: v.cpu() for k, v in batch.items()})
+
+
+def state_snapshot(trainer, state):
+    """Copies of every tensor a step changes (parameters, buffers, Adam moments and count)."""
+    return [t.detach().clone() for t in trainer._state_tensors(state)]
+
+
+def state_restore(torch, trainer, state, snapshot):
+    with torch.no_grad():
+        for t, s in zip(trainer._state_tensors(state), snapshot):
+            t.copy_(s)
+
+
+def max_diff(torch, a, b):
+    """(bit-equal, largest |a - b|) over two lists of tensors."""
+    equal, d = True, 0.0
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            equal = False
+            d = max(d, float((x.double() - y.double()).abs().max()))
+    return equal, d
+
+
+def eager_block(torch, trainer, state, batches, W, seed):
+    """`train_step` over `batches` from a generator seeded `seed`: the
+    metrics (steps, names) and ms per step (CUDA events around the calls)."""
+    gen = torch.Generator().manual_seed(seed)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    rows = []
+    a.record()
+    for batch in batches:
+        state, m = trainer.train_step(state, batch, W, generator=gen)
+        rows.append(torch.stack([m[n] for n in m]))
+    b.record()
+    b.synchronize()
+    return torch.stack(rows), a.elapsed_time(b) / len(batches)
+
+
+def graph_block(torch, trainer, state, groups, W, seed):
+    """`train_step_multi` over the stacked `groups`: the metrics (steps,
+    names) and ms per step of the calls after the first (which captures)."""
+    gen = torch.Generator().manual_seed(seed)
+    rows, times = [], []
+    for group in groups:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trainer.train_step_multi(state, group, W, generator=gen)
+        b.record()
+        rows.append(torch.stack([m[n] for n in m], -1))
+        times.append((a, b, len(group["tag_id"])))
+    torch.cuda.synchronize()
+    return torch.cat(rows), statistics.mean(a.elapsed_time(b) / k for a, b, k in times[1:])
+
+
+def against_eager(torch, trainer, state, singles, groups, W, what):
+    """From one saved state: the eager steps twice, then the graph's
+    replays over the same batches and draws. Every metric, parameter,
+    buffer, Adam moment and the count must be bit-equal to the first eager
+    run's, or, where the two eager runs differ, within their difference (the
+    floor). Leaves the state as it found it. Returns the eager runs'
+    floor (0 when bit-equal), the graph's largest difference, ms per step
+    eager and graph, and the kernel launches of the graph's run."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+
+    saved = state_snapshot(trainer, state)
+    runs, ms = [], []
+    for kind in ("eager", "eager", "graph"):
+        state_restore(torch, trainer, state, saved)
+        torch.cuda.synchronize()
+        if kind == "graph":
+            ext.reset_launch_counts()
+            metrics, t = graph_block(torch, trainer, state, groups, W, 7)
+            launches = dict(ext.LAUNCHES)
+        else:
+            metrics, t = eager_block(torch, trainer, state, singles, W, 7)
+        runs.append([metrics] + state_snapshot(trainer, state))
+        ms.append(t)
+    state_restore(torch, trainer, state, saved)
+    eager_equal, floor = max_diff(torch, runs[0], runs[1])
+    graph_equal, diff = max_diff(torch, runs[0], runs[2])
+    check(bool(torch.isfinite(runs[2][0]).all()), f"{what}: non-finite metrics through the graph")
+    if eager_equal:
+        check(graph_equal, f"{what}: the graph's steps differ from the eager steps by up to {diff}")
+    else:
+        check(diff <= floor, f"{what}: the graph differs from the eager steps by {diff}, above the eager floor {floor}")
+    return floor, diff, ms[1], ms[2], launches
+
+
+def k1_plan_sizes(torch, trainer, batch, smi):
+    """K1 at one step's own inputs with the plan read back, the step's
+    rounded host plan and a plan for |scale| 2 larger: are the crops equal?"""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
+        augment_batch_for_training,
+        sample_augmentation_parameters,
+    )
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+
+    cfg = trainer.config.aug
+    aug = sample_augmentation_parameters(torch.Generator().manual_seed(3), B, cfg)
+    plan = trainer.prepare_step(batch, aug_params=aug).plan
+    labels = {k: v for k, v in batch.items() if k not in ("image", "param_index", "tag_id", "dataset_weight")}
+    with k1_captured(K1, lambda skip, n: True) as captured:
+        augment_batch_for_training(batch["image"], labels, trainer.categories, cfg, params=aug,
+                                   param_index=batch["param_index"], device=batch["image"].device, k1_plan=plan)
+    (images, view_roi, angles, out_size, theta, skip, out), = captured
+    cs = K1.canvas_size(out_size, theta)
+    p = K1.warp_params(view_roi, angles, out_size, cs)
+    max_sy, max_sx = p[:, [1, 3]].abs().amax(0).tolist()
+    exact = K1.launch_plan(images.shape[2], cs, True, max_sy, max_sx)
+    larger = K1.rounded_plan(images.shape[2], cs, True, max_sy + 2.0, max_sx + 2.0)
+    crops = {name: K1.warp_roi_rotate(images, view_roi, angles, out_size, theta, plan=pl)
+             for name, pl in (("read back", None), ("rounded", plan), ("larger", larger))}
+    equal = {name: torch.equal(c, crops["read back"]) for name, c in crops.items()}
+    print(f"multistep: K1 at a step's own inputs, |scale| up to {max_sy:.3f} / {max_sx:.3f}: plan read back {exact}, "
+          f"rounded host plan {plan}, larger {larger}; crops bit-equal to the read-back plan's: {equal} on {smi}")
+    check(plan.taps_x >= exact.taps_x and plan.taps_y >= exact.taps_y, f"the host plan {plan} is below {exact}")
+    return all(equal.values())
+
+
+def multistep_phase(torch, np, dev, smi, profile=False):
+    """Phase 14 (a) and (b): the graph's replays against eager steps at the
+    flagship configuration and with the other backbones; timing; the
+    device part under `set_sync_debug_mode("error")`."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.profiling import profile_steps
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def make_trainer(config="mobilenetv1", args=None, face=False):
+        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config=config,
+                                     backbone_args=args or {}, enable_face_detector=face, dtype=torch.bfloat16)
+        cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
+                            aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+        trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev)
+        return trainer, trainer.init_state(torch.Generator().manual_seed(0)), trainer.weight_matrix(50)
+
+    def batches(n, count, K):
+        singles = [host_kept({k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, n, 100 + i).items()})
+                   for i in range(count)]
+        groups = [host_kept({k: torch.stack([b[k] for b in singles[j:j + K]]) for k in singles[0]})
+                  for j in range(0, count, K)]
+        return singles, groups
+
+    def graphs_line(trainer):
+        return "; ".join(f"{g.K} steps of batch {len(g.batch['tag_id'][0])}: capture {g.capture_s:.2f} s, "
+                         f"instantiate {g.instantiate_s:.3f} s, pool {g.pool_bytes / 2**20:.0f} MB"
+                         for g in trainer._graphs.values())
+
+    # (a) the flagship configuration, batch 64: 16 eager steps twice, then 2 replays of K = 8
+    trainer, state, W = make_trainer()
+    singles, groups = batches(B, 2 * MS_K, MS_K)
+    saved = state_snapshot(trainer, state)
+    trainer.train_step(state, singles[0], W, generator=torch.Generator().manual_seed(1))  # first calls at these shapes
+    state_restore(torch, trainer, state, saved)
+    floor, diff, _, _, launches = against_eager(torch, trainer, state, singles, groups, W, "flagship, K=8")
+    warm = trainer.graph_stats["warmup_steps"]
+    steps = 2 * MS_K + warm
+    check(launches["warp_roi_rotate"] == steps and launches["gaussian_noise"] == steps
+          and launches["equalize"] == 4 * steps and launches["gaussian_noise_from_bits"] == 0,
+          f"graph run launches {launches} in {2 * MS_K} replayed steps and {warm} warm-up steps")
+    print(f"multistep (a) flagship, batch {B}, K={MS_K}: 2 replays against 16 eager steps from one state: "
+          + ("eager bit-equal run to run; " if floor == 0 else f"eager run to run differs by up to {floor:.3e}; ")
+          + ("graph bit-equal to eager in every metric, parameter, buffer, Adam moment and the count"
+             if diff == 0 else f"graph within {diff:.3e} of eager")
+          + f"; launches {launches} ({warm} of each step's launches are the warm-up's, eager on a side stream); "
+          f"{graphs_line(trainer)} on {smi}")
+    plan_equal = k1_plan_sizes(torch, trainer, singles[0], smi)
+
+    # one eager device part under the sync debug mode: no sync and no pageable copy
+    inputs = trainer.prepare_step(singles[1], generator=torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.device_step(state, inputs, W)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    state_restore(torch, trainer, state, saved)
+    print(f"multistep: one eager device part ran under torch.cuda.set_sync_debug_mode('error') on {smi}")
+
+    # ms per step, eager / graph / graph / eager, 10 replays' worth each, at batch 64 and 128
+    timing = {}
+    for n in (B, 2 * B):
+        if n != B:
+            singles, groups = batches(n, 2 * MS_K, MS_K)
+        gen = torch.Generator().manual_seed(5)
+        i = [0]
+
+        def eager():
+            trainer.train_step(state, singles[i[0] % len(singles)], W, generator=gen)
+            i[0] += 1
+
+        def graph():
+            trainer.train_step_multi(state, groups[i[0] % len(groups)], W, generator=gen)
+            i[0] += 1
+
+        graph()  # captures at batch 128
+        eager()
+        rows = []
+        for kind in ("eager", "graph", "graph", "eager"):
+            calls = MS_TIMED_REPLAYS * (MS_K if kind == "eager" else 1)
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(calls):
+                (eager if kind == "eager" else graph)()
+            b.record()
+            b.synchronize()
+            rows.append((kind, a.elapsed_time(b) / (MS_TIMED_REPLAYS * MS_K)))
+        timing[n] = rows
+        print(f"multistep timing, batch {n}: ms per step " + ", ".join(f"{k} {v:.3f}" for k, v in rows)
+              + f" ({MS_TIMED_REPLAYS} replays of K={MS_K} or {MS_TIMED_REPLAYS * MS_K} eager steps each, CUDA "
+              f"events) on {smi}")
+        if profile:
+            print(f"profile (multistep graph, batch {n}): "
+                  + json.dumps(profile_steps(graph, 3, steps_per_call=MS_K)))
+    print(f"multistep graphs: {graphs_line(trainer)}; all {trainer.graph_stats} on {smi}")
+    del trainer, state, groups
+
+    # (b) the other backbones: 2 replays of K = 4 against 8 eager steps
+    singles, groups = batches(B, 2 * MS_BACKBONE_K, MS_BACKBONE_K)
+    backbone_ms = {}
+    for config, args, face in MS_BACKBONES:
+        trainer, state, W = make_trainer(config, args, face)
+        saved = state_snapshot(trainer, state)
+        trainer.train_step(state, singles[0], W, generator=torch.Generator().manual_seed(1))
+        state_restore(torch, trainer, state, saved)
+        floor, diff, eager_ms, graph_ms, _ = against_eager(torch, trainer, state, singles, groups, W,
+                                                           f"{config}, K={MS_BACKBONE_K}")
+        backbone_ms[config] = (eager_ms, graph_ms)
+        print(f"multistep (b) {config} {args or ''}{' + face detector' if face else ''}: 2 replays of "
+              f"K={MS_BACKBONE_K} against {2 * MS_BACKBONE_K} eager steps: "
+              + ("eager bit-equal run to run, " if floor == 0 else f"eager run to run within {floor:.3e}, ")
+              + ("graph bit-equal" if diff == 0 else f"graph within {diff:.3e}")
+              + f"; ms per step eager {eager_ms:.3f}, graph {graph_ms:.3f}; {graphs_line(trainer)} on {smi}")
+        del trainer, state
+    print(f"multistep (a)+(b): phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, timing, backbone_ms, plan_equal
+
+
+def multistep_run_phase(torch, np, dev, smi, run):
+    """Phase 14 (c): phase 7's run through `run_training(steps_per_dispatch=8)`,
+    the first block of each epoch rerun eagerly on a second trainer from the
+    same state, generator and batches, and held equal; in the rerun K1, K2
+    and K3 against their plain versions."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.loader import (
+        LABEL_CATEGORIES,
+        iterate_fused_batches,
+        pack_fused_batch,
+        stack_batches,
+    )
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.checkpointing import load_train_state
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.run import LossOptions, run_training, setup_losses
+    from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    opts = LossOptions(epochs=RUN_EPOCHS, with_nll_loss=True, with_pointhead=True, with_roi_train=True, enable_6drot=True)
+
+    def make_trainer():  # phase 7's
+        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                     enable_6drot=True, dtype=torch.bfloat16)
+        cfg = TrainerConfig(batchsize=B, epochs=RUN_EPOCHS, samples_per_epoch=RUN_SAMPLES_PER_EPOCH, swa_start_epoch=1,
+                            aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+        return PoseTrainer(model, setup_losses(opts, [Tag.POSE_WITH_LANDMARKS]), cfg, LABEL_CATEGORIES, device=dev)
+
+    trainer = make_trainer()
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    rerun = make_trainer()
+    rerun_state = rerun.init_state(torch.Generator().manual_seed(0))
+    validation = FusedValidation(trainer, run["val_frames"], batchsize=2 * B)
+    train_frames = run["train_frames"]
+    packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
+
+    def batches(start):  # phase 7's sampler, K batches a group
+        sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=5)
+        return stack_batches(iterate_fused_batches(packed, B, sampler, device=dev, start=start), MS_K)
+
+    steps_per_epoch = trainer.config.steps_per_epoch
+    replay = trainer.train_step_multi
+    errs = {"warp_roi_rotate": 0.0, "equalize": 0.0, "gaussian_noise": 0.0}
+    checked, rerun_s = [], []  # the step of each block rerun, and the host seconds each check took
+
+    def first_block_rerun(state, group, W, aug_params=None, generator=None):
+        if state.step % steps_per_epoch:
+            return replay(state, group, W, aug_params, generator)
+        t_check = time.perf_counter()
+        before, gen_state = state_snapshot(trainer, state), generator.get_state()
+        block = {k: v.clone() for k, v in group.items()}
+        t_replay = time.perf_counter()
+        state, m = replay(state, group, W, aug_params, generator)
+        t_check += time.perf_counter() - t_replay  # the replay is the run's, the rest the check's
+        graph_side = [torch.stack([m[n] for n in m], -1)] + state_snapshot(trainer, state)
+        # the same block, eagerly, on the second trainer (its launches are a check's, not the run's)
+        counts = dict(ext.LAUNCHES)
+        state_restore(torch, rerun, rerun_state, before)
+        g = torch.Generator()
+        g.set_state(gen_state)
+        rows, st = [], rerun_state
+        with k1_captured(K1, lambda skip, n: n == 0) as crops, wrapper_captured(K2, "equalize", 4) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", 10**9) as noised:
+            for k in range(MS_K):
+                st, mk = rerun.train_step(st, {n: v[k] for n, v in block.items()}, W, generator=g)
+                rows.append(torch.stack([mk[n] for n in mk]))
+            torch.cuda.synchronize()
+        equal, d = max_diff(torch, graph_side, [torch.stack(rows)] + state_snapshot(rerun, st))
+        check(equal, f"run epoch {state.step // steps_per_epoch}: the graph's first block differs from its eager "
+                     f"rerun by up to {d}")
+        errs["warp_roi_rotate"] = max(errs["warp_roi_rotate"], k1_against_plain(K1, crops, "multistep run rerun"))
+        for k, v in k2_k3_against_plain(torch, K2, K3, equalized, noised, "multistep run rerun").items():
+            errs[k] = max(errs[k], v)
+        ext.LAUNCHES.update(counts)
+        checked.append(state.step)
+        rerun_s.append(time.perf_counter() - t_check)
+        return state, m
+
+    trainer.train_step_multi = first_block_rerun
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_multistep_run_")
+    try:
+        torch.cuda.synchronize()
+        ext.reset_launch_counts()
+        t_run = time.perf_counter()
+        state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7),
+                                      steps_per_dispatch=MS_K)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = dict(ext.LAUNCHES)
+        steps = RUN_EPOCHS * steps_per_epoch
+        check(state.step == steps and len(checked) == RUN_EPOCHS, f"step {state.step}, {len(checked)} blocks rerun")
+        for r in records:
+            bad = [k for k, v in r["train_metrics"].items() if not math.isfinite(v)]
+            check(not bad and math.isfinite(r["val_loss"]), f"epoch {r['epoch']}: non-finite {bad or 'validation loss'}")
+        final_loss, untrained_loss = records[-1]["val_loss"], run["untrained_loss"]
+        check(final_loss < untrained_loss, f"validation loss {final_loss} is not below the untrained {untrained_loss}")
+        fresh = make_trainer()
+        resumed, extra = load_train_state(fresh, os.path.join(outdir, "resume.pt"))
+        pairs = [(fresh.model.state_dict(), trainer.model.state_dict()), (resumed.opt_state.mu, state.opt_state.mu),
+                 (resumed.opt_state.nu, state.opt_state.nu), (resumed.swa_params, state.swa_params),
+                 (resumed.swa_buffers, state.swa_buffers)]
+        differ = [k for got, want in pairs for k in want if not torch.equal(got[k], want[k])]
+        check(not differ and int(resumed.opt_state.count) == int(state.opt_state.count) == steps
+              and extra["epoch"] == RUN_EPOCHS - 1, f"the resume file gives back other tensors: {differ[:5]}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for r, r7, c in zip(records, run["records"], rerun_s):
+        s = r["train_s"] - c
+        print(f"multistep run epoch {r['epoch'] + 1}/{RUN_EPOCHS}: {r['steps']} steps in {s * 1e3:.1f} ms without the "
+              f"{c * 1e3:.1f} ms of the eager rerun's check, {r['steps'] * B / s:.1f} images/s (phase 7, eager, this "
+              f"call: {r7['images_per_s']:.1f}); validation loss {r['val_loss']:.4f} (phase 7: {r7['val_loss']:.4f}) "
+              f"on {smi}")
+    print(f"multistep run (c): {steps} steps in blocks of {MS_K}, validation loss {untrained_loss:.4f} -> "
+          f"{final_loss:.4f}; each epoch's first block bit-equal to its eager rerun; the resume file gives back "
+          f"every tensor; launches {launches} ({trainer.graph_stats['warmup_steps']} warm-up steps); graphs "
+          f"{trainer.graph_stats}; run {run_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return errs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -1688,7 +2112,8 @@ def main() -> int:
             shutil.rmtree(run["outdir"], ignore_errors=True)
         conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
         if profile:
-            print("profile (convergence run's step): " + json.dumps(profile_steps(conv_step, 5)))
+            print("profile (convergence run's dispatch of 8 steps): "
+                  + json.dumps(profile_steps(conv_step, 2, steps_per_call=8)))
         loc_launches, errs_loc, loc_stream, localizer = localizer_phase(torch, np, dev, f"{name} ({smi})")
         bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
         ld_launches, errs_ld = loader_phase(torch, np, dev, f"{name} ({smi})")
@@ -1697,9 +2122,11 @@ def main() -> int:
                                    eval_samples(run["val_frames"]), localizer)
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
+    ms_launches, _, _, _ = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
+    errs_ms = multistep_run_phase(torch, np, dev, f"{name} ({smi})", run)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0)
-                                                     for e in (errs_run, errs_conv, errs_loc, errs_bb, errs_ld)])
+                                                     for e in (errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms)])
 
     kernels = []
     for r in rows:
@@ -1709,7 +2136,7 @@ def main() -> int:
             launches=launches[r["name"]], launches_training_run=run_launches[r["name"]],
             launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
-            launches_export=ex_launches[r["name"]],
+            launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

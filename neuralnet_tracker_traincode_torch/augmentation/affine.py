@@ -11,6 +11,7 @@ Counterpart of the JAX package's `augmentation/affine.py`:
 import torch
 
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory, imagelike_categories
+from neuralnet_tracker_traincode_torch.device import device_constant
 from neuralnet_tracker_traincode_torch.facemodel.keypoints68 import flip_map
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
 from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
@@ -44,7 +45,7 @@ def transform_points(tr: Affine2d, points: torch.Tensor) -> torch.Tensor:
 def transform_keypoints(tr: Affine2d, points: torch.Tensor) -> torch.Tensor:
     """Like transform_points but reindexes the 68 landmarks under reflection."""
     out = transform_points(tr, points)
-    flipped = out[..., torch.as_tensor(flip_map, device=out.device), :]
+    flipped = out[..., device_constant(flip_map, out.device, torch.int64), :]
     mask = (tr.det < 0.0).reshape(tr.det.shape + (1, 1))
     return torch.where(mask, flipped, out)
 

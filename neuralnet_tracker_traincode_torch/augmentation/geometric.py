@@ -7,6 +7,7 @@ and the functions that apply take the drawn values. Video sequences share
 their first frame's draws through `share_params_within_sequences`.
 """
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -91,15 +92,19 @@ def _point_transform_from_roi(view_roi: torch.Tensor, new_size: int) -> Affine2d
     )
 
 
+@functools.lru_cache(maxsize=None)
+def constant_remap(inmin, inmax, outmin, outmax, device: torch.device) -> Affine2d:
+    """A constant `Affine2d.range_remap_2d` (corners as tuples), computed on
+    the host and copied to `device` once: the step copies no constant from
+    the host."""
+    return Affine2d(Affine2d.range_remap_2d(inmin, inmax, outmin, outmax).tensor().to(device))
+
+
 def _center_rotation_tr(angles: torch.Tensor, new_size: int) -> Affine2d:
-    dev = angles.device
-    tr_norm = Affine2d.range_remap_2d(
-        torch.tensor([0.0, 0.0], device=dev), [new_size, new_size], [-1.0, -1.0], [1.0, 1.0]
-    )
+    dev, n = angles.device, float(new_size)
+    tr_norm = constant_remap((0.0, 0.0), (n, n), (-1.0, -1.0), (1.0, 1.0), dev)
     tr_rot = Affine2d.trs(angles=angles)
-    tr_denorm = Affine2d.range_remap_2d(
-        torch.tensor([-1.0, -1.0], device=dev), [1.0, 1.0], [0.0, 0.0], [new_size, new_size]
-    )
+    tr_denorm = constant_remap((-1.0, -1.0), (1.0, 1.0), (0.0, 0.0), (n, n), dev)
     return tr_denorm @ tr_rot @ tr_norm
 
 
@@ -134,18 +139,12 @@ def flip_rot90_transform(do_flip: torch.Tensor, rot_dir: torch.Tensor, new_size:
     dev = do_flip.device
     w = h = float(new_size)
     tr_rot = (
-        Affine2d.range_remap_2d(torch.tensor([-1.0, -1.0], device=dev), [1.0, 1.0], [0.0, 0.0], [w, h]).broadcast_to(
-            batchshape
-        )
+        constant_remap((-1.0, -1.0), (1.0, 1.0), (0.0, 0.0), (w, h), dev).broadcast_to(batchshape)
         @ Affine2d.trs(angles=rot_dir * (math.pi * 0.5))
-        @ Affine2d.range_remap_2d(torch.tensor([0.0, 0.0], device=dev), [w, h], [-1.0, -1.0], [1.0, 1.0]).broadcast_to(
-            batchshape
-        )
+        @ constant_remap((0.0, 0.0), (w, h), (-1.0, -1.0), (1.0, 1.0), dev).broadcast_to(batchshape)
     )
     identity = Affine2d.identity(dev).broadcast_to(batchshape)
     tr = Affine2d(torch.where((rot_dir != 0.0)[..., None, None], tr_rot.tensor(), identity.tensor()))
-    tr_flip = Affine2d.range_remap_2d(
-        torch.tensor([0.0, 0.0], device=dev), [w, h], [w, 0.0], [0.0, h]
-    ).broadcast_to(batchshape)
+    tr_flip = constant_remap((0.0, 0.0), (w, h), (w, 0.0), (0.0, h), dev).broadcast_to(batchshape)
     flip_or_id = Affine2d(torch.where(do_flip[..., None, None], tr_flip.tensor(), identity.tensor()))
     return tr @ flip_or_id

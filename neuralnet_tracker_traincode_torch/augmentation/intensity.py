@@ -13,6 +13,13 @@ selected op then gates per sample with its own probability. Sampling
 `torch.Generator`) is separate from applying. Equalize runs through K2
 (`kernels/equalize.py`) and the noise through K3 (`kernels/noise.py`).
 Images are floats in [0, 1], shape (B, H, W, C).
+
+Stage 1 is branch-free: the drawn order stays on the device, and each of the
+4 slots applies all 6 ops, op o gated per sample by (perm[slot] == o) and
+its own mask. An op whose gate is off returns its input unchanged (`where`,
+and K2 passes a gated-off image through), so this equals applying the 4
+drawn ops in the drawn order, bit for bit, with no value read back: the
+same kernels run for every draw, as a CUDA graph of the step needs.
 """
 
 from typing import NamedTuple, Optional
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralnet_tracker_traincode_torch.device import device_constant
 from neuralnet_tracker_traincode_torch.kernels import equalize as K2
 from neuralnet_tracker_traincode_torch.kernels import noise as K3
 
@@ -36,7 +44,7 @@ class Stage1Parameters(NamedTuple):
     values: torch.Tensor  # (6, B) f32 per-sample value of each op (unused for equalize / blur)
 
     def to(self, device) -> "Stage1Parameters":
-        return Stage1Parameters(self.perm.cpu(), self.masks.to(device), self.values.to(device))
+        return Stage1Parameters(*(t.to(device) for t in self))
 
 
 class NoiseParameters(NamedTuple):
@@ -62,7 +70,7 @@ def sample_stage1_parameters(generator: Optional[torch.Generator], B: int) -> St
 
 def combine_noise_sigma(applied: torch.Tensor) -> torch.Tensor:
     """(B, 4) bool layers applied -> (B,) sigma of their sum."""
-    sig2 = torch.as_tensor(NOISE_SIGMAS, device=applied.device) ** 2
+    sig2 = device_constant(NOISE_SIGMAS, applied.device) ** 2
     return torch.sqrt(torch.sum(sig2[None, :] * applied, dim=-1))
 
 
@@ -83,7 +91,7 @@ def equalize(images: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """Per-image, per-channel histogram equalization through K2, gated per sample."""
     B, H, W, C = images.shape
     flat = images.permute(0, 3, 1, 2).reshape(B * C, H * W).contiguous()
-    out = K2.equalize(flat, gate.repeat_interleave(C))
+    out = K2.equalize(flat, gate[:, None].expand(B, C).reshape(B * C))
     return out.reshape(B, C, H, W).permute(0, 2, 3, 1)
 
 
@@ -116,7 +124,7 @@ def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
 def gaussian_blur(images: torch.Tensor, ksize: int = 5, sigma: float = 1.5) -> torch.Tensor:
     """Separable depthwise gaussian blur with reflect padding (kornia default)."""
     C = images.shape[-1]
-    k = torch.as_tensor(_gaussian_kernel1d(ksize, sigma), device=images.device)
+    k = device_constant(_gaussian_kernel1d(ksize, sigma), images.device)
     pad = ksize // 2
     x = F.pad(images.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
     x = F.conv2d(x, k[None, None, :, None].expand(C, 1, ksize, 1), groups=C)
@@ -141,9 +149,13 @@ def _stage1_op(op: int, x: torch.Tensor, mask: torch.Tensor, value: torch.Tensor
 
 
 def intensity_augmentation_stage1(images: torch.Tensor, params: Stage1Parameters, random_apply: int = 4):
+    """The ops perm[:random_apply] in that order, each gated per sample by
+    its mask, as `random_apply` slots of all 6 ops (module docstring)."""
     x = images
-    for op in params.perm[:random_apply].tolist():
-        x = _stage1_op(op, x, params.masks[op], params.values[op])
+    for slot in range(random_apply):
+        chosen = params.perm[slot]
+        for op in range(len(OP_NAMES)):
+            x = _stage1_op(op, x, (chosen == op) & params.masks[op], params.values[op])
     return x
 
 

@@ -8,17 +8,19 @@
 
 `sample_augmentation_parameters` draws every random value from a
 `torch.Generator`; `augment_batch_for_training` applies explicit draws, so a
-test can hand both packages the same ones. `crop_for_eval` is the
-deterministic eval crop (the gather warp of `warp.py`, 2x oversampled).
+test can hand both packages the same ones. `crop_scale_bounds` repeats the
+crop's ROI arithmetic on the host, for K1's launch plan. `crop_for_eval` is
+the deterministic eval crop (the gather warp of `warp.py`, 2x oversampled).
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from neuralnet_tracker_traincode_torch.augmentation.affine import apply_affine2d, position_normalization
+from neuralnet_tracker_traincode_torch.augmentation.affine import apply_affine2d
 from neuralnet_tracker_traincode_torch.augmentation.geometric import (
     RoiFocusRandomizationParameters,
+    constant_remap,
     flip_rot90_transform,
     focus_roi_components,
     focus_roi_transform,
@@ -37,7 +39,7 @@ from neuralnet_tracker_traincode_torch.augmentation.intensity import (
 from neuralnet_tracker_traincode_torch.augmentation.warp import warp_affine
 from neuralnet_tracker_traincode_torch.augmentation.warp_fast import warp_roi_rotate
 from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
-from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
+from neuralnet_tracker_traincode_torch.device import DeviceLike, device_constant, resolve_device
 from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
 
 
@@ -82,7 +84,7 @@ _POINTISH = (FieldCategory.points, FieldCategory.xys)
 
 
 def _offset_half_pixel(labels, categories, device):
-    tr = Affine2d.trs(translations=torch.tensor([0.5, 0.5], device=device))
+    tr = Affine2d.trs(translations=device_constant([0.5, 0.5], device))
     out = dict(labels)
     for k, v in labels.items():
         if categories.get(k) in _POINTISH:
@@ -100,7 +102,8 @@ def _transform_labels(labels, categories, tr: Affine2d):
 
 
 def _normalize_labels(labels, categories, size: int, device):
-    tr = Affine2d(position_normalization(size, size).tensor().to(device))
+    # affine.py:position_normalization(size, size), kept on the device
+    tr = constant_remap((0.0, 0.0), (float(size), float(size)), (-1.0, -1.0), (1.0, 1.0), device)
     out = dict(labels)
     for k, v in labels.items():
         c = categories.get(k, FieldCategory.general)
@@ -113,6 +116,30 @@ def _normalize_labels(labels, categories, size: int, device):
     return out
 
 
+def crop_scale_bounds(
+    roi: torch.Tensor,
+    params: AugmentationParameters,
+    categories: Dict[str, FieldCategory],
+    cfg: TrainAugmentationConfig,
+    param_index: Optional[torch.Tensor] = None,
+) -> Tuple[float, float]:
+    """(largest |sy|, largest |sx|) of K1's source pixels per crop pixel for
+    a batch, from the host copies of its ROI labels (B, 4) and of its draws:
+    `augment_batch_for_training`'s view ROI arithmetic, on the CPU. A fold
+    of flip or rot90 only reorders a view ROI's corners, so it is left out."""
+    cpu = torch.device("cpu")
+    roi = _offset_half_pixel({cfg.roi_key: roi.to(cpu)}, categories, cpu)[cfg.roi_key]
+    if cfg.deterministic:
+        roi_params = no_roi_randomization((roi.shape[0],), cfg.extension_factor, cpu)
+    else:
+        roi_params = params.roi.to(cpu)
+        if param_index is not None:
+            roi_params = share_params_within_sequences(roi_params, param_index.to(cpu))
+    view_roi, _ = focus_roi_components(roi, roi_params, cfg.inputsize)
+    size = (view_roi[:, 2:] - view_roi[:, :2]).abs().amax(0) / float(cfg.inputsize)
+    return float(size[1]), float(size[0])
+
+
 def augment_batch_for_training(
     images,  # (B, H, W, C) uint8, zero-padded to a fixed size
     labels: Dict[str, Any],
@@ -122,12 +149,15 @@ def augment_batch_for_training(
     generator: Optional[torch.Generator] = None,
     param_index=None,
     device: DeviceLike = None,
+    k1_plan=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Crop-warp + flip/rot90 + intensity + normalize + whiten on `device`.
 
     Returns (whitened f32 images (B, S, S, C), normalized labels).
     `labels[cfg.roi_key]` holds the face bbox in source pixels. `params`
-    holds the draws; without it they are drawn from `generator`.
+    holds the draws; without it they are drawn from `generator`. `k1_plan`
+    is K1's launch plan (`kernels/warp.py:rounded_plan` of
+    `crop_scale_bounds`); without it K1 reads its scales back.
     """
     dev = resolve_device(device)
     images = torch.as_tensor(images).to(dev)
@@ -164,6 +194,7 @@ def augment_batch_for_training(
         do_flip=do_flip,
         rot_dir=rot_dir,
         skip_rotation=cfg.deterministic or not cfg.rotation_aug_angle,
+        plan=k1_plan,
     )
     labels = _transform_labels(labels, categories, tr)
     labels = _normalize_labels(labels, categories, S, dev)

@@ -64,10 +64,11 @@ def warp_roi_rotate(
     do_flip: Optional[torch.Tensor] = None,
     rot_dir: Optional[torch.Tensor] = None,
     skip_rotation: bool = False,
+    plan: Optional[K1.LaunchPlan] = None,
 ) -> torch.Tensor:
     """Crop `view_roi` -> out_size^2 with in-plane rotation about the crop
     centre. Returns (B, S, S, C) float32 in 0..255. Channels go through K1
-    as separate samples."""
+    as separate samples; `plan` is K1's launch plan (`kernels/warp.py`)."""
     B, H, W, C = images.shape
     S = int(out_size)
     view_roi, angles, transpose_mask = fold_fliprot(view_roi, angles, do_flip, rot_dir)
@@ -75,8 +76,8 @@ def warp_roi_rotate(
         planes = images.reshape(B, H, W)
     else:
         planes = images.permute(0, 3, 1, 2).reshape(B * C, H, W)
-        view_roi = view_roi.repeat_interleave(C, dim=0)
-        angles = angles.repeat_interleave(C, dim=0)
-    crop = K1.warp_roi_rotate(planes.contiguous(), view_roi, angles, S, theta_max_deg, skip_rotation)
+        view_roi = view_roi[:, None].expand(B, C, 4).reshape(B * C, 4)
+        angles = angles[:, None].expand(B, C).reshape(B * C)
+    crop = K1.warp_roi_rotate(planes.contiguous(), view_roi, angles, S, theta_max_deg, skip_rotation, plan=plan)
     crop = crop.reshape(B, C, S, S).permute(0, 2, 3, 1)
     return _masked_transpose(crop, transpose_mask)

@@ -19,8 +19,11 @@ thread or spawned process workers and reads the batches back in the same
 order, so the stream is the same for any worker count and type; process
 workers hand the image plane over through a shared-memory ring. Workers
 never touch CUDA. `device_prefetch` uploads batches to the card ahead of
-the consumer from pinned memory on a side stream. `iterate_fused_batches`
-makes training batches of a packed set already held on the card.
+the consumer from pinned memory on a side stream; `device_prefetch_stacked`
+does so for groups of K batches stacked on a leading axis, the input of
+`PoseTrainer.train_step_multi` (`stack_batches` stacks batches that are on
+the card already). `iterate_fused_batches` makes training batches of a
+packed set already held on the card.
 """
 
 import atexit
@@ -559,57 +562,120 @@ class FusedBatchLoader:
             atexit.unregister(cleanup)
 
 
+class StackedBatch(dict):
+    """A group of K batches stacked on a leading axis, on the device, with
+    `host`: the pinned host tensors it was uploaded from, for the reads a
+    step's host part makes (K1's plan reads the ROIs) without waiting for
+    the device."""
+
+    def __init__(self, fields: Dict[str, torch.Tensor], host: Dict[str, torch.Tensor]):
+        super().__init__(fields)
+        self.host = host
+
+
+def _upload_ahead(pinned_items: Iterator[Dict[str, torch.Tensor]], dev: torch.device, size: int, keep_host: bool):
+    """The dicts of pinned host tensors of `pinned_items` on the card, each
+    uploaded `non_blocking` on a side stream `size` items ahead of the
+    consumer; the consuming stream waits on the upload's event, and each
+    tensor is marked as used by it (`record_stream`), so that the caching
+    allocator does not hand its memory out while the consumer still reads it."""
+    stream = torch.cuda.Stream(dev)
+
+    def upload(pinned):
+        with torch.cuda.stream(stream):
+            out = {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+            done = torch.cuda.Event()
+            done.record(stream)
+        return (StackedBatch(out, pinned) if keep_host else out), done
+
+    buf = collections.deque(upload(p) for p in itertools.islice(pinned_items, size))
+    while buf:
+        out, done = buf.popleft()
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(done)
+        for t in out.values():
+            t.record_stream(consumer)
+        nxt = next(pinned_items, None)
+        if nxt is not None:
+            buf.append(upload(nxt))
+        yield out
+
+
+def _pinned(src) -> torch.Tensor:
+    src = torch.as_tensor(src)
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned
+
+
 def device_prefetch(iterator: Iterable[Dict[str, Any]], device: DeviceLike = None, size: int = 2
                     ) -> Iterator[Dict[str, torch.Tensor]]:
     """The batches of `iterator` as tensors on `device` (default: the card),
     `size` batches ahead of the consumer.
 
     On a card each host batch is copied into pinned memory when it arrives
-    (the loader may then reuse its buffers) and uploaded `non_blocking` on a
-    side stream; the consuming stream waits on the upload's event, and each
-    tensor is marked as used by it (`record_stream`), so that the caching
-    allocator does not hand its memory out while the consumer still reads it.
-    On the CPU it is a plain conversion to tensors."""
+    (the loader may then reuse its buffers) and uploaded as `_upload_ahead`
+    says. On the CPU it is a plain conversion to tensors."""
     dev = resolve_device(device)
     it = iter(iterator)
-    if dev.type != "cuda":
-        try:
+    try:
+        if dev.type != "cuda":
             for batch in it:
                 yield {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        finally:
-            if hasattr(it, "close"):
-                it.close()
-        return
-    stream = torch.cuda.Stream(dev)
-
-    def upload(batch):
-        out = {}
-        with torch.cuda.stream(stream):
-            for k, v in batch.items():
-                src = torch.as_tensor(v)
-                pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-                pinned.copy_(src)
-                out[k] = pinned.to(dev, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        return out, done
-
-    buf = collections.deque()
-    try:
-        for batch in itertools.islice(it, size):
-            buf.append(upload(batch))
-        while buf:
-            out, done = buf.popleft()
-            consumer = torch.cuda.current_stream(dev)
-            consumer.wait_event(done)
-            for t in out.values():
-                t.record_stream(consumer)
-            nxt = next(it, None)
-            if nxt is not None:
-                buf.append(upload(nxt))
-            yield out
+            return
+        yield from _upload_ahead(({k: _pinned(v) for k, v in b.items()} for b in it), dev, size, keep_host=False)
     finally:
         if hasattr(it, "close"):  # a loader's workers end with its iterator
+            it.close()
+
+
+def _groups(it: Iterator, k: int) -> Iterator[list]:
+    """Consecutive groups of `k` items; a trailing group smaller than `k` is dropped."""
+    while True:
+        group = list(itertools.islice(it, k))
+        if len(group) < k:
+            return
+        yield group
+
+
+def stack_batches(iterator: Iterable[Dict[str, Any]], steps_per_dispatch: int) -> Iterator[Dict[str, torch.Tensor]]:
+    """Groups of `steps_per_dispatch` batches of `iterator` (tensors on any
+    one device, e.g. `iterate_fused_batches`'s), each field stacked on a
+    leading axis where the batches lie; a trailing smaller group is dropped."""
+    for group in _groups(iter(iterator), int(steps_per_dispatch)):
+        yield {k: torch.stack([torch.as_tensor(b[k]) for b in group]) for k in group[0]}
+
+
+def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLike = None,
+                            steps_per_dispatch: int = 2, size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Like `device_prefetch`, but groups `steps_per_dispatch` host batches
+    into one stacked batch (leading dims (K, B, ...)) for the multi-step
+    dispatch (`PoseTrainer.train_step_multi`). A trailing group smaller than
+    K is dropped (the sampler streams are infinite in training; only bounded
+    runs reach it). On a card the K batches are copied into one pinned
+    tensor per field and uploaded as `device_prefetch` uploads, and each
+    group is a `StackedBatch` that keeps its pinned host tensors."""
+    dev = resolve_device(device)
+    k = int(steps_per_dispatch)
+    it = iter(iterator)
+
+    def pinned_group(group):
+        out = {}
+        for name in group[0]:
+            first = torch.as_tensor(group[0][name])
+            out[name] = torch.empty((k,) + tuple(first.shape), dtype=first.dtype, pin_memory=True)
+            for i, b in enumerate(group):
+                out[name][i].copy_(torch.as_tensor(b[name]))
+        return out
+
+    try:
+        if dev.type != "cuda":
+            for group in _groups(it, k):
+                yield {n: torch.stack([torch.as_tensor(b[n]) for b in group]).to(dev) for n in group[0]}
+            return
+        yield from _upload_ahead((pinned_group(g) for g in _groups(it, k)), dev, size, keep_host=True)
+    finally:
+        if hasattr(it, "close"):
             it.close()
 
 

@@ -1,7 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the constants
+that the training step keeps on its device."""
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -24,3 +26,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet (see ROADMAP.md)")
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`values` (a list or an array) as a `dtype` tensor on `device`, copied
+    from the host once per device and kept. The training step reads its
+    host constants through this, so that after its first call it copies
+    nothing from the host: a CUDA graph capture refuses a pageable copy.
+    The tensor is shared: callers must not change it in place."""
+    a = np.asarray(values)
+    device = torch.device(device)
+    key = (device, dtype, a.dtype.str, a.shape, a.tobytes())
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a).to(dtype=dtype).to(device)
+    return t

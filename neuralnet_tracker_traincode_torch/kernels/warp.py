@@ -10,13 +10,16 @@ Flip and rot90 arrive folded into the ROI and angle (`augmentation/warp_fast.py`
 and takes `warp_roi_rotate_plain` for a CPU tensor; both take the same
 per-sample parameter rows from `warp_params`. The kernel keeps the canvas in
 the shared memory of a 2-CTA cluster; `launch_plan` sizes that memory from
-the batch's largest |scale|. `compose_shears_pull` is the kernel's index
-logic (the three shears and the crop as one 8-tap pull) in PyTorch, for the
-CPU tests.
+the batch's largest |scale|. The wrapper reads that scale back from the card
+unless the caller hands it a plan: the training step plans on the host
+(`rounded_plan`, from the host copies of its ROIs and draws), so that its
+device part waits for nothing and can be captured in a CUDA graph.
+`compose_shears_pull` is the kernel's index logic (the three shears and the
+crop as one 8-tap pull) in PyTorch, for the CPU tests.
 """
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -146,6 +149,27 @@ def launch_plan(W: int, cs: int, rotate: bool, max_sy: float, max_sx: float) -> 
     )
 
 
+PLAN_STEP = 0.5  # rounded_plan's grid of |scale|
+
+
+def rounded_plan(W: int, cs: int, rotate: bool, max_sy: float, max_sx: float) -> LaunchPlan:
+    """`launch_plan` for |scale| bounds known on the host, each rounded up to
+    the next multiple of `PLAN_STEP` (after a relative margin of 2^-20), so
+    that the plan is never smaller than the batch needs and batches of
+    similar ROIs share one plan, and so one captured graph. A larger plan
+    only adds taps of weight zero. Where the rounded bounds do not fit in
+    shared memory, the plan is the bounds' own (with the margin)."""
+    margin = 1.0 + 2.0**-20
+
+    def up(s: float) -> float:
+        return math.ceil(s * margin / PLAN_STEP) * PLAN_STEP
+
+    try:
+        return launch_plan(W, cs, rotate, up(max_sy), up(max_sx))
+    except ValueError:
+        return launch_plan(W, cs, rotate, max_sy * margin, max_sx * margin)
+
+
 def compose_shears_pull(canvas: torch.Tensor, params: torch.Tensor, out_size: int) -> torch.Tensor:
     """The three shears and the centre crop of `warp_roi_rotate_plain` as one
     pull per output pixel, indexed as `csrc/warp.cu` does: output (r, q)
@@ -201,10 +225,13 @@ def warp_roi_rotate(
     out_size: int,
     theta_max_deg: float,
     skip_rotation: bool = False,
+    plan: Optional[LaunchPlan] = None,
 ) -> torch.Tensor:
     """(B, S, S) f32 crops in 0..255: the kernel for a CUDA tensor, the plain
-    version for a CPU tensor. On the card it reads the batch's largest
-    |scale| back to the host to size the kernel's shared memory."""
+    version for a CPU tensor. On the card the kernel's shared memory follows
+    `plan`, which must be at least the batch's own (`rounded_plan` of bounds
+    on its |scale|); without one the wrapper reads the batch's largest
+    |scale| back to the host."""
     S = int(out_size)
     cs = S if skip_rotation else canvas_size(S, theta_max_deg)
     params = warp_params(view_roi.to(images.device), angles.to(images.device), S, cs)
@@ -213,8 +240,9 @@ def warp_roi_rotate(
     ext.require_cuda_tensor(images, "images", torch.uint8, 3)
     B, _, W = images.shape
     out = torch.empty((B, S, S), dtype=torch.float32, device=images.device)
-    max_sy, max_sx = params[:, [1, 3]].abs().amax(0).tolist()
-    plan = launch_plan(W, cs, not skip_rotation, max_sy, max_sx)
+    if plan is None:
+        max_sy, max_sx = params[:, [1, 3]].abs().amax(0).tolist()
+        plan = launch_plan(W, cs, not skip_rotation, max_sy, max_sx)
     ext.extension().warp_roi_rotate(images, params, out, S, cs, not skip_rotation, *plan[:4])
     ext.LAUNCHES["warp_roi_rotate"] += 1
     return out

@@ -11,6 +11,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from neuralnet_tracker_traincode_torch.device import device_constant
 from neuralnet_tracker_traincode_torch.facemodel import keypoints68 as kpts68
 from neuralnet_tracker_traincode_torch.models.components import SHAPEPARAMS_GMM_NPZ, GaussianMixture
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
@@ -109,7 +110,7 @@ class Points3dLoss:
         p = pred[self._prefix + "pt3d_68"][..., : self.pointdimension]
         t = sample["pt3d_68"][..., : self.pointdimension]
         pointwise = torch.sum(elementwise_loss(self._kind, p, t), dim=-1)
-        return torch.mean(pointwise * p.new_tensor(self.pointweights)[None, :], dim=-1)
+        return torch.mean(pointwise * device_constant(self.pointweights, p.device, p.dtype)[None, :], dim=-1)
 
 
 class BoxLoss:

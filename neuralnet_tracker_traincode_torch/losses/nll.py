@@ -12,6 +12,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from neuralnet_tracker_traincode_torch.device import device_constant
 from neuralnet_tracker_traincode_torch.facemodel import keypoints68 as kpts68
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
 
@@ -60,7 +61,7 @@ class MixWithUniformProbability:
 
     def __call__(self, log_prob):
         log_uniform = torch.full_like(log_prob, self.log_uniform_prob)
-        stacked = torch.stack([log_prob, log_uniform], dim=-1) + log_prob.new_tensor(self.log_weights)
+        stacked = torch.stack([log_prob, log_uniform], dim=-1) + device_constant(self.log_weights, log_prob.device, log_prob.dtype)
         return torch.logsumexp(stacked, dim=-1)
 
 
@@ -107,7 +108,7 @@ class CoordPoseNLLLoss:
 
     def __call__(self, preds, sample):
         lp = self._log_prob(sample["coord"], preds["coord"], preds["coord_scales"])
-        return torch.mean(-lp * lp.new_tensor(self.weights)[None, :], dim=-1)
+        return torch.mean(-lp * device_constant(self.weights, lp.device, lp.dtype)[None, :], dim=-1)
 
 
 class BoxNLLLoss:
@@ -134,7 +135,7 @@ class Points3dNLLLoss:
     def __call__(self, preds, sample):
         d = self.pointdimension  # the scales are sliced with the points
         lp = self._log_prob(sample["pt3d_68"][:, :, :d], preds["pt3d_68"][:, :, :d], preds["pt3d_68_scales"][:, :, :d])
-        loss = -lp.new_tensor(self.pointweights)[None, :, None] * lp
+        loss = -device_constant(self.pointweights, lp.device, lp.dtype)[None, :, None] * lp
         return torch.mean(loss, dim=(-2, -1))
 
 

@@ -77,15 +77,20 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None) -> to
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def draw_mask_seed(generator: torch.Generator) -> int:
+    """The one draw from `generator` (the trainer's host generator) that
+    seeds a forward's dropout and stochastic-depth masks."""
+    return int(torch.randint(0, 2**62, (), generator=generator, dtype=torch.int64))
+
+
 def device_generator(generator: Optional[torch.Generator], device: torch.device) -> Optional[torch.Generator]:
-    """A generator on `device` seeded by one draw from `generator` (the
-    trainer's host generator), for a forward's dropout and stochastic-depth
-    masks; None (torch's global generator) without one. The masks then
-    follow the trainer's generator, whose state the resume file keeps."""
+    """A generator on `device` seeded by `draw_mask_seed(generator)`, for a
+    forward's dropout and stochastic-depth masks; None (torch's global
+    generator) without one. The masks then follow the trainer's generator,
+    whose state the resume file keeps."""
     if generator is None:
         return None
-    seed = int(torch.randint(0, 2**62, (), generator=generator, dtype=torch.int64))
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(draw_mask_seed(generator))
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]) -> torch.Tensor:

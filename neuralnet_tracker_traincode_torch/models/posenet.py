@@ -277,17 +277,21 @@ class NetworkWithPointHead(nn.Module):
     def _precision(self, device_type: str):
         if self.dtype == torch.float32:
             return contextlib.nullcontext()
-        return torch.autocast(device_type, dtype=self.dtype)
+        # no cast cache in training: a CUDA graph capture of the step refuses it; the values are the same
+        return torch.autocast(device_type, dtype=self.dtype, cache_enabled=not self.training)
 
-    def forward(self, x: torch.Tensor, coord_convention_id=None, generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
+    def forward(self, x: torch.Tensor, coord_convention_id=None, generator: Optional[torch.Generator] = None,
+                mask_generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """x: (B, H, W, C) whitened crops. Train/eval follows `self.training`;
         eval mode adds 'pose' (the quaternion). In training, the backbone's
-        dropout and stochastic-depth masks come from a generator on x's
-        device seeded by one draw from `generator` (torch's global one
-        without it)."""
+        dropout and stochastic-depth masks come from `mask_generator` (a
+        generator on x's device, seeded by the caller), else from one on x's
+        device seeded by one draw from `generator`, else from torch's global
+        one."""
         assert x.shape[1] == x.shape[2] == self.input_resolution, f"Bad input shape {x.shape}"
-        gen = device_generator(generator, x.device) if self.training and self.convnet.draws_masks else None
+        gen = None
+        if self.training and self.convnet.draws_masks:
+            gen = mask_generator if mask_generator is not None else device_generator(generator, x.device)
         with self._precision(x.device.type):
             features, _ = self.convnet(x.permute(0, 3, 1, 2), generator=gen)
             if self.config == "hybrid_vit":  # one query output per head, taken from the last

@@ -11,6 +11,8 @@ numpy. `from_rotvec` and `slerp` wait (ROADMAP.md).
 import numpy as np
 import torch
 
+from neuralnet_tracker_traincode_torch.device import device_constant
+
 # Component indices (scipy convention, real last).
 iw = 3
 ii = 0
@@ -35,7 +37,7 @@ def mult(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return q * device_constant([-1.0, -1.0, -1.0, 1.0], q.device, q.dtype)
 
 
 def rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

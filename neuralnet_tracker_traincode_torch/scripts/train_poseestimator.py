@@ -10,11 +10,18 @@ Batches come from `FusedBatchLoader` (`$NUM_WORKERS` workers, default 4)
 through `device_prefetch` to the card; validation runs on the aflw2k3d test
 split. The run writes `last.ckpt`, `best.ckpt`, `swa.ckpt` (with
 `--with-swa`) and `resume.pt` into `<outdir>/<network name>`; `--resume
-auto` continues from that `resume.pt`. `--profile-dir` traces the first 8
-steps with `torch.profiler`. Not ported yet (they raise before any data is
-read): `--steps-per-dispatch` above 1 (CUDA graphs) and
-`--plot-save-filename` (matplotlib); the loss plot `train.pdf` is not
-written.
+auto` continues from that `resume.pt`.
+
+`--steps-per-dispatch K` runs K optimizer steps a call: on the card one
+replay of a CUDA graph of K whole steps (`PoseTrainer.train_step_multi`),
+the batches grouped by `device_prefetch_stacked`; on the CPU K eager steps,
+the same trajectory. The default (0) is the JAX CLI's rule
+(`steps_per_dispatch`): on the card with batches of at most 128, the largest
+of 8, 4 and 2 that divides the epoch's steps; else 1. An explicit K that
+does not divide the epoch rounds it down. `--profile-dir` traces the first
+8 calls (dispatches) with `torch.profiler`. Not ported yet (it raises before
+any data is read): `--plot-save-filename` (matplotlib); the loss plot
+`train.pdf` is not written.
 """
 
 import argparse
@@ -79,9 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", default=None, type=str,
                         help="resume from a training-state file ('auto' = <outdir>/<network>/resume.pt)")
     parser.add_argument("--profile-dir", default=None, type=str,
-                        help="trace the first 8 steps with torch.profiler into this directory")
+                        help="trace the first 8 dispatches with torch.profiler into this directory")
     parser.add_argument("--steps-per-dispatch", default=0, type=int,
-                        help="0 and 1: one optimizer step per call; more is not ported yet")
+                        help="optimizer steps per call, one CUDA graph replay on the card (0: auto, 8/4/2 on the "
+                             "card at batch <= 128, else 1)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
@@ -91,12 +99,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     from neuralnet_tracker_traincode_torch.device import not_ported
 
     args = build_parser().parse_args(argv)
-    if args.steps_per_dispatch > 1:
-        raise not_ported("--steps-per-dispatch above 1 (several steps in one dispatch: CUDA graphs)")
     if args.plot_save_filename is not None:
         raise not_ported("--plot-save-filename (the loss plot needs matplotlib)")
     args.input_size = 129
     return args
+
+
+def steps_per_dispatch(requested: int, batchsize: int, steps_per_epoch: int, device_type: str) -> int:
+    """K of `--steps-per-dispatch`: as given when above 0; else the JAX
+    CLI's auto rule: 1 on the CPU (no dispatch gap to hide), and on the card
+    at batch <= 128 the largest of 8, 4 and 2 that divides `steps_per_epoch`
+    (so the default run takes the reference protocol's step count), else 1."""
+    if requested > 0:
+        return requested
+    if batchsize <= 128 and device_type != "cpu":
+        return next((k for k in (8, 4, 2) if steps_per_epoch % k == 0), 1)
+    return 1
 
 
 def main(argv=None) -> int:
@@ -105,7 +123,11 @@ def main(argv=None) -> int:
     import torch
 
     from neuralnet_tracker_traincode_torch import pipelines
-    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, device_prefetch
+    from neuralnet_tracker_traincode_torch.data.loader import (
+        LABEL_CATEGORIES,
+        device_prefetch,
+        device_prefetch_stacked,
+    )
     from neuralnet_tracker_traincode_torch.device import resolve_device
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
     from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
@@ -162,12 +184,18 @@ def main(argv=None) -> int:
         if not os.path.exists(resume):
             print(f"No resume state at {resume}; starting fresh")
     validation = FusedValidation(trainer, test_set, batchsize=args.batchsize * 2)
+    K = steps_per_dispatch(args.steps_per_dispatch, args.batchsize, cfg.steps_per_epoch, dev.type)
+    if args.steps_per_dispatch <= 0 and K > 1:
+        print(f"auto --steps-per-dispatch {K} (batch {args.batchsize})")
 
     def batches(step):
-        return profile_batches(device_prefetch(train_loader.iterate(step), dev, size=2), args.profile_dir)
+        it = train_loader.iterate(step)
+        prefetched = device_prefetch(it, dev, size=2) if K == 1 else device_prefetch_stacked(it, dev, K, size=2)
+        return profile_batches(prefetched, args.profile_dir)
 
     t0 = time.perf_counter()
-    state, records = run_training(trainer, state, batches, validation, model_out_dir, generator, resume=resume)
+    state, records = run_training(trainer, state, batches, validation, model_out_dir, generator, resume=resume,
+                                  steps_per_dispatch=K)
     total = time.perf_counter() - t0
     samples = sum(r["steps"] for r in records) * args.batchsize
     print(f"Done: {samples} samples in {total:.0f}s ({samples / max(total, 1e-9):.0f} images/s incl. validation); "

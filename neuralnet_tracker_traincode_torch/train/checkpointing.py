@@ -8,6 +8,9 @@ averages and their count, and the state of the augmentation's
 `torch.Generator` when one is given. It is written to a temporary name and
 moved into place with `os.replace`, so a killed run never leaves half a file.
 Loading it into a freshly built trainer continues the run bit for bit.
+Loading copies into the tensors the run already has (the model's, and the
+Adam moments and count of the state it is given), so that a CUDA graph
+captured over them stays valid; Adam's count is stored as an int.
 """
 
 import io
@@ -36,7 +39,7 @@ def save_train_state(
     payload = {
         "model": _cpu(trainer.model.state_dict()),
         "step": state.step,
-        "adam": {"count": state.opt_state.count, "mu": _cpu(state.opt_state.mu), "nu": _cpu(state.opt_state.nu)},
+        "adam": {"count": int(state.opt_state.count), "mu": _cpu(state.opt_state.mu), "nu": _cpu(state.opt_state.nu)},
         "swa": {"params": _cpu(state.swa_params), "buffers": _cpu(state.swa_buffers), "count": state.swa_count},
         "generator": None if generator is None else generator.get_state(),
     }
@@ -52,10 +55,12 @@ def save_train_state(
 
 
 def load_train_state(
-    trainer: PoseTrainer, filename: str, generator: Optional[torch.Generator] = None
+    trainer: PoseTrainer, filename: str, generator: Optional[torch.Generator] = None,
+    state: Optional[TrainState] = None,
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """Load the model's weights in place and return (state, extra); restores
-    `generator` when the file holds a generator state."""
+    `generator` when the file holds a generator state. With `state`, its
+    Adam moments and count take the file's values in place."""
     with open(filename, "rb") as f:
         hdr_len = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(hdr_len).decode("utf-8"))
@@ -66,9 +71,21 @@ def load_train_state(
     dev = trainer.device
     on = lambda tree: {k: v.to(dev) for k, v in tree.items()}  # noqa: E731
     adam, swa = payload["adam"], payload["swa"]
+    if state is None:
+        opt_state = AdamState(torch.tensor(int(adam["count"]), dtype=torch.int32, device=dev),
+                              on(adam["mu"]), on(adam["nu"]))
+    else:
+        opt_state = state.opt_state
+        with torch.no_grad():
+            opt_state.count.fill_(int(adam["count"]))
+            for mine, theirs in ((opt_state.mu, adam["mu"]), (opt_state.nu, adam["nu"])):
+                if set(mine) != set(theirs):
+                    raise ValueError(f"{filename}: the Adam moments are of other parameters")
+                for k, v in theirs.items():
+                    mine[k].copy_(v)
     state = TrainState(
         step=int(payload["step"]),
-        opt_state=AdamState(int(adam["count"]), on(adam["mu"]), on(adam["nu"])),
+        opt_state=opt_state,
         swa_params=on(swa["params"]),
         swa_buffers=on(swa["buffers"]),
         swa_count=int(swa["count"]),

@@ -3,11 +3,14 @@ the JAX package's `train/profiling.py`).
 
 `PoseTrainer.train_step` marks its stages with `torch.profiler.record_function`
 ranges named in `STAGES`; they cost a few microseconds a step when no
-profiler runs. `profile_steps` runs steps under `torch.profiler` and returns
-where the time went: host time per stage, the device's busy share, kernel
-launches per step and the kernels that take the most device time.
-`profile_batches` traces the first steps of a training run into a directory
-(the training CLI's `--profile-dir`).
+profiler runs. `train_step_multi` on the card marks only its host part
+('draws') and the graph's replay ('replay'): the captured stages run on the
+device without the host. `profile_steps` runs calls of a step function under
+`torch.profiler` and returns where the time went, per optimizer step: host
+time per stage, the device's busy share, kernel launches per step and the
+kernels that take the most device time. `profile_batches` traces the first
+calls of a training run into a directory (the training CLI's
+`--profile-dir`: its first 8 dispatches).
 """
 
 import os
@@ -16,13 +19,16 @@ from typing import Callable, Dict, Iterator, Optional, TypeVar
 
 import torch
 
-STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+STAGES = ("draws", "augment", "forward", "loss", "backward", "optimizer", "replay")
 T = TypeVar("T")
 
 
-def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str] = None, top: int = 12) -> Dict:
+def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str] = None, top: int = 12,
+                  steps_per_call: int = 1) -> Dict:
     """Run `step` `steps` times under the profiler (after one unprofiled call)
-    and summarise; optionally write a Chrome trace to `trace_path`."""
+    and summarise per optimizer step, a call being `steps_per_call` of them
+    (K for `train_step_multi`); optionally write a Chrome trace to
+    `trace_path`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -34,6 +40,7 @@ def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls, steps = steps, steps * steps_per_call
     if trace_path:
         prof.export_chrome_trace(trace_path)
     kernels: Dict[str, list] = {}
@@ -50,6 +57,7 @@ def profile_steps(step: Callable[[], None], steps: int, trace_path: Optional[str
     busy_us = sum(v[1] for v in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     return {
+        "calls": calls,
         "steps": steps,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

@@ -5,7 +5,9 @@ the JAX package's `scripts/train_poseestimator.py`, as a library.
 CLI's loss options; `run_training` runs epochs over the fused-batch dicts
 (`data/loader.py:pack_fused_batch`) of an iterator that the caller makes
 for the run's first step, so that a resumed run takes the batches it would
-have taken without the stop: per epoch the
+have taken without the stop, one step a call or, with `steps_per_dispatch`
+K, K steps a call of `PoseTrainer.train_step_multi` (on the card one CUDA
+graph replay) over stacked batches: per epoch the
 criterion's weights, the steps with their metrics kept on the device (one
 transfer when the epoch ends: a host-bound step must not wait for the device
 every step), the NaN watchdog, validation, the SWA update, `last.ckpt`, the
@@ -130,6 +132,7 @@ def run_training(
     outdir: str,
     generator: Optional[torch.Generator] = None,
     resume: Optional[str] = None,
+    steps_per_dispatch: int = 1,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Train for `trainer.config.epochs` epochs of `steps_per_epoch` steps,
     the augmentation drawing from `generator`; write `last.ckpt`,
@@ -137,7 +140,11 @@ def run_training(
     `train_batches(step)` gives the batches from the run's step on (after a
     resume, the step the state file recorded), e.g.
     `lambda step: iterate_fused_batches(packed, B, make_concat_dataset_item_sampler(
-    ConcatDataset([frames]), [1.0], seed=s), start=step)`.
+    ConcatDataset([frames]), [1.0], seed=s), start=step)`. With
+    `steps_per_dispatch` K above 1 it gives groups of K batches stacked on a
+    leading axis (`data/loader.py:stack_batches` of that iterator, or
+    `device_prefetch_stacked` of a host loader's), and an epoch is rounded
+    down to a multiple of K steps, as the JAX package's training CLI does.
     With `resume` naming an existing state file the run continues after the
     epoch it recorded, bit for bit as if it had not stopped. Returns the
     final state and one record per epoch (host seconds of the steps, images/s,
@@ -145,12 +152,22 @@ def run_training(
     checkpoints included, validation loss and milliseconds, milliseconds of
     each checkpoint file written, the epoch's mean of each train metric)."""
     cfg = trainer.config
+    K = int(steps_per_dispatch)
+    if K < 1:
+        raise ValueError(f"steps_per_dispatch must be at least 1, got {K}")
+    dispatches = cfg.steps_per_epoch // K
+    if dispatches == 0:
+        raise ValueError(f"{cfg.steps_per_epoch} steps an epoch make no dispatch of {K}")
+    if cfg.steps_per_epoch % K:
+        print(f"note: {cfg.steps_per_epoch} steps/epoch rounded down to {dispatches * K} "
+              f"(multiple of --steps-per-dispatch {K})")
+    step_fn = trainer.train_step if K == 1 else trainer.train_step_multi
     os.makedirs(outdir, exist_ok=True)
     resume_path = os.path.join(outdir, "resume.pt")
     console = ConsoleTrainOutput()
     start_epoch, best_val = 0, math.inf
     if resume is not None and os.path.exists(resume):
-        state, extra = load_train_state(trainer, resume, generator)
+        state, extra = load_train_state(trainer, resume, generator, state=state)
         start_epoch = int(extra.get("epoch", -1)) + 1
         best_val = float(extra.get("best_val", math.inf))
         print(f"Resumed from {resume} at epoch {start_epoch}")
@@ -161,19 +178,21 @@ def run_training(
         W = trainer.weight_matrix(epoch)
         t0 = time.perf_counter()
         history = []
-        for _ in range(cfg.steps_per_epoch):
+        for _ in range(dispatches):
             batch = next(batches)
-            state, metrics = trainer.train_step(state, batch, W, generator=generator)
+            state, metrics = step_fn(state, batch, W, generator=generator)
             history.append(metrics)
-            meter.step(cfg.batchsize)
+            meter.step(cfg.batchsize * K)
         names = list(history[0])
-        # the epoch's one transfer: every metric of every step
-        table = torch.stack([torch.stack([m[n].float() for n in names]) for m in history]).cpu()
+        # the epoch's one transfer: every metric of every step (a dispatch's metrics are (K,))
+        table = torch.cat([torch.stack([m[n].float() for n in names], -1).reshape(-1, len(names))
+                           for m in history]).cpu()
         train_s = time.perf_counter() - t0
+        steps = table.shape[0]
         per_step = {n: table[:, i] for i, n in enumerate(names)}
         check_not_nan(per_step, trainer.params(), batch, os.path.join(outdir, "notgood.pt"))
-        step0 = state.step - len(history)
-        for j in range(len(history)):
+        step0 = state.step - steps
+        for j in range(steps):
             for n in names:
                 console.add_train_point(epoch, step0 + j + 1, n, float(per_step[n][j]))
 
@@ -198,11 +217,11 @@ def run_training(
             checkpoint_ms["best"] = (time.perf_counter() - t_ckpt) * 1e3
         console.summarize_train_values()
         console.update_graph()
-        ips, sustained = len(history) * cfg.batchsize / train_s, meter.images_per_sec
+        ips, sustained = steps * cfg.batchsize / train_s, meter.images_per_sec
         print(f"epoch {epoch + 1}/{cfg.epochs}: {ips:.0f} img/s (sustained {sustained:.0f} img/s incl. "
               f"validation), val_loss {val_loss:.4f} (best {best_val:.4f})")
         records.append(dict(
-            epoch=epoch, steps=len(history), train_s=train_s, images_per_s=ips, sustained_images_per_s=sustained,
+            epoch=epoch, steps=steps, train_s=train_s, images_per_s=ips, sustained_images_per_s=sustained,
             val_loss=val_loss, val_ms=val_ms, checkpoint_ms=checkpoint_ms,
             train_metrics={n: float(per_step[n].double().mean()) for n in names},
         ))

@@ -123,6 +123,22 @@ def test_pose_trainer_runs_and_resumes(pose_run, capsys):
         assert model.enable_6drot and model.enable_uncertainty and "params" in variables
 
 
+def test_pose_trainer_steps_per_dispatch_on_the_cpu(datadir, tmp_path, monkeypatch, capsys):
+    """`--steps-per-dispatch 2` with `--device cpu` runs the K-step loop (on
+    the card, one CUDA graph replay of 2 steps): its model files are the
+    bytes of the one-step run's. The default on the CPU is one step."""
+    monkeypatch.setenv("DATADIR", datadir)
+    monkeypatch.setenv("NUM_WORKERS", "1")
+    common = ["--ds", "300wlp", "--batchsize", "8", "--samples-per-epoch", "32", "--device", "cpu", "--dtype",
+              "float32", "--seed", "0", "--epochs", "1"]
+    for k in ("0", "2"):
+        assert train_cli.main(common + ["--steps-per-dispatch", k, "--outdir", str(tmp_path / k)]) == 0
+    assert "auto --steps-per-dispatch" not in capsys.readouterr().out
+    for name in ("last.ckpt", "best.ckpt"):
+        files = [tmp_path / k / "NetworkWithPointHead_mobilenetv1" / name for k in ("0", "2")]
+        assert files[0].read_bytes() == files[1].read_bytes(), name
+
+
 def test_pose_eval_cli_writes_the_report_row(pose_run, datadir, tmp_path, monkeypatch):
     from neuralnet_tracker_traincode_torch import pipelines
     from neuralnet_tracker_traincode_torch.eval.predictor import Predictor
@@ -169,7 +185,6 @@ def test_localizer_clis(datadir, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("cli,argv,what", [
-    (train_cli, ["--steps-per-dispatch", "2"], "steps-per-dispatch"),
     (train_cli, ["--plot-save-filename", "x.pdf"], "plot-save-filename"),
     (eval_cli, ["m.ckpt", "--vis", "rot"], "--vis without"),
 ])

@@ -12,6 +12,8 @@ and two-bin images, gates mixed, all off and all on, and from an input 4
 bytes off 16-byte alignment. K3 runs with sigma 0 and > 0 mixed, at
 offsets 0 and -0.5. Both run at the localizer's shape too, (64, 224 x 288),
 with the gates and sigmas drawn as its augmentation draws them and all on.
+The training step's CUDA graph (`PoseTrainer.train_step_multi`) at a small
+width: its replays bit-equal to the eager steps.
 """
 
 import math
@@ -241,3 +243,80 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     assert ext.LAUNCHES["equalize"] == 1
     np.testing.assert_array_equal(sorted(ext.LAUNCHES), sorted(["warp_roi_rotate", "equalize", "gaussian_noise",
                                                                "gaussian_noise_from_bits"]))
+
+
+def _graph_test_batch(rng, B=8, src=96):
+    lo = src * 0.2 + rng.rand(B, 2) * src * 0.1
+    size = src * (0.35 + rng.rand(B, 1) * 0.2)
+    roi = np.concatenate([lo, lo + size], axis=-1).astype(np.float32)
+    q = rng.randn(B, 4).astype(np.float32)
+    return {
+        "image": rng.randint(0, 256, size=(B, src, src, 1), dtype=np.uint8),
+        "pose": q / np.linalg.norm(q, axis=-1, keepdims=True),
+        "coord": np.concatenate([roi[:, :2] + size * 0.5, size * 0.5], -1).astype(np.float32),
+        "roi": roi,
+        "pt3d_68": np.concatenate([roi[:, None, :2] + rng.rand(B, 68, 2) * size[:, None], rng.rand(B, 68, 1) * 20],
+                                  -1).astype(np.float32),
+        "shapeparam": rng.randn(B, 50).astype(np.float32),
+        "hasface": np.full((B,), 0.9, np.float32),
+        "coord_convention_id": np.zeros((B,), np.int32),
+        "tag_id": np.zeros((B,), np.int32),
+        "dataset_weight": np.ones((B,), np.float32),
+        "param_index": np.arange(B, dtype=np.int32),
+    }
+
+
+def test_graph_replays_equal_eager_steps(dev):
+    """`train_step_multi` (2 replays of a CUDA graph of K=2 steps) against 4
+    `train_step` calls from the same weights and generator: MobileNetV1 at
+    width 0.25, point and NLL heads, the 8-term criterion, f32, batch 8,
+    96^2 sources, image augmentation on. Every metric, parameter, buffer,
+    Adam moment and the count bit-equal; K1, K2 and K3 counted once a
+    replayed step."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.losses import losses as L
+    from neuralnet_tracker_traincode_torch.losses import nll as NLL
+    from neuralnet_tracker_traincode_torch.losses.criterion import Criterion, CriterionGroup, MaskedMultiTaskCriterion
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+
+    terms = [Criterion("nllrot", NLL.QuatPoseNLLLoss(), 0.005), Criterion("rot", L.QuatPoseLoss("approx_distance"), 1.0),
+             Criterion("xy", L.PoseXYLoss("l2"), 0.25), Criterion("points3d", L.Points3dLoss("l2", chin_weight=0.8), 0.5),
+             Criterion("box", L.BoxLoss("l2"), 0.01), Criterion("nllcoord", NLL.CorrelatedCoordPoseNLLLoss(), 0.005),
+             Criterion("sz", L.PoseSizeLoss("l2"), 0.25),
+             Criterion("quatreg", L.QuaternionNormalizationSoftConstraint(), 1e-6)]
+    crit = MaskedMultiTaskCriterion({Tag.POSE_WITH_LANDMARKS: CriterionGroup(terms)}, [Tag.POSE_WITH_LANDMARKS])
+    rng = np.random.RandomState(0)
+    singles = [{k: torch.from_numpy(v).to(dev) for k, v in _graph_test_batch(rng).items()} for _ in range(4)]
+    groups = [{k: torch.stack([b[k] for b in singles[i:i + 2]]) for k in singles[0]} for i in (0, 2)]
+    runs = []
+    for multi in (False, True):
+        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                     backbone_args={"widen_factor": 0.25})
+        cfg = TrainerConfig(batchsize=8, epochs=4, samples_per_epoch=32,
+                            aug=TrainAugmentationConfig(inputsize=129, enable_image_aug=True, p_flip_rot90=0.5))
+        tr = PoseTrainer(model, crit, cfg, LABEL_CATEGORIES, device=dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        W, gen = tr.weight_matrix(0), torch.Generator().manual_seed(3)
+        ext.reset_launch_counts()
+        rows = []
+        if multi:
+            for g in groups:
+                state, m = tr.train_step_multi(state, g, W, generator=gen)
+                rows.append(torch.stack([m[n] for n in m], -1))
+            warm = tr.graph_stats["warmup_steps"]
+            assert tr.graph_stats["captures"] == 1 and warm == 3
+            for name in ("warp_roi_rotate", "gaussian_noise"):
+                assert ext.LAUNCHES[name] == 4 + warm
+            assert ext.LAUNCHES["equalize"] == 4 * (4 + warm)
+        else:
+            for b in singles:
+                state, m = tr.train_step(state, b, W, generator=gen)
+                rows.append(torch.stack([m[n] for n in m])[None])
+        torch.cuda.synchronize()
+        runs.append([torch.cat(rows)] + [t.detach().clone() for t in tr._state_tensors(state)])
+    assert int(runs[1][-1]) == 4
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
