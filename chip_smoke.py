@@ -164,12 +164,45 @@ Phases (any failure ends the run with a non-zero exit code):
     and batches, bit-equal to the graph's, with K1, K2 and K3 held to their
     plain versions in the rerun as phase 7 holds them; images/s per epoch
     beside phase 7's;
- 15. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 15. data-parallel training (`parallel/distributed.py`, the path that the
+    training CLI runs under `torchrun`) at phase 5's flagship configuration
+    and full width. Its limits (`DP_*`) are fixed between the readings of
+    sound runs and of planted faults. (a) One rank in a process group over
+    NCCL, synchronized BatchNorm forced on (`sync` set on every BatchNorm)
+    so that every collective runs: the port's BatchNorm with `sync` against
+    `torch.native_batch_norm`'s autograd at the flagship's first and last
+    BatchNorm inputs (output, input, weight and bias gradients, running
+    statistics; f32 within 1e-4 and bf16 within 1e-2 of the largest value);
+    one eager step against one process from the same weights, batch and
+    draws (the loss within 1e-3 relative, BatchNorm statistics within 1e-2
+    a leaf, Adam's first moment, which reads the gradient, within 0.2
+    relative over all leaves, every parameter within 2 lr: Adam moves an
+    element whose gradient is rounding noise by up to lr of either sign;
+    printed beside one process on the rows reversed); one device part under
+    `set_sync_debug_mode("error")`; then 2 replays of K = 8 through the CUDA
+    graph, NCCL's collectives captured in it, on phase 14a's batches and
+    draws, each step's loss within 4e-3 relative of phase 14a's graph run
+    (printed beside one process stepping eagerly on the same batches and
+    draws with their rows reversed, the floor that another order of the
+    reductions sets under bf16); K1, K2 and K3 launched every step and held
+    to their plain versions at the first; ms per step through the graph
+    beside phase 14a's, the capture's seconds. (b) Two ranks of 32 rows in
+    two spawned processes sharing the card over gloo (CUDA tensors, eager:
+    gloo cannot be captured): BatchNorm over the two ranks against torch's
+    on the whole batch as in (a); 4 steps on the rows of phase 14a's batches
+    and draws; the two ranks' parameters, buffers, moments and metrics
+    bit-equal, the first moment after the first step within 0.2 of (a)'s
+    one process, the losses within 4e-3 relative of phase 14a's eager
+    steps, K1, K2 and K3 on each rank against their plain versions at the
+    first step; ms per step per rank (not a speed: two processes share one
+    card);
+ 16. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
     `launches_export` from phase 13, `launches_multistep` from phase 14
-    (a)'s graph run), then `{"ok": true, "device": ...}` as the last line.
+    (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
+    both ranks of (b)), then `{"ok": true, "device": ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -199,6 +232,17 @@ STEPS_WARMUP, STEPS_TIMED = 3, 20
 # several steps in one dispatch (phase 14): K, the replays timed, the backbones and their K
 MS_K, MS_TIMED_REPLAYS, MS_BACKBONE_K = 8, 10, 4
 MS_BACKBONES = [("resnet18", {"use_blurpool": True}, True), ("efficientnet_b0", {}, False), ("hybrid_vit", {}, False)]
+# data parallel (phase 15): part (b)'s eager steps, and the time its two processes may take
+DP_STEPS, DP_TIMEOUT_S = 4, 240
+# its limits, fixed between the readings of sound runs and of planted faults (PERF.md section 6): the
+# losses (relative, every step; sound <= 2.9e-3, faults >= 5.0e-3), Adam's first moment after the first step
+# (relative norm over all leaves; sound <= 0.130, faults >= 0.302), synchronized BatchNorm against torch's
+# (relative to the largest value; f32 sound <= 9.1e-7, faults >= 2.9e-2; bf16 sound <= 2.0e-3, faults >= 2.9e-2)
+DP_LOSS_LIMIT, DP_MU_LIMIT, DP_BN_TOL = 4e-3, 0.2, {"float32": 1e-4, "bfloat16": 1e-2}
+# synchronized BatchNorm against torch's: the flagship's first and last BatchNorm inputs, (dtype, memory format)
+DP_BN_CASES = [(shape, dtype, layout) for dtype, layout in (("float32", "contiguous_format"),
+                                                            ("bfloat16", "channels_last"))
+               for shape in ((B, 32, 65, 65), (B, 1024, 5, 5))]
 RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
 # the convergence gate: tests/test_convergence.py of the JAX package
 CONV_N, CONV_SEED, CONV_VAL, CONV_B, CONV_EPOCHS, CONV_SAMPLES = 4096, 3, 400, 128, 16, 10240
@@ -1755,7 +1799,8 @@ def against_eager(torch, trainer, state, singles, groups, W, what):
     run's, or, where the two eager runs differ, within their difference (the
     floor). Leaves the state as it found it. Returns the eager runs'
     floor (0 when bit-equal), the graph's largest difference, ms per step
-    eager and graph, and the kernel launches of the graph's run."""
+    eager and graph, the kernel launches of the graph's run and the metrics
+    (steps, names) of the first eager run and of the graph's run."""
     from neuralnet_tracker_traincode_torch.kernels import ext
 
     saved = state_snapshot(trainer, state)
@@ -1779,7 +1824,33 @@ def against_eager(torch, trainer, state, singles, groups, W, what):
         check(graph_equal, f"{what}: the graph's steps differ from the eager steps by up to {diff}")
     else:
         check(diff <= floor, f"{what}: the graph differs from the eager steps by {diff}, above the eager floor {floor}")
-    return floor, diff, ms[1], ms[2], launches
+    return floor, diff, ms[1], ms[2], launches, runs[0][0], runs[2][0]
+
+
+def flagship_trainer(torch, dev, config="mobilenetv1", args=None, face=False, parallel=None):
+    """Phase 5's flagship configuration (or another backbone in it): the
+    trainer, its state from seed 0 and the criterion's weights at epoch 50."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+
+    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config=config,
+                                 backbone_args=args or {}, enable_face_detector=face, dtype=torch.bfloat16)
+    cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
+                        aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
+    trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev, parallel=parallel)
+    return trainer, trainer.init_state(torch.Generator().manual_seed(0)), trainer.weight_matrix(50)
+
+
+def flagship_batches(torch, np, dev, n, count, K):
+    """`count` synthetic batches of `n` on the card (seeds 100, 101, ...) with
+    their host copies, and the same stacked in groups of K."""
+    singles = [host_kept({k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, n, 100 + i).items()})
+               for i in range(count)]
+    groups = [host_kept({k: torch.stack([b[k] for b in singles[j:j + K]]) for k in singles[0]})
+              for j in range(0, count, K)]
+    return singles, groups
 
 
 def k1_plan_sizes(torch, trainer, batch, smi):
@@ -1817,10 +1888,6 @@ def multistep_phase(torch, np, dev, smi, profile=False):
     """Phase 14 (a) and (b): the graph's replays against eager steps at the
     flagship configuration and with the other backbones; timing; the
     device part under `set_sync_debug_mode("error")`."""
-    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
-    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
-    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
-    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
     from neuralnet_tracker_traincode_torch.train.profiling import profile_steps
 
     torch.backends.cudnn.allow_tf32 = True  # as in phase 5
@@ -1828,19 +1895,10 @@ def multistep_phase(torch, np, dev, smi, profile=False):
     t_phase = time.perf_counter()
 
     def make_trainer(config="mobilenetv1", args=None, face=False):
-        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config=config,
-                                     backbone_args=args or {}, enable_face_detector=face, dtype=torch.bfloat16)
-        cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
-                            aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
-        trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev)
-        return trainer, trainer.init_state(torch.Generator().manual_seed(0)), trainer.weight_matrix(50)
+        return flagship_trainer(torch, dev, config, args, face)
 
     def batches(n, count, K):
-        singles = [host_kept({k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, n, 100 + i).items()})
-                   for i in range(count)]
-        groups = [host_kept({k: torch.stack([b[k] for b in singles[j:j + K]]) for k in singles[0]})
-                  for j in range(0, count, K)]
-        return singles, groups
+        return flagship_batches(torch, np, dev, n, count, K)
 
     def graphs_line(trainer):
         return "; ".join(f"{g.K} steps of batch {len(g.batch['tag_id'][0])}: capture {g.capture_s:.2f} s, "
@@ -1853,7 +1911,10 @@ def multistep_phase(torch, np, dev, smi, profile=False):
     saved = state_snapshot(trainer, state)
     trainer.train_step(state, singles[0], W, generator=torch.Generator().manual_seed(1))  # first calls at these shapes
     state_restore(torch, trainer, state, saved)
-    floor, diff, _, _, launches = against_eager(torch, trainer, state, singles, groups, W, "flagship, K=8")
+    floor, diff, _, graph_ms, launches, eager_metrics, graph_metrics = against_eager(
+        torch, trainer, state, singles, groups, W, "flagship, K=8")
+    flagship = dict(eager_metrics=eager_metrics, graph_metrics=graph_metrics, graph_ms=graph_ms,
+                    capture_s=trainer.graph_stats["capture_s"])
     warm = trainer.graph_stats["warmup_steps"]
     steps = 2 * MS_K + warm
     check(launches["warp_roi_rotate"] == steps and launches["gaussian_noise"] == steps
@@ -1926,8 +1987,8 @@ def multistep_phase(torch, np, dev, smi, profile=False):
         saved = state_snapshot(trainer, state)
         trainer.train_step(state, singles[0], W, generator=torch.Generator().manual_seed(1))
         state_restore(torch, trainer, state, saved)
-        floor, diff, eager_ms, graph_ms, _ = against_eager(torch, trainer, state, singles, groups, W,
-                                                           f"{config}, K={MS_BACKBONE_K}")
+        floor, diff, eager_ms, graph_ms, *_ = against_eager(torch, trainer, state, singles, groups, W,
+                                                            f"{config}, K={MS_BACKBONE_K}")
         backbone_ms[config] = (eager_ms, graph_ms)
         print(f"multistep (b) {config} {args or ''}{' + face detector' if face else ''}: 2 replays of "
               f"K={MS_BACKBONE_K} against {2 * MS_BACKBONE_K} eager steps: "
@@ -1936,7 +1997,7 @@ def multistep_phase(torch, np, dev, smi, profile=False):
               + f"; ms per step eager {eager_ms:.3f}, graph {graph_ms:.3f}; {graphs_line(trainer)} on {smi}")
         del trainer, state
     print(f"multistep (a)+(b): phase {time.perf_counter() - t_phase:.2f} s on {smi}")
-    return launches, timing, backbone_ms, plan_equal
+    return launches, timing, backbone_ms, plan_equal, flagship
 
 
 def multistep_run_phase(torch, np, dev, smi, run):
@@ -2066,6 +2127,356 @@ def multistep_run_phase(torch, np, dev, smi, run):
     return errs
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_env(rank: int, ranks: int, port: int):
+    """`torchrun`'s variables for rank `rank` of `ranks` on this machine."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(ranks), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(ranks),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def reversed_rows(torch, batch, draws):
+    """`batch` (on the card, with host copies) and its draws with the rows in
+    reverse order: each sample's crop, intensity stages and noise are its
+    own, so a step on them differs from one on `batch` only in the order of
+    the reductions over the rows."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import draws_for_rows
+
+    rev = torch.arange(B - 1, -1, -1)
+    flipped = host_kept({k: v.flip(0) for k, v in batch.items() if k != "param_index"})
+    flipped["param_index"] = batch["param_index"]  # arange: each row takes its own (reversed) draws
+    flipped.host["param_index"] = flipped["param_index"].cpu()
+    d = draws_for_rows(draws, slice(None), rev)
+    stage1 = d.stage1._replace(masks=draws.stage1.masks[:, rev], values=draws.stage1.values[:, rev])
+    return flipped, d._replace(stage1=stage1, noise=d.noise._replace(sigma=draws.noise.sigma[rev],
+                                                                    seeds=draws.noise.seeds[rev]))
+
+
+def reversed_rows_floor(torch, dev, singles, ref):
+    """The relative differences of each step's loss from `ref`'s (phase
+    14a's run) of one process stepping eagerly on `singles` with their rows
+    reversed (the same draws, reversed): the floor that another order of
+    the reductions sets."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import sample_augmentation_parameters
+
+    trainer, state, W = flagship_trainer(torch, dev)
+    gen, out = torch.Generator().manual_seed(7), []
+    for k, batch in enumerate(singles):
+        batch, draws = reversed_rows(torch, batch, sample_augmentation_parameters(gen, B, trainer.config.aug))
+        state, m = trainer.train_step(state, batch, W, aug_params=draws)
+        out.append(float((m["loss"] - ref[k, 0]).abs() / ref[k, 0].abs()))
+    return out
+
+
+def mu_difference(torch, got, want):
+    """Adam's first moments `got` against `want` (dicts of leaves): the norm
+    of the difference over all leaves relative to `want`'s. After a first
+    step the moment is the clipped gradient times 1 - b1, so this reads the
+    gradient."""
+    flat = lambda tree: torch.cat([t.detach().double().flatten() for t in tree.values()])  # noqa: E731
+    return float((flat(got) - flat(want)).norm() / flat(want).norm())
+
+
+def first_step_against_one_process(torch, trainer, state, batch, W, what):
+    """One eager step of `trainer` (a rank) and of one process on the whole
+    batch from the same weights, batch and draws, and for scale, of one
+    process on the rows in reverse order (another order of the reductions).
+    Per run against the one process: the loss's relative difference, the
+    largest BatchNorm-statistics leaf difference (relative), the first
+    moment's (`mu_difference`), the share of parameters within 1e-5 and
+    the largest parameter difference. Fails
+    unless the loss agrees within 1e-3 relative, the statistics within 1e-2
+    a leaf, the first moment within DP_MU_LIMIT over all leaves (this reads
+    the gradient) and every parameter within 2 lr of the step (Adam moves an
+    element whose gradient is rounding noise by up to lr of either sign).
+    Leaves `trainer`'s state as it found it; returns the readings, the lr
+    and the one process's first moments (on the host)."""
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import sample_augmentation_parameters
+
+    draws = sample_augmentation_parameters(torch.Generator().manual_seed(7), B, trainer.config.aug)
+    saved = state_snapshot(trainer, state)
+    runs = {}
+    for name, (tr, st), (b, d) in (("one", flagship_trainer(torch, trainer.device)[:2], (batch, draws)),
+                                   ("reversed", flagship_trainer(torch, trainer.device)[:2],
+                                    reversed_rows(torch, batch, draws)),
+                                   ("rank", (trainer, state), (batch, draws))):
+        st, m = tr.train_step(st, b, W, aug_params=d)
+        runs[name] = (tr.model.state_dict(), list(tr.model.parameters()),
+                      {k: v.detach().clone() for k, v in st.opt_state.mu.items()}, m)
+    lr = trainer.tx.learning_rate(0, "main")
+    sd, params, mu, m = runs["one"]
+    out = {}
+    for name in ("reversed", "rank"):
+        got_sd, got_params, got_mu, got_m = runs[name]
+        moved = torch.cat([(p.detach() - q.detach()).abs().flatten() for p, q in zip(got_params, params)])
+        out[name] = dict(
+            loss=float((got_m["loss"] - m["loss"]).abs() / m["loss"].abs()),
+            stats=max(float((got_sd[k] - sd[k]).norm() / sd[k].norm()) for k in sd if "running" in k),
+            mu=mu_difference(torch, got_mu, mu), share=float((moved <= 1e-5).float().mean()),
+            largest=float(moved.max()))
+    state_restore(torch, trainer, state, saved)
+    r = out["rank"]
+    check(r["loss"] <= 1e-3 and r["stats"] <= 1e-2 and r["mu"] <= DP_MU_LIMIT and r["largest"] <= 2 * lr + 1e-6,
+          f"{what}: the first step differs from one process: {r} (lr {lr}, first moment limit {DP_MU_LIMIT}); "
+          f"one process on the rows reversed: {out['reversed']}")
+    return out, lr, {k: v.cpu() for k, v in mu.items()}
+
+
+def sync_batchnorm_against_torch(torch, dev, dp, what):
+    """The port's BatchNorm2d in training with `sync` = `dp`, each rank on
+    its rows of a batch of B, against `torch.native_batch_norm`'s autograd
+    on the whole batch, at the flagship's first and last BatchNorm inputs
+    (`DP_BN_CASES`): the output, the input gradient, the weight and bias
+    gradients (summed over the ranks) and the running statistics (flax's:
+    the biased variance), each relative to its largest value. Fails above
+    `DP_BN_TOL` of the dtype; returns the largest error per dtype."""
+    from neuralnet_tracker_traincode_torch.models.backbones.common import BatchNorm2d
+
+    rows, worst = dp.rows(B), {}
+    for shape, key, layout in DP_BN_CASES:
+        dtype, layout = getattr(torch, key), getattr(torch, layout)
+        C, g = shape[1], torch.Generator().manual_seed(11)
+        x = (torch.randn(shape, generator=g) * 3 + 1).to(dev, dtype).contiguous(memory_format=layout)
+        dy = torch.randn(shape, generator=g).to(dev, dtype).contiguous(memory_format=layout)
+        weight, bias = (torch.rand(C, generator=g) + 0.5).to(dev), torch.randn(C, generator=g).to(dev)
+        xr, wr, br = x.clone().requires_grad_(), weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        y_ref, mean, invstd = torch.native_batch_norm(xr, wr, br, None, None, True, 0.0, 1e-5)
+        y_ref.backward(dy)
+        bn = BatchNorm2d(C).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        bn.sync = dp
+        xs = x[rows].clone().requires_grad_()
+        y = bn(xs)
+        y.backward(dy[rows])
+        grads = dp.all_reduce_(torch.cat([bn.weight.grad, bn.bias.grad]))
+        var = invstd.double().pow(-2) - 1e-5
+        pairs = [(y, y_ref[rows]), (xs.grad, xr.grad[rows]), (grads[:C], wr.grad), (grads[C:], br.grad),
+                 (bn.running_mean, 0.1 * mean), (bn.running_var, 0.9 + 0.1 * var)]
+        err = max(float((a.detach().double() - b.detach().double()).abs().max() / b.detach().double().abs().max())
+                  for a, b in pairs)
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= DP_BN_TOL[key], f"{what}: synchronized BatchNorm at {shape} {key} differs from "
+              f"torch.native_batch_norm by {err:.3e} (relative to the largest value), above {DP_BN_TOL[key]}")
+    return worst
+
+
+def dp_rank_main(rank: int, port: int, workdir: str):
+    """Phase 15 (b), one of two ranks on the one card (a spawned process):
+    gloo on CUDA tensors, synchronized BatchNorm against torch's over the
+    two ranks, `DP_STEPS` eager flagship steps on its rows of phase 14a's
+    batches and draws; K1, K2 and K3 held to their plain versions at the
+    first step; writes its metrics, state, first moments after the first
+    step, launches, errors and ms per step to `workdir`."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.parallel.distributed import init_from_env
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ext.extension()
+    os.environ.update(rank_env(rank, 2, port))
+    dp, dev = init_from_env("cuda:0", backend="gloo")
+    try:
+        what = f"data parallel (b) rank {rank}"
+        bn_errs = sync_batchnorm_against_torch(torch, dev, dp, what)
+        trainer, state, W = flagship_trainer(torch, dev, parallel=dp)
+        rows = dp.rows(B)
+        batches = [{k: v[rows] for k, v in synthetic_batch(np, B, 100 + i).items()} for i in range(DP_STEPS)]
+        gen = torch.Generator().manual_seed(7)
+        ext.reset_launch_counts()
+        with k1_captured(K1, lambda skip, n: True) as crops, wrapper_captured(K2, "equalize", 1) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", 1) as noised:
+            state, m = trainer.train_step(state, batches[0], W, generator=gen)
+        rows_of_metrics = [torch.stack([m[n] for n in m])]
+        mu = {k: v.cpu() for k, v in state.opt_state.mu.items()}
+        errs = dict(k2_k3_against_plain(torch, K2, K3, equalized, noised, what))
+        errs["warp_roi_rotate"] = k1_against_plain(K1, crops, what)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for batch in batches[1:]:
+            state, m = trainer.train_step(state, batch, W, generator=gen)
+            rows_of_metrics.append(torch.stack([m[n] for n in m]))
+        b.record()
+        b.synchronize()
+        torch.save(dict(metrics=torch.stack(rows_of_metrics).cpu(), launches=dict(ext.LAUNCHES), errs=errs,
+                        mu=mu, bn_errs=bn_errs,
+                        state=[t.cpu() for t in state_snapshot(trainer, state)],
+                        ms=a.elapsed_time(b) / (DP_STEPS - 1)), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dp.close()
+
+
+def data_parallel_phase(torch, np, dev, smi, flagship, timing):
+    """Phase 15: data-parallel training (`parallel/distributed.py`) at phase
+    5's flagship configuration, (a) one rank over NCCL with synchronized
+    BatchNorm forced on (`sync` set on every BatchNorm), K = 8 through the
+    CUDA graph, against phase 14a's graph run; (b) two ranks sharing the
+    card over gloo, eager, against phase 14a's eager steps. The limits are
+    fixed constants (`DP_*`). Returns the kernel launches of (a)'s graph run
+    and of (b)'s ranks, summed, and the kernels' largest errors."""
+    import multiprocessing as mp
+
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.models.backbones.common import BatchNorm2d
+    from neuralnet_tracker_traincode_torch.parallel.distributed import init_from_env
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    singles, groups = flagship_batches(torch, np, dev, B, 2 * MS_K, MS_K)
+
+    # (a) one rank over NCCL, synchronized BatchNorm forced on
+    saved_env = {k: os.environ.get(k) for k in rank_env(0, 1, 0)}
+    os.environ.update(rank_env(0, 1, free_port()))
+    try:
+        dp, _ = init_from_env("cuda")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    try:
+        bn_errs = sync_batchnorm_against_torch(torch, dev, dp, "data parallel (a)")
+        trainer, state, W = flagship_trainer(torch, dev, parallel=dp)
+        for m in trainer.model.modules():  # one rank: PoseTrainer syncs only over several
+            if isinstance(m, BatchNorm2d):
+                m.sync = dp
+        first, lr0, mu_one = first_step_against_one_process(torch, trainer, state, singles[0], W,
+                                                            "data parallel (a)")
+        saved = state_snapshot(trainer, state)
+        inputs = trainer.prepare_step(singles[1], generator=torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.device_step(state, inputs, W)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        state_restore(torch, trainer, state, saved)
+        ext.reset_launch_counts()
+        with k1_captured(K1, lambda skip, n: n == 0) as crops, wrapper_captured(K2, "equalize", 10**9) as equalized, \
+                wrapper_captured(K3, "add_gaussian_noise", 10**9) as noised:
+            metrics, _ = graph_block(torch, trainer, state, groups, W, 7)
+        launches_a = dict(ext.LAUNCHES)
+        warm = trainer.graph_stats["warmup_steps"]
+        steps = 2 * MS_K + warm
+        check(launches_a["warp_roi_rotate"] == steps and launches_a["gaussian_noise"] == steps
+              and launches_a["equalize"] == 4 * steps, f"data parallel (a): launches {launches_a} in {steps} steps")
+        errs = dict(k2_k3_against_plain(torch, K2, K3, equalized, noised, "data parallel (a)"))
+        errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "data parallel (a)")
+        ref = flagship["graph_metrics"]
+        per_step = ((metrics[:, 0] - ref[:, 0]).abs() / ref[:, 0].abs()).tolist()
+        floor = reversed_rows_floor(torch, dev, singles, ref)
+        print(f"data parallel (a): the losses' relative differences from phase 14a's graph run, step by step: "
+              + " ".join(f"{v:.1e}" for v in per_step) + "; one process eagerly on the rows reversed: "
+              + " ".join(f"{v:.1e}" for v in floor) + f" on {smi}")
+        loss_rel = max(per_step)
+        check(bool(torch.isfinite(metrics).all()) and loss_rel <= DP_LOSS_LIMIT,
+              f"data parallel (a): the losses differ from phase 14a's graph run by up to {loss_rel} (relative), "
+              f"above {DP_LOSS_LIMIT}")
+        gen, i = torch.Generator().manual_seed(5), [0]
+
+        def replay():
+            trainer.train_step_multi(state, groups[i[0] % len(groups)], W, generator=gen)
+            i[0] += 1
+
+        replay()  # these draws may give another K1 plan, whose graph captures here
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(MS_TIMED_REPLAYS):
+            replay()
+        b.record()
+        b.synchronize()
+        dp_ms = a.elapsed_time(b) / (MS_TIMED_REPLAYS * MS_K)
+        stats = trainer.graph_stats
+        print(f"data parallel (a) one rank over NCCL, synchronized BatchNorm, flagship batch {B}: BatchNorm "
+              f"against torch.native_batch_norm " + ", ".join(f"{k} {v:.2e}" for k, v in bn_errs.items())
+              + f" (relative); the first eager step against one process (lr {lr0:.3e}): " + "; ".join(
+                  f"{name}: loss {r['loss']:.2e}, BatchNorm statistics {r['stats']:.2e} a leaf, first moment "
+                  f"{r['mu']:.3e}, {r['share'] * 100:.2f}% of the parameters within 1e-5, largest "
+                  f"{r['largest']:.2e}"
+                  for name, r in (("one rank", first["rank"]), ("one process, rows reversed", first["reversed"])))
+              + f"; 2 replays of "
+              f"K={MS_K}: losses within {loss_rel:.2e} (relative) of phase 14a's graph run"
+              + (" (bit-equal)" if torch.equal(metrics, ref) else "")
+              + f"; one device part ran under set_sync_debug_mode('error'); launches {launches_a} ({warm} warm-up "
+              f"steps); capture {stats['capture_s']:.2f} s, instantiate {stats['instantiate_s']:.3f} s; ms per step "
+              f"through the graph {dp_ms:.3f} ({MS_TIMED_REPLAYS} replays), phase 14a's "
+              + ", ".join(f"{v:.3f}" for k, v in timing[B] if k == "graph") + f" on {smi}")
+        del trainer, state
+    finally:
+        dp.close()
+
+    # (b) two ranks sharing the card over gloo, eager
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=dp_rank_main, args=(r, port, workdir)) for r in range(2)]
+        t_b = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=DP_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+        check(all(p.exitcode == 0 for p in procs), f"data parallel (b): ranks exited {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    equal, d = max_diff(torch, ranks[0]["state"] + [ranks[0]["metrics"]], ranks[1]["state"] + [ranks[1]["metrics"]])
+    check(equal, f"data parallel (b): the two ranks' parameters, buffers or moments differ by up to {d}")
+    ref = flagship["eager_metrics"][:DP_STEPS].cpu()
+    loss_rel_b = ((ranks[0]["metrics"][:, 0] - ref[:, 0]).abs() / ref[:, 0].abs()).max().item()
+    check(bool(torch.isfinite(ranks[0]["metrics"]).all()) and loss_rel_b <= DP_LOSS_LIMIT,
+          f"data parallel (b): the losses differ from one process's by up to {loss_rel_b} (relative), "
+          f"above {DP_LOSS_LIMIT}")
+    mu_b = mu_difference(torch, ranks[0]["mu"], mu_one)
+    check(mu_b <= DP_MU_LIMIT, f"data parallel (b): the first moment after the first step differs from one "
+          f"process's by {mu_b} (relative), above {DP_MU_LIMIT}")
+    launches = {k: launches_a[k] + sum(r["launches"][k] for r in ranks) for k in launches_a}
+    for r in ranks:
+        check(r["launches"]["warp_roi_rotate"] == DP_STEPS and r["launches"]["gaussian_noise"] == DP_STEPS
+              and r["launches"]["equalize"] == 4 * DP_STEPS, f"data parallel (b): a rank's launches {r['launches']}")
+        for k, v in r["errs"].items():
+            errs[k] = max(errs[k], v)
+    print(f"data parallel (b) two ranks on one card over gloo, {B // 2} rows each, {DP_STEPS} eager steps: BatchNorm "
+          f"over the ranks against torch.native_batch_norm " + ", ".join(
+              f"{k} {max(r['bn_errs'][k] for r in ranks):.2e}" for k in ranks[0]["bn_errs"])
+          + f" (relative); the ranks' parameters, buffers, moments and metrics bit-equal; the first moment after the "
+          f"first step {mu_b:.3e} from one process's; losses within {loss_rel_b:.2e} (relative) of phase 14a's one "
+          f"process on the same batches and draws; launches per rank {ranks[0]['launches']}; ms per step "
+          + ", ".join(f"rank {i} {r['ms']:.3f}" for i, r in enumerate(ranks))
+          + f" (two processes share the card, host-staged collectives: not a speed); (b) "
+          f"{time.perf_counter() - t_b:.1f} s with the processes' start-up; phase "
+          f"{time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, errs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -2122,11 +2533,12 @@ def main() -> int:
                                    eval_samples(run["val_frames"]), localizer)
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
-    ms_launches, _, _, _ = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
+    ms_launches, timing, _, _, flagship = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
     errs_ms = multistep_run_phase(torch, np, dev, f"{name} ({smi})", run)
+    dp_launches, errs_dp = data_parallel_phase(torch, np, dev, f"{name} ({smi})", flagship, timing)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
-        r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0)
-                                                     for e in (errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms)])
+        r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
+            errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp)])
 
     kernels = []
     for r in rows:
@@ -2137,6 +2549,7 @@ def main() -> int:
             launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
+            launches_data_parallel=dp_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

@@ -46,6 +46,11 @@ class Stage1Parameters(NamedTuple):
     def to(self, device) -> "Stage1Parameters":
         return Stage1Parameters(*(t.to(device) for t in self))
 
+    def rows(self, rows: slice) -> "Stage1Parameters":
+        """The draws of batch rows `rows`: the batch is axis 1 of `masks` and
+        `values`; `perm` is the whole batch's."""
+        return Stage1Parameters(self.perm, self.masks[:, rows], self.values[:, rows])
+
 
 class NoiseParameters(NamedTuple):
     sigma: torch.Tensor  # (B,) combined sigma, 0 = pass-through
@@ -53,6 +58,11 @@ class NoiseParameters(NamedTuple):
 
     def to(self, device) -> "NoiseParameters":
         return NoiseParameters(self.sigma.to(device), self.seeds.to(device))
+
+    def rows(self, rows: slice) -> "NoiseParameters":
+        """The draws of batch rows `rows`: rows r.b to (r + 1).b of a batch
+        drawn whole keep the keys base + r.b + arange(b)."""
+        return NoiseParameters(self.sigma[rows], self.seeds[rows])
 
 
 def sample_stage1_parameters(generator: Optional[torch.Generator], B: int) -> Stage1Parameters:

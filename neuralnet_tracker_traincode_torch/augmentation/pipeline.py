@@ -80,6 +80,29 @@ def sample_augmentation_parameters(
     return AugmentationParameters(roi, do_flip, rot_dir, stage1, noise)
 
 
+def draws_for_rows(
+    params: AugmentationParameters, rows: slice, param_index: Optional[torch.Tensor] = None
+) -> AugmentationParameters:
+    """The draws of rows `rows` of a batch whose draws `params` were made
+    whole (a data-parallel rank's share). The leaves do not share one batch
+    axis: the ROI, flip and rot90 draws are (B, ...), stage 1's masks and
+    values (6, B) with a shared `perm`, the noise (B,). `param_index` (the
+    rows' own, in the whole batch's row numbers) resolves the sequences as
+    `augment_batch_for_training` does, so that the rows' draws are applied
+    without it: a sequence may begin in another rank's rows."""
+
+    def take(t):
+        return None if t is None else (t[rows] if param_index is None else t[param_index.long()])
+
+    return AugmentationParameters(
+        roi=None if params.roi is None else RoiFocusRandomizationParameters(*map(take, params.roi)),
+        do_flip=take(params.do_flip),
+        rot_dir=take(params.rot_dir),
+        stage1=None if params.stage1 is None else params.stage1.rows(rows),
+        noise=None if params.noise is None else params.noise.rows(rows),
+    )
+
+
 _POINTISH = (FieldCategory.points, FieldCategory.xys)
 
 

@@ -24,6 +24,12 @@ does so for groups of K batches stacked on a leading axis, the input of
 `PoseTrainer.train_step_multi` (`stack_batches` stacks batches that are on
 the card already). `iterate_fused_batches` makes training batches of a
 packed set already held on the card.
+
+Data-parallel (`parallel/distributed.py`): with `rows`, a loader plans the
+node's batches from its one sampler stream as before and packs only this
+rank's rows of each (`_produce_rows`); `FusedBatchLoader` with a process
+group then pads every batch to the largest padding of any rank's same batch,
+so that the ranks' shapes, and so their CUDA graphs, agree.
 """
 
 import atexit
@@ -43,6 +49,7 @@ import torch
 from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES
 from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
 from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
+from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel, local_rows
 from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
 
 LABEL_SCHEMA = {
@@ -213,9 +220,13 @@ def plan_batches(
         yield plan
 
 
-def _produce_batch(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int) -> Dict[str, np.ndarray]:
+def _produce_batch(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int,
+                   rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
     """The fused batch of `plan`; a short one (the stream's last) filled up
-    with repeats of its first frame at weight 0, so that shapes stay fixed."""
+    with repeats of its first frame at weight 0, so that shapes stay fixed.
+    With `rows`, only those rows of it (`_produce_rows`)."""
+    if rows is not None:
+        return _produce_rows(ds, plan, batchsize, pad_size, decode_threads, rows)
     batch = pack_fused_batch([ds[gi] for gi in plan.indices], plan.tag_ids, pad_size, plan.weights, decode_threads)
     B = batch["tag_id"].shape[0]
     if B < batchsize:
@@ -224,8 +235,50 @@ def _produce_batch(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_th
     return batch
 
 
+def _produce_rows(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int,
+                  rows: slice) -> Dict[str, np.ndarray]:
+    """Rows `rows` of `_produce_batch(ds, plan, batchsize, ...)`, equal to
+    them field for field but for the padding, which follows only the images
+    packed here. Only the samples with a frame in `rows` are read and
+    decoded (a sequence across the rows' edge whole), and `param_index` is
+    in the whole batch's row numbers: a sequence may begin in rows that
+    another rank packs."""
+    counts = [frame_count(ds, gi) for gi in plan.indices]
+    starts = np.cumsum([0] + counts[:-1])
+    frames = int(sum(counts))
+    wanted = np.arange(rows.start, rows.stop)
+    source = np.where(wanted < frames, wanted, 0)  # a short batch's fill repeats its first frame
+    sample = np.searchsorted(starts, source, side="right") - 1
+    chosen = sorted(set(sample.tolist()))
+    packed = pack_fused_batch([ds[plan.indices[s]] for s in chosen], [plan.tag_ids[s] for s in chosen], pad_size,
+                              [plan.weights[s] for s in chosen], decode_threads)
+    first_row = dict(zip(chosen, np.cumsum([0] + [counts[s] for s in chosen[:-1]]).tolist()))
+    take = np.asarray([first_row[s] + r - starts[s] for r, s in zip(source.tolist(), sample.tolist())])
+    batch = {k: v[take] for k, v in packed.items()}
+    batch["param_index"] = starts[sample].astype(np.int32)
+    batch["dataset_weight"][wanted >= frames] = 0.0
+    return batch
+
+
+def _agreed_padding(batches: Iterator[Dict[str, np.ndarray]], parallel: DataParallel
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """The batches of `batches`, each image plane zero-padded to the largest
+    padding of any rank's same batch (one host all-reduce a batch)."""
+    try:
+        for batch in batches:
+            img = batch["image"]
+            (pad,) = parallel.host_all_reduce([img.shape[1]], "max", torch.int64)
+            if pad > img.shape[1]:
+                grown = np.zeros((img.shape[0], pad, pad) + img.shape[3:], img.dtype)
+                grown[:, : img.shape[1], : img.shape[2]] = img
+                batch = dict(batch, image=grown)
+            yield batch
+    finally:
+        batches.close()
+
+
 def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, parent_pid, shm_name=None,
-                         shm_slots=0):
+                         shm_slots=0, rows=None):
     """A spawned worker: the batches of the plans it is sent, in order.
 
     With `shm_name`, the image plane of each batch goes into the next slot of
@@ -272,7 +325,7 @@ def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, p
             if plan is None:
                 return
             try:
-                batch = _produce_batch(ds, plan, batchsize, pad_size, decode_threads)
+                batch = _produce_batch(ds, plan, batchsize, pad_size, decode_threads, rows)
             except Exception as e:  # noqa: BLE001 - forwarded to the consumer
                 put_or_exit(e)
                 return
@@ -312,6 +365,11 @@ class FusedBatchLoader:
     under `if __name__ == "__main__":`, and what the datasets hold must
     pickle. With `shared_memory` the image plane of each batch crosses
     through a per-worker ring of shared-memory slots instead of the queue.
+
+    With `parallel` (a process group's `DataParallel`) the plans are the
+    node's batches of `batchsize` frames, the loader packs this rank's rows
+    of each (`local_rows` of its place on the node), and every batch is
+    padded as the ranks agree (`_agreed_padding`).
     """
 
     def __init__(
@@ -327,8 +385,13 @@ class FusedBatchLoader:
         num_workers: int = 0,
         worker_type: str = "auto",
         shared_memory: bool = True,
+        parallel: Optional[DataParallel] = None,
     ):
         assert worker_type in ("auto", "thread", "process"), worker_type
+        self.parallel = parallel or DataParallel()
+        self.rows = None
+        if self.parallel.active:
+            self.rows = local_rows(batchsize, self.parallel.local_rank, self.parallel.local_ranks)
         self.ds = concat_dataset
         self.tag_to_id = tag_to_id
         self.sampler = sampler
@@ -358,8 +421,10 @@ class FusedBatchLoader:
         skipped plans load nothing)."""
         plans = self.plan_batches(start)
         if self.worker_type == "process":
-            return self._iter_process_workers(plans)
-        return self._iter_thread_workers(plans)
+            batches = self._iter_process_workers(plans)
+        else:
+            batches = self._iter_thread_workers(plans)
+        return _agreed_padding(batches, self.parallel) if self.parallel.active else batches
 
     def _decode_threads(self) -> int:
         return max(1, (os.cpu_count() or 1) // self.num_workers)
@@ -408,7 +473,7 @@ class FusedBatchLoader:
                         put_with_cancel(out_qs[wi], stop)
                         return
                     put_with_cancel(out_qs[wi], _produce_batch(self.ds, plan, self.batchsize, self.pad_size,
-                                                               decode_threads))
+                                                               decode_threads, self.rows))
             except Exception as e:  # noqa: BLE001 - forwarded to the consumer
                 put_with_cancel(out_qs[wi], e)
 
@@ -458,7 +523,7 @@ class FusedBatchLoader:
             ctx.Process(
                 target=_process_worker_main,
                 args=(self.ds, in_qs[i], out_qs[i], self.batchsize, self.pad_size, self._decode_threads(),
-                      os.getpid(), shms[i].name if shms else None, shm_slots),
+                      os.getpid(), shms[i].name if shms else None, shm_slots, self.rows),
                 daemon=True,
             )
             for i in range(W)
@@ -680,7 +745,8 @@ def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLi
 
 
 def iterate_fused_batches(
-    packed: Dict[str, Any], batchsize: int, sampler: Iterable[int], device=None, start: int = 0
+    packed: Dict[str, Any], batchsize: int, sampler: Iterable[int], device=None, start: int = 0,
+    rows: Optional[slice] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of `batchsize` frames from a packed set (one fused batch dict
     of all frames), held on `device` (default: the card), in the order of
@@ -688,7 +754,9 @@ def iterate_fused_batches(
     them: `make_concat_dataset_item_sampler(ConcatDataset([frames]), [1.0],
     seed=seed)`. With `start`, the first batch is the one an iterator of an
     equal sampler gives after `start` batches (a resumed run's step): the
-    first `start * batchsize` indices of the stream are skipped."""
+    first `start * batchsize` indices of the stream are skipped. With `rows`
+    (a data-parallel rank's `local_rows`), only those rows of each batch,
+    `param_index` in the batch's row numbers."""
     dev = resolve_device(device)
     data = {k: torch.as_tensor(v).to(dev) for k, v in packed.items()}
     n = data["tag_id"].shape[0]
@@ -701,7 +769,8 @@ def iterate_fused_batches(
         indices = list(itertools.islice(it, batchsize))
         if len(indices) < batchsize:
             return
-        idx = torch.as_tensor(indices, dtype=torch.int64).to(dev)
+        rows_here = slice(None) if rows is None else rows
+        idx = torch.as_tensor(indices[rows_here], dtype=torch.int64).to(dev)
         batch = {k: v.index_select(0, idx) for k, v in data.items()}
-        batch["param_index"] = torch.arange(batchsize, dtype=torch.int32, device=dev)
+        batch["param_index"] = torch.arange(batchsize, dtype=torch.int32, device=dev)[rows_here]
         yield batch

@@ -1,6 +1,7 @@
 """Device selection shared by the port's entry points, and the constants
 that the training step keeps on its device."""
 
+import os
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -10,12 +11,16 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks otherwise.
+    """The device an entry point runs on: CUDA unless the caller asks otherwise;
+    under `torchrun` (`LOCAL_RANK` set), the card without an index is
+    `cuda:LOCAL_RANK`.
 
     Raises instead of falling back to the CPU when CUDA is requested but
     absent, so a run never silently measures the CPU.
     """
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "

@@ -31,6 +31,7 @@ from neuralnet_tracker_traincode_torch.data.sampling import (
     TransformedDataset,
     make_concat_dataset_item_sampler,
 )
+from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel, process_local_seed
 
 
 def _datadir() -> str:
@@ -228,10 +229,14 @@ def make_pose_estimation_loaders(
     pad_size: Optional[int] = None,
     seed: Optional[int] = None,
     num_workers: Optional[int] = None,
+    parallel: Optional[DataParallel] = None,
 ):
     """The training CLI's data: (train loader, aflw2k3d test split, number of
     training samples, tag order, augmentation config). The sampler draws
-    from `seed` (the port runs one process)."""
+    from `seed`; with `parallel` (a data-parallel rank) from the node's
+    `process_local_seed(seed, node, nodes)`, as each JAX process does, and
+    the loader packs this rank's rows of the node's batches of `batchsize`."""
+    parallel = parallel or DataParallel()
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
 
     dataset_weights = dict(dataset_weights or {})
@@ -289,7 +294,8 @@ def make_pose_estimation_loaders(
         f"{id_}: {sz}  frequency: {f * 100:0.1f}%" for (id_, sz), f in zip(ds_with_sizes, frequencies)))
 
     concat = ConcatDataset(train_sets)
-    sampler = make_concat_dataset_item_sampler(concat, frequencies, seed=seed)
+    sampler = make_concat_dataset_item_sampler(concat, frequencies,
+                                               seed=process_local_seed(seed, parallel.node, parallel.nodes))
     if pad_size is None:
         pad_size = probe_pad_size(train_sets)
         print(f"Probed pad size: {pad_size}")
@@ -312,6 +318,7 @@ def make_pose_estimation_loaders(
         pad_size=pad_size,
         dataset_weight_by_index=None if loss_weights is None else loss_weights.__getitem__,
         num_workers=num_workers if num_workers is not None else utils.num_workers(),
+        parallel=parallel,
     )
 
     _, test_set = make_aflw2k3d_datasets(transform=transform)

@@ -22,6 +22,17 @@ does not divide the epoch rounds it down. `--profile-dir` traces the first
 8 calls (dispatches) with `torch.profiler`. Not ported yet (it raises before
 any data is read): `--plot-save-filename` (matplotlib); the loss plot
 `train.pdf` is not written.
+
+On R GPUs of a machine, data-parallel (`parallel/distributed.py`):
+
+    torchrun --nproc-per-node=R -m neuralnet_tracker_traincode_torch.scripts.train_poseestimator ...
+
+`--batchsize` is the node's batch, of which each rank trains on its
+batchsize / R rows, as `--batchsize` is per process in the JAX package; the
+run is the one-process run on the whole batch up to the order of the
+reductions. The backend follows `--device` (NCCL on the card, gloo on the
+CPU). Rank 0 validates, prints and writes the files. Without `torchrun` the
+script runs one process as before.
 """
 
 import argparse
@@ -120,6 +131,16 @@ def steps_per_dispatch(requested: int, batchsize: int, steps_per_epoch: int, dev
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    from neuralnet_tracker_traincode_torch.parallel.distributed import init_from_env
+
+    parallel, dev = init_from_env(args.device)
+    try:
+        return _train(args, parallel, dev)
+    finally:
+        parallel.close()
+
+
+def _train(args, parallel, dev) -> int:
     import torch
 
     from neuralnet_tracker_traincode_torch import pipelines
@@ -128,14 +149,14 @@ def main(argv=None) -> int:
         device_prefetch,
         device_prefetch_stacked,
     )
-    from neuralnet_tracker_traincode_torch.device import resolve_device
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
     from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
     from neuralnet_tracker_traincode_torch.train.profiling import profile_batches
     from neuralnet_tracker_traincode_torch.train.run import run_training, setup_losses
     from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
 
-    dev = resolve_device(args.device)
+    # every rank of a node must sample the node's batches and draw the augmentation alike
+    seed = parallel.agreed_seed(args.seed)
     dsids, dataset_weights = parse_dataset_definition(args.ds)
     train_loader, test_set, _, tag_order, aug_cfg = pipelines.make_pose_estimation_loaders(
         inputsize=args.input_size,
@@ -147,7 +168,8 @@ def main(argv=None) -> int:
         rotation_aug_angle=args.rotation_aug_angle,
         roi_override=args.roi_override,
         pad_size=args.pad_size,
-        seed=args.seed,
+        seed=seed,
+        parallel=parallel,
     )
 
     model = NetworkWithPointHead(
@@ -168,13 +190,13 @@ def main(argv=None) -> int:
         swa_start_epoch=(args.epochs * 2 // 3) if args.swa else None,
         aug=aug_cfg,
     )
-    trainer = PoseTrainer(model, criterion, cfg, LABEL_CATEGORIES, device=dev)
+    trainer = PoseTrainer(model, criterion, cfg, LABEL_CATEGORIES, device=dev, parallel=parallel)
     state = trainer.init_state(torch.Generator().manual_seed(1234 if args.seed is None else args.seed))
     generator = torch.Generator()
-    if args.seed is None:
+    if seed is None:
         generator.seed()
     else:
-        generator.manual_seed(args.seed + 1)
+        generator.manual_seed(seed + 1)
 
     model_out_dir = join(args.outdir, model.name_tag)
     os.makedirs(model_out_dir, exist_ok=True)
@@ -185,21 +207,22 @@ def main(argv=None) -> int:
             print(f"No resume state at {resume}; starting fresh")
     validation = FusedValidation(trainer, test_set, batchsize=args.batchsize * 2)
     K = steps_per_dispatch(args.steps_per_dispatch, args.batchsize, cfg.steps_per_epoch, dev.type)
-    if args.steps_per_dispatch <= 0 and K > 1:
+    if args.steps_per_dispatch <= 0 and K > 1 and parallel.rank == 0:
         print(f"auto --steps-per-dispatch {K} (batch {args.batchsize})")
 
     def batches(step):
         it = train_loader.iterate(step)
         prefetched = device_prefetch(it, dev, size=2) if K == 1 else device_prefetch_stacked(it, dev, K, size=2)
-        return profile_batches(prefetched, args.profile_dir)
+        return profile_batches(prefetched, args.profile_dir if parallel.rank == 0 else None)
 
     t0 = time.perf_counter()
     state, records = run_training(trainer, state, batches, validation, model_out_dir, generator, resume=resume,
                                   steps_per_dispatch=K)
     total = time.perf_counter() - t0
-    samples = sum(r["steps"] for r in records) * args.batchsize
-    print(f"Done: {samples} samples in {total:.0f}s ({samples / max(total, 1e-9):.0f} images/s incl. validation); "
-          f"model files in {model_out_dir}")
+    samples = sum(r["steps"] for r in records) * args.batchsize * parallel.nodes
+    if parallel.rank == 0:
+        print(f"Done: {samples} samples in {total:.0f}s ({samples / max(total, 1e-9):.0f} images/s incl. validation); "
+              f"model files in {model_out_dir}")
     return 0
 
 

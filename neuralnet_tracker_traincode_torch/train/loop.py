@@ -17,6 +17,14 @@ it must do what the JAX package's optax chain does:
    the transformer blocks of hybrid_vit ('transformer') at 0.01x with
    decoupled weight decay 0.01 (`optax.adamw`).
 
+With a `parallel.distributed.DataParallel` the trainer is one rank of a
+data-parallel run: it trains on its rows of the batch of all ranks with the
+draws of the whole batch, BatchNorm reduces over the ranks, the gradients
+and the reported metrics are those of the whole batch, and the host values
+that shape a step (K1's plan, whether a CUDA graph captures) are agreed
+across the ranks first. The parameters, buffers and Adam moments stay
+bit-equal across ranks.
+
 SWA keeps an equal-weight running average of the parameters and the
 BatchNorm running statistics in the `TrainState` (`update_swa`);
 `save_checkpoint` writes the current or the averaged weights in the JAX
@@ -25,6 +33,7 @@ package's model file layout (`models/io.py`).
 
 import collections
 import dataclasses
+import hashlib
 import math
 import os
 import tempfile
@@ -40,14 +49,16 @@ from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
     TrainAugmentationConfig,
     augment_batch_for_training,
     crop_scale_bounds,
+    draws_for_rows,
     sample_augmentation_parameters,
 )
 from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.kernels import ext
 from neuralnet_tracker_traincode_torch.kernels import warp as K1
 from neuralnet_tracker_traincode_torch.losses.criterion import MaskedMultiTaskCriterion
-from neuralnet_tracker_traincode_torch.models.backbones.common import draw_mask_seed
+from neuralnet_tracker_traincode_torch.models.backbones.common import BatchNorm2d, draw_mask_seed
 from neuralnet_tracker_traincode_torch.models.nll import SCALE_MODULES
+from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel
 from neuralnet_tracker_traincode_torch.train.schedules import exponential_up_then_steps
 
 _GROUP_LR = {"main": 1.0, "variance": 0.1, "transformer": 0.01}
@@ -310,6 +321,10 @@ class PoseTrainer:
     `train_step_multi` replays a CUDA graph that captured the device part
     once for each of K slots of input buffers (`_StepGraph`), so the graph
     runs the eager step's kernels on the eager step's inputs.
+
+    With `parallel` (module docstring) a batch holds this rank's rows of the
+    batch of all ranks, with `param_index` in the row numbers of its node's
+    batch; given draws (`aug_params`) are those of the batch of all ranks.
     """
 
     MAX_GRAPHS = 4  # captured graphs kept (by input shapes, K1 plan and state); the oldest goes first
@@ -322,9 +337,15 @@ class PoseTrainer:
         categories: Dict[str, Any],
         epoch_schedule: Optional[Callable[[int], float]] = None,
         device: DeviceLike = None,
+        parallel: Optional[DataParallel] = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.parallel = parallel or DataParallel()
+        if self.parallel.ranks > 1:
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.sync = self.parallel
         self.criterion = criterion
         self.config = config
         self.categories = dict(categories)
@@ -371,28 +392,55 @@ class PoseTrainer:
         return torch.as_tensor(self.criterion.weight_matrix(epoch), device=self.device)
 
     # ---- the host part -------------------------------------------------------
-    def _draws(self, B: int, aug_params: Optional[AugmentationParameters], generator: Optional[torch.Generator]
-               ) -> Tuple[AugmentationParameters, Optional[int]]:
+    def _draws(self, batch: Dict[str, Any], aug_params: Optional[AugmentationParameters],
+               generator: Optional[torch.Generator]) -> Tuple[AugmentationParameters, Optional[int]]:
         """One step's draws on the host, in the order the step consumes the
-        generator: the augmentation (unless given), then the mask seed."""
+        generator: the augmentation (unless given), then the mask seed. With
+        a process group the augmentation is drawn (or given) for the batch of
+        all ranks and resolved to this rank's rows (`draws_for_rows`), and
+        the mask seed has the rank folded in."""
+        P = self.parallel
+        B = len(batch["tag_id"])
         if aug_params is None:
-            aug_params = sample_augmentation_parameters(generator, B, self.config.aug)
+            aug_params = sample_augmentation_parameters(generator, B * P.ranks, self.config.aug)
+        if P.active:
+            pidx = None
+            if "param_index" in batch:  # the node's row numbers -> those of the batch of all ranks
+                pidx = _host_field(batch, "param_index").long() + P.node * B * P.local_ranks
+            aug_params = draws_for_rows(aug_params, P.rows(B * P.ranks), pidx)
         draws_masks = getattr(getattr(self.model, "convnet", None), "draws_masks", False)
         seed = draw_mask_seed(generator) if generator is not None and draws_masks else None
-        return aug_params, seed
+        return aug_params, None if seed is None else P.mask_seed(seed)
+
+    def _device_fields(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The fields the device part reads: with a process group the draws
+        are resolved on the host, so not `param_index`."""
+        if not self.parallel.active:
+            return batch
+        return {k: v for k, v in batch.items() if k != "param_index"}
 
     def _plan(self, batches: Sequence[Dict[str, Any]], draws: Sequence[AugmentationParameters]
               ) -> Optional[K1.LaunchPlan]:
-        """K1's launch plan for steps on `batches` with `draws`, from the host
-        copies of their ROIs (None on the CPU, whose plain K1 needs none)."""
+        """K1's launch plan on the card (`k1_plan`); None on the CPU, whose
+        plain K1 needs none."""
         if self.device.type != "cuda":
             return None
+        return self.k1_plan(batches, draws)
+
+    def k1_plan(self, batches: Sequence[Dict[str, Any]], draws: Sequence[AugmentationParameters]) -> K1.LaunchPlan:
+        """K1's launch plan for steps on `batches` with `draws`, from the host
+        copies of their ROIs; with a process group, for the largest scales of
+        all ranks, so that every rank launches K1 alike."""
         cfg = self.config.aug
         sy = sx = 0.0
         for batch, aug in zip(batches, draws):
-            pidx = _host_field(batch, "param_index") if "param_index" in batch else None
+            pidx = None
+            if "param_index" in batch and not self.parallel.active:  # a rank's draws are resolved already
+                pidx = _host_field(batch, "param_index")
             by, bx = crop_scale_bounds(_host_field(batch, cfg.roi_key), aug, self.categories, cfg, pidx)
             sy, sx = max(sy, by), max(sx, bx)
+        if self.parallel.active:
+            sy, sx = self.parallel.host_all_reduce([sy, sx], "max")
         skip = cfg.deterministic or not cfg.rotation_aug_angle
         S = cfg.inputsize
         cs = S if skip else K1.canvas_size(S, cfg.rotation_aug_angle)
@@ -417,10 +465,9 @@ class PoseTrainer:
     ) -> StepInputs:
         """The host part of one step (class docstring)."""
         dev = self.device
-        B = len(batch["tag_id"])
-        aug, seed = self._draws(B, aug_params, generator)
+        aug, seed = self._draws(batch, aug_params, generator)
         plan = self._plan([batch], [aug])
-        on_device = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        on_device = {k: torch.as_tensor(v).to(dev) for k, v in self._device_fields(batch).items()}
         (aug,) = self._upload([aug])
         mask_gen = None
         if seed is not None:
@@ -438,9 +485,9 @@ class PoseTrainer:
         seed) per step, consuming `generator` as K `prepare_step` calls do)
         and one K1 plan that holds for all of them."""
         K = len(next(iter(batches.values())))
-        B = len(batches["tag_id"][0])
-        drawn = [self._draws(B, None if aug_params is None else aug_params[k], generator) for k in range(K)]
-        return drawn, self._plan([_BatchSlice(batches, k) for k in range(K)], [a for a, _ in drawn])
+        steps = [_BatchSlice(batches, k) for k in range(K)]
+        drawn = [self._draws(steps[k], None if aug_params is None else aug_params[k], generator) for k in range(K)]
+        return drawn, self._plan(steps, [a for a, _ in drawn])
 
     # ---- the device part -----------------------------------------------------
     def device_step(self, state: TrainState, inputs: StepInputs, weight_matrix: torch.Tensor
@@ -469,13 +516,35 @@ class PoseTrainer:
         with record_function("backward"):
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {n: (torch.zeros_like(p) if g is None else g) for (n, p), g in zip(params.items(), grads)}
+        if self.parallel.active:
+            with record_function("gradient_mean"):
+                grads = self._mean_over_ranks(grads)
         with record_function("optimizer"):
             self.tx.step(params, grads, state.opt_state)
         names = ["loss"] + list(byname)
+        if self.parallel.active:  # the numerators and counts of all ranks
+            P, m = self.parallel, len(byname)
+            sums = torch.stack([loss.detach().float()] + [vals.detach().sum() for vals, _ in byname.values()]
+                               + [(ws != 0).sum().float() for _, ws in byname.values()])
+            P.all_reduce_(sums)
+            return names, torch.cat([sums[:1] / P.ranks, sums[1:1 + m] / torch.clamp(sums[1 + m:], min=1)])
         values = [loss.detach().float()]
         for vals, ws in byname.values():
             values.append(vals.detach().sum() / torch.clamp((ws != 0).sum(), min=1))
         return names, torch.stack(values)
+
+    def _mean_over_ranks(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The gradients summed over the ranks in one flat buffer, then
+        divided by their number: each rank's loss is its rows' sum over its
+        row count, so with equal row counts this is the gradient of the
+        whole batch's loss."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        self.parallel.all_reduce_(flat).div_(self.parallel.ranks)
+        out, o = {}, 0
+        for n, g in grads.items():
+            out[n] = flat[o:o + g.numel()].view_as(g)
+            o += g.numel()
+        return out
 
     def train_step(
         self,
@@ -513,7 +582,10 @@ class PoseTrainer:
         for these input shapes, this K1 plan and this state's tensors (after
         a warm-up of the device part on a side stream, from which the state
         is restored); the captured launches count in `kernels.ext.LAUNCHES`
-        once per replay. A capture or a replay that fails raises."""
+        once per replay. A capture or a replay that fails raises. With a
+        process group, every rank captures where any rank would, so that the
+        collectives of the capture's warm-up pair across ranks; NCCL's are
+        captured into the graph, gloo's cannot be (it raises)."""
         K = len(next(iter(batches.values())))
         if self.device.type != "cuda":
             history = []
@@ -524,11 +596,18 @@ class PoseTrainer:
                 )
                 history.append(m)
             return state, {n: torch.stack([m[n] for m in history]) for n in history[0]}
+        if self.parallel.active:
+            import torch.distributed as dist
+
+            if dist.get_backend(self.parallel.group) != "nccl":
+                raise ValueError("a CUDA graph cannot capture the collectives of the "
+                                 f"{dist.get_backend(self.parallel.group)} backend; train eagerly (train_step)")
         with record_function("draws"):
             drawn, plan = self.prepare_block(batches, aug_params, generator)
-            graph = self._graph_for(state, batches, drawn[0], plan)
-            graph.load(batches, drawn, weight_matrix)
-        if graph.graph is None:
+            fields = self._device_fields(batches)
+            graph, capture = self._graph_for(state, fields, drawn[0], plan)
+            graph.load(fields, drawn, weight_matrix)
+        if capture:
             graph.capture(self, state)
         with record_function("replay"):
             graph.graph.replay()
@@ -538,23 +617,33 @@ class PoseTrainer:
         return (dataclasses.replace(state, step=state.step + K),
                 {n: values[:, i] for i, n in enumerate(graph.metric_names)})
 
-    def _graph_for(self, state: TrainState, batches, first_draws, plan) -> "_StepGraph":
+    def _graph_for(self, state: TrainState, batches, first_draws, plan) -> Tuple["_StepGraph", bool]:
+        """The graph of this block's key, and whether it captures now: where
+        it has none yet, or, with a process group, where any rank's has none
+        (after a check that every rank has the same shapes and plan)."""
         aug, seed = first_draws
-        key = (
+        shared = (
             tuple((k, tuple(v.shape), torch.as_tensor(v[:1]).dtype) for k, v in batches.items()),
             tuple((n, tuple(t.shape), t.dtype) for n, t in _draw_leaves(aug).items()),
             seed is not None,
             plan,
-            state.opt_state.count.data_ptr(),
-            next(iter(self.params().values())).data_ptr(),
         )
+        key = shared + (state.opt_state.count.data_ptr(), next(iter(self.params().values())).data_ptr())
         graph = self._graphs.get(key)
         if graph is None:
             while len(self._graphs) >= self.MAX_GRAPHS:
                 self._graphs.popitem(last=False)
             graph = self._graphs[key] = _StepGraph(self, batches, aug, seed is not None, plan)
         self._graphs.move_to_end(key)
-        return graph
+        capture = graph.graph is None
+        if self.parallel.active:
+            digest = int.from_bytes(hashlib.sha256(repr(shared).encode()).digest()[:7], "little")
+            top, neg_bottom, any_capture = self.parallel.host_all_reduce([digest, -digest, int(capture)], "max",
+                                                                         torch.int64)
+            if top != -neg_bottom:
+                raise RuntimeError(f"the ranks' blocks differ in shapes or K1 plan; this rank's: {shared}")
+            capture = bool(any_capture)
+        return graph, capture
 
     def _state_tensors(self, state: TrainState) -> List[torch.Tensor]:
         """Every tensor a step changes in place."""

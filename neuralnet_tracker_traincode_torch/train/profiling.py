@@ -19,7 +19,7 @@ from typing import Callable, Dict, Iterator, Optional, TypeVar
 
 import torch
 
-STAGES = ("draws", "augment", "forward", "loss", "backward", "optimizer", "replay")
+STAGES = ("draws", "augment", "forward", "loss", "backward", "gradient_mean", "optimizer", "replay")
 T = TypeVar("T")
 
 
@@ -106,10 +106,13 @@ def _stop(prof, logdir: str):
 
 class ThroughputMeter:
     """Images per second on the host's clock, after `warmup_steps` steps
-    (the first steps build kernels and pick algorithms)."""
+    (the first steps build kernels and pick algorithms), of the node's
+    batches; `per_device` divides them over the node's `devices` (the JAX
+    package's `per_chip`)."""
 
-    def __init__(self, warmup_steps: int = 1):
+    def __init__(self, warmup_steps: int = 1, devices: int = 1):
         self.warmup_steps = warmup_steps
+        self.devices = devices
         self.reset()
 
     def reset(self):
@@ -131,3 +134,7 @@ class ThroughputMeter:
         if self._t0 is None or self._images == 0:
             return 0.0
         return self._images / (time.perf_counter() - self._t0)
+
+    @property
+    def per_device(self) -> float:
+        return self.images_per_sec / max(1, self.devices)

@@ -14,6 +14,10 @@ every step), the NaN watchdog, validation, the SWA update, `last.ckpt`, the
 resume file and `best.ckpt`; `swa.ckpt` at the end. The training CLI
 (`scripts/train_poseestimator.py`) drives it over the HDF5 datasets of
 `$DATADIR`, the batches from `FusedBatchLoader` through `device_prefetch`.
+In a data-parallel run (the trainer's `parallel`) every rank runs the loop
+on its rows; rank 0 alone validates (every rank takes its loss, so the
+best-epoch decision is the same everywhere), prints and writes the files,
+and the other ranks wait until they are written.
 """
 
 import dataclasses
@@ -162,6 +166,8 @@ def run_training(
         print(f"note: {cfg.steps_per_epoch} steps/epoch rounded down to {dispatches * K} "
               f"(multiple of --steps-per-dispatch {K})")
     step_fn = trainer.train_step if K == 1 else trainer.train_step_multi
+    parallel = trainer.parallel
+    writer = parallel.rank == 0
     os.makedirs(outdir, exist_ok=True)
     resume_path = os.path.join(outdir, "resume.pt")
     console = ConsoleTrainOutput()
@@ -170,9 +176,10 @@ def run_training(
         state, extra = load_train_state(trainer, resume, generator, state=state)
         start_epoch = int(extra.get("epoch", -1)) + 1
         best_val = float(extra.get("best_val", math.inf))
-        print(f"Resumed from {resume} at epoch {start_epoch}")
+        if writer:
+            print(f"Resumed from {resume} at epoch {start_epoch}")
     batches = train_batches(state.step)
-    meter = ThroughputMeter(warmup_steps=2)
+    meter = ThroughputMeter(warmup_steps=2, devices=parallel.local_ranks)
     records = []
     for epoch in range(start_epoch, cfg.epochs):
         W = trainer.weight_matrix(epoch)
@@ -192,9 +199,10 @@ def run_training(
         per_step = {n: table[:, i] for i, n in enumerate(names)}
         check_not_nan(per_step, trainer.params(), batch, os.path.join(outdir, "notgood.pt"))
         step0 = state.step - steps
-        for j in range(steps):
-            for n in names:
-                console.add_train_point(epoch, step0 + j + 1, n, float(per_step[n][j]))
+        if writer:
+            for j in range(steps):
+                for n in names:
+                    console.add_train_point(epoch, step0 + j + 1, n, float(per_step[n][j]))
 
         t_val = time.perf_counter()
         val_loss = validation.run(epoch, console)
@@ -203,28 +211,34 @@ def run_training(
         if cfg.swa_start_epoch is not None and epoch > cfg.swa_start_epoch:
             state = trainer.update_swa(state)
         checkpoint_ms = {}
-        t_ckpt = time.perf_counter()
-        trainer.save_checkpoint(state, os.path.join(outdir, "last.ckpt"))
-        checkpoint_ms["last"] = (time.perf_counter() - t_ckpt) * 1e3
         improved = val_loss < best_val
         best_val = min(best_val, val_loss)
-        t_ckpt = time.perf_counter()
-        save_train_state(trainer, state, resume_path, extra={"epoch": epoch, "best_val": best_val}, generator=generator)
-        checkpoint_ms["resume"] = (time.perf_counter() - t_ckpt) * 1e3
-        if improved:
+        if writer:
             t_ckpt = time.perf_counter()
-            trainer.save_checkpoint(state, os.path.join(outdir, "best.ckpt"))
-            checkpoint_ms["best"] = (time.perf_counter() - t_ckpt) * 1e3
-        console.summarize_train_values()
-        console.update_graph()
+            trainer.save_checkpoint(state, os.path.join(outdir, "last.ckpt"))
+            checkpoint_ms["last"] = (time.perf_counter() - t_ckpt) * 1e3
+            t_ckpt = time.perf_counter()
+            save_train_state(trainer, state, resume_path, extra={"epoch": epoch, "best_val": best_val},
+                             generator=generator)
+            checkpoint_ms["resume"] = (time.perf_counter() - t_ckpt) * 1e3
+            if improved:
+                t_ckpt = time.perf_counter()
+                trainer.save_checkpoint(state, os.path.join(outdir, "best.ckpt"))
+                checkpoint_ms["best"] = (time.perf_counter() - t_ckpt) * 1e3
+            console.summarize_train_values()
+            console.update_graph()
+        parallel.barrier()
         ips, sustained = steps * cfg.batchsize / train_s, meter.images_per_sec
-        print(f"epoch {epoch + 1}/{cfg.epochs}: {ips:.0f} img/s (sustained {sustained:.0f} img/s incl. "
-              f"validation), val_loss {val_loss:.4f} (best {best_val:.4f})")
+        if writer:
+            per_device = f", {meter.per_device:.0f} img/s per device" if parallel.active else ""
+            print(f"epoch {epoch + 1}/{cfg.epochs}: {ips:.0f} img/s (sustained {sustained:.0f} img/s incl. "
+                  f"validation{per_device}), val_loss {val_loss:.4f} (best {best_val:.4f})")
         records.append(dict(
             epoch=epoch, steps=steps, train_s=train_s, images_per_s=ips, sustained_images_per_s=sustained,
             val_loss=val_loss, val_ms=val_ms, checkpoint_ms=checkpoint_ms,
             train_metrics={n: float(per_step[n].double().mean()) for n in names},
         ))
-    if cfg.swa_start_epoch is not None:
+    if cfg.swa_start_epoch is not None and writer:
         trainer.save_checkpoint(state, os.path.join(outdir, "swa.ckpt"), swa=True)
+    parallel.barrier()
     return state, records

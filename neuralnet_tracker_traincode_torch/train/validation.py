@@ -12,7 +12,9 @@ batch takes the training augmentation in its deterministic form (K1 with
 its own shapes. The loss is the mean of the
 batches' criterion losses; each term, the mean over the batches of its sum
 over the frames with nonzero weight divided by their count. Everything stays
-on the device until `run` returns.
+on the device until `run` returns. In a data-parallel run rank 0 alone packs
+and validates, as the JAX package validates on device 0, and the other
+ranks wait for its loss.
 """
 
 from typing import Dict, List
@@ -31,7 +33,7 @@ class FusedValidation:
         self.trainer = trainer
         self.batchsize = batchsize
         self.tag_to_id = trainer.criterion.tag_index
-        self._batches = self._pack(dataset)
+        self._batches = self._pack(dataset) if trainer.parallel.rank == 0 else []
 
     def _pack(self, dataset) -> List[Dict[str, torch.Tensor]]:
         samples = [dataset[i] for i in range(len(dataset))]
@@ -74,11 +76,17 @@ class FusedValidation:
 
     def run(self, epoch: int, *recorders) -> float:
         """The validation loss of the model's current weights as a float (one
-        transfer); each recorder gets a test point per metric."""
-        metrics = self.evaluate(epoch)
-        names = list(metrics)
-        values = torch.stack([metrics[n] for n in names]).cpu().tolist()
-        for rec in recorders:
-            for n, v in zip(names, values):
-                rec.add_test_point(epoch, n, v)
-        return values[0]
+        transfer); each recorder gets a test point per metric. With a
+        process group, rank 0 validates and records while the other ranks
+        wait, and every rank returns rank 0's loss."""
+        parallel = self.trainer.parallel
+        loss = 0.0
+        if parallel.rank == 0:
+            metrics = self.evaluate(epoch)
+            names = list(metrics)
+            values = torch.stack([metrics[n] for n in names]).cpu().tolist()
+            for rec in recorders:
+                for n, v in zip(names, values):
+                    rec.add_test_point(epoch, n, v)
+            loss = values[0]
+        return parallel.host_broadcast([loss])[0]

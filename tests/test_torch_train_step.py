@@ -194,10 +194,13 @@ def jax_step():
     return _jax_step(flagship_criteria()[0], SMALL_NET, swa_steps=3)
 
 
-def _check_step(ref, ttr, tstate, tmetrics, old, mu_leaf, nu_leaf, loose=("quatreg",), sign_floor=False):
+def _check_step(ref, ttr, tstate, tmetrics, old, mu_leaf, nu_leaf, loose=("quatreg",), sign_floor=False,
+                size_floor=False):
     """`sign_floor`: compare the update's signs only where the JAX first
     moment exceeds mu_leaf x its leaf's RMS (the f32 noise of that leaf);
-    for a leaf of 8 elements one element below the noise is 1/8."""
+    for a leaf of 8 elements one element below the noise is 1/8.
+    `size_floor`: the update's mean size too (an element whose gradient is
+    noise may move by less than lr: Adam divides by |g| + 1e-8)."""
     assert tstate.step == 1 and tstate.opt_state.count == 1
     assert set(tmetrics) == set(ref["metrics"])
     for k, v in ref["metrics"].items():
@@ -215,11 +218,11 @@ def _check_step(ref, ttr, tstate, tmetrics, old, mu_leaf, nu_leaf, loose=("quatr
         if not d_j.any():  # the scales that feed no flagship term
             assert not d_t.any(), k
             continue
-        assert abs(np.abs(d_t).mean() / np.abs(d_j).mean() - 1.0) <= 5e-3, k
-        above = slice(None)
-        if sign_floor:
-            m_j = ref["mu"][k].numpy()
-            above = np.abs(m_j) > mu_leaf * np.sqrt(np.mean(np.square(m_j)))
+        m_j = ref["mu"][k].numpy()
+        signal = np.abs(m_j) > mu_leaf * np.sqrt(np.mean(np.square(m_j)))
+        sized = signal if size_floor else slice(None)
+        assert abs(np.abs(d_t[sized]).mean() / np.abs(d_j[sized]).mean() - 1.0) <= 5e-3, k
+        above = signal if sign_floor else slice(None)
         assert np.mean(np.sign(d_t[above]) == np.sign(d_j[above])) >= 0.9, k
     flat = lambda tree: np.concatenate([tree[k].numpy().ravel() for k in params])  # noqa: E731
     return leaf_rel_err(flat(mu), flat(ref["mu"]))
