@@ -196,13 +196,35 @@ Phases (any failure ends the run with a non-zero exit code):
     steps, K1, K2 and K3 on each rank against their plain versions at the
     first step; ms per step per rank (not a speed: two processes share one
     card);
- 16. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 16. the face-model tools. `PosedDeformableHead` on the card bit-equal to itself
+    under bf16 autocast with TF32 on. (a) `scripts/fit_face_model.py:
+    fit_face_model` on 20,000 synthetic faces (as the JAX package's
+    tests/test_fit_face_model.py makes them: XYZ Euler angles within +-35
+    deg, xy 100-140 px, size 40-60 px, 0.2 px landmark noise) on the card at
+    the CLI's defaults (3,000 steps, lr 0.05): every logged loss finite, the
+    JAX test's recovery limits over all faces (mean rotation error < 6 deg,
+    xy < 3 px, relative size < 0.1), and the first 256 faces fitted alone on
+    the CPU against the card's rows (the fit's per-face trajectories are
+    independent; `FIT_AGREE_*`). Before it, 60 steps through the CUDA graph
+    (the default on the card) bit-equal to 60 eager steps. It prints ms a
+    step eager and through the graph (CUDA events), the fit's seconds and
+    the residual's mean and p90. (b)
+    `vis3d.rasterize_mesh` on a closed ellipsoid of the full BFM mesh's size
+    (38,162 vertices, 76,320 triangles) at 640 x 480, three poses, card
+    against CPU (coverage equal, depth within 1e-4, colours within 1 level;
+    the pixels where the depth test ties are counted), ms a render (CUDA
+    events after warm-up); `FaceRender` on the card through stub head
+    models (the tetrahedron of tests/test_vis3d.py; the ellipsoid with 50
+    deformation bases, against `FaceRender` on the CPU). No kernel of K1-K3
+    is on this path: their launch counts, reset before, must read 0 after;
+ 17. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
     `launches_export` from phase 13, `launches_multistep` from phase 14
     (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
-    both ranks of (b)), then `{"ok": true, "device": ...}` as the last line.
+    both ranks of (b), `launches_face_tools` from phase 16, which are 0),
+    then `{"ok": true, "device": ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -213,11 +235,13 @@ runs only where it imports).
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
 
+import concurrent.futures
 import contextlib
 import copy
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -258,6 +282,22 @@ LOADER_SRC, LOADER_WORKERS, LOADER_CHECK_BATCHES, LOADER_ALONE_BATCHES = 448, 4,
 CLI_N, CLI_SRC = 1024, 160
 # export and the ONNX runtime: the Predictor's chunk
 EXPORT_CHUNK = 128
+# the face-model tools (phase 16): the fit at the size the reference's notebooks fit (WFLW 10,000 faces, LaPa
+# about 22,000) with the CLI's defaults; the first FIT_CPU_N faces fitted alone on the CPU
+FIT_N, FIT_SEED, FIT_STEPS, FIT_LR, FIT_CPU_N, FIT_TIMED_FROM = 20000, 20261017, 3000, 0.05, 256, 300
+# the graph's replays against eager steps on the card: steps, and the logged step the timing starts from
+FIT_EAGER_STEPS, FIT_EAGER_TIMED_FROM = 60, 6
+# recovery limits of the JAX package's tests/test_fit_face_model.py: mean rotation error (deg), xy error (px), size
+FIT_ROT_LIMIT, FIT_XY_LIMIT, FIT_SIZE_LIMIT = 6.0, 3.0, 0.1
+# card against CPU on the first FIT_CPU_N faces: mean and largest rotation difference (deg), largest parameter
+# difference (quaternion components, coords in px, shape parameters). Fixed between the measured agreement (mean
+# 2.5e-6 deg, max 1.2e-5 deg, parameters 1.9e-5) and the recovery limits, several hundred times from each (PERF.md
+# section 6)
+FIT_AGREE_MEAN_DEG, FIT_AGREE_MAX_DEG, FIT_AGREE_PARAM = 1e-3, 1e-2, 1e-2
+# the rasterizer: a closed latitude-longitude ellipsoid the size of the full BFM mesh (38,365 vertices, 76,073
+# triangles) at a webcam frame, posed three ways; the full BFM itself is not distributable
+RENDER_H, RENDER_W, RENDER_LAT, RENDER_LON, RENDER_SCALE, RENDER_TIMED = 480, 640, 160, 240, 150.0, 20
+RENDER_POSES = [("xyz", (0, 0, 0)), ("xyz", (0, 40, 0)), ("xyz", (-25, -20, 15))]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -2477,6 +2517,254 @@ def data_parallel_phase(torch, np, dev, smi, flagship, timing):
     return launches, errs
 
 
+def synthetic_faces(torch, np, n, seed):
+    """Ground truth and noisy 2D landmarks, as the JAX package's tests/test_fit_face_model.py makes them: XYZ
+    Euler angles within +-35 deg, xy in 100-140 px, size 40-60 px, shape ~ 0.3 N(0, 1), 0.2 px landmark noise,
+    ROIs from the landmarks' extent; the keypoints posed by the port's head on the CPU."""
+    from scipy.spatial.transform import Rotation
+
+    from neuralnet_tracker_traincode_torch.models.components import DeformableHeadKeypoints, PosedDeformableHead
+    from neuralnet_tracker_traincode_torch.ops.rotrepr import QuatRepr
+
+    rng = np.random.RandomState(seed)
+    quats = Rotation.from_euler("XYZ", rng.uniform(-35, 35, (n, 3)), degrees=True).as_quat().astype(np.float32)
+    coord = np.concatenate([rng.uniform(100, 140, (n, 2)), rng.uniform(40, 60, (n, 1))], axis=-1).astype(np.float32)
+    shape = (rng.randn(n, 50) * 0.3).astype(np.float32)
+    with torch.no_grad():
+        pts = PosedDeformableHead(DeformableHeadKeypoints())(
+            torch.from_numpy(coord), QuatRepr(torch.from_numpy(quats)), torch.from_numpy(shape)).numpy()
+    pt2d = pts[..., :2] + rng.randn(n, 68, 2).astype(np.float32) * 0.2
+    rois = np.concatenate([pt2d.min(axis=1), pt2d.max(axis=1)], axis=-1).astype(np.float32)
+    return dict(quats=quats, coord=coord, pt2d=pt2d, rois=rois)
+
+
+def rotation_deg(np, a, b):
+    """Angle (deg) between the rotations of the quaternion rows of a and b."""
+    from scipy.spatial.transform import Rotation
+
+    return np.rad2deg((Rotation.from_quat(a).inv() * Rotation.from_quat(b)).magnitude())
+
+
+def ellipsoid_mesh(np):
+    """A closed latitude-longitude ellipsoid in head-radius units (semi-axes 0.75, 1.0, 0.85): RENDER_LAT - 1
+    rings of RENDER_LON vertices and two poles, (V, 3) f32 and (F, 3) int64."""
+    lat = np.pi * np.arange(1, RENDER_LAT) / RENDER_LAT
+    lon = 2 * np.pi * np.arange(RENDER_LON) / RENDER_LON
+    ring = np.stack([np.sin(lat)[:, None] * np.cos(lon), np.cos(lat)[:, None] * np.ones_like(lon),
+                     np.sin(lat)[:, None] * np.sin(lon)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]]) * np.array([0.75, 1.0, 0.85])
+    R, L, last = RENDER_LAT - 1, RENDER_LON, (RENDER_LAT - 1) * RENDER_LON + 1
+    j = np.arange(L)
+    tris = [np.stack([np.zeros(L, int), 1 + j, 1 + (j + 1) % L], -1)]
+    for r in range(R - 1):
+        a, b = 1 + r * L + j, 1 + r * L + (j + 1) % L
+        tris += [np.stack([a, a + L, b], -1), np.stack([b, a + L, b + L], -1)]
+    tris.append(np.stack([np.full(L, last), 1 + (R - 1) * L + (j + 1) % L, 1 + (R - 1) * L + j], -1))
+    return verts.astype(np.float32), np.concatenate(tris).astype(np.int64)
+
+
+def face_tools_phase(torch, np, dev, smi):
+    """Phase 16: the face-model tools. (a) `scripts/fit_face_model.py:fit_face_model` on FIT_N synthetic faces
+    on the card at the CLI's defaults: every logged loss finite, the JAX test's recovery limits over all faces,
+    and the first FIT_CPU_N faces fitted alone on the CPU against the card's rows (each face's trajectory is
+    independent of the others). (b) `vis3d.rasterize_mesh` on a mesh the size of the full BFM at 640 x 480,
+    three poses, card against CPU; `FaceRender` on the card through stub head models. No kernel of K1-K3 runs:
+    the launch counts, reset before, must read 0 after. Returns them."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.models.components import DeformableHeadKeypoints, PosedDeformableHead
+    from neuralnet_tracker_traincode_torch.ops.rotrepr import QuatRepr
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ext.reset_launch_counts()
+
+    # the posed head is full f32 on the card whatever autocast and TF32 are set to
+    faces = synthetic_faces(torch, np, 64, FIT_SEED + 1)
+    args = [torch.from_numpy(faces[k]).to(dev) for k in ("coord", "quats")] + [torch.randn(64, 50, device=dev)]
+    head = PosedDeformableHead(DeformableHeadKeypoints()).to(dev)
+    with torch.no_grad():
+        want = head(args[0], QuatRepr(args[1]), args[2])
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                got = head(args[0], QuatRepr(args[1]), args[2])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    check(got.dtype == torch.float32 and torch.equal(got, want), "PosedDeformableHead under bf16 autocast and TF32 "
+          f"is not its f32 self: {float((got.float() - want).abs().max())}")
+
+    # (a) the fit; the CPU fits the first FIT_CPU_N faces alone meanwhile, in a spawned process
+    faces = synthetic_faces(torch, np, FIT_N, FIT_SEED)
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_fit = pool.submit(cpu_reference_fit, faces["pt2d"][:FIT_CPU_N], faces["rois"][:FIT_CPU_N], FIT_STEPS,
+                              FIT_LR)
+        launches = face_tools_on_the_card(torch, np, dev, smi, faces, cpu_fit)
+    print(f"face-model tools: launches {launches}; phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def face_tools_on_the_card(torch, np, dev, smi, faces, cpu_fit):
+    """Phase 16 from the fit on: the checks of `face_tools_phase`; returns the kernels' launch counts."""
+    from scipy.spatial.transform import Rotation
+
+    from neuralnet_tracker_traincode_torch import vis3d
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.scripts.fit_face_model import fit_face_model
+
+    def timed_fit(steps, timed_from, echo, **kwargs):
+        """The fit on the card, and its ms a step by CUDA events recorded where it logs (each log reads the loss
+        back, so the device is idle there), from the logged step `timed_from` to the last."""
+        events = {}
+
+        def log(line):
+            if line.lstrip().startswith("step"):
+                events[int(line.split()[1].rstrip(":"))] = torch.cuda.Event(enable_timing=True)
+                events[max(events)].record()
+            if echo:
+                print(f"fit (card): {line.strip()}")
+
+        fit = fit_face_model(faces["pt2d"], faces["rois"], steps=steps, lr=FIT_LR, device=dev, log=log, **kwargs)
+        last = max(events)
+        return fit, events[timed_from].elapsed_time(events[last]) / (last - timed_from)
+
+    eager, ms_eager = timed_fit(FIT_EAGER_STEPS, FIT_EAGER_TIMED_FROM, False, cuda_graph=False)
+    graph, ms_graph = timed_fit(FIT_EAGER_STEPS, FIT_EAGER_TIMED_FROM, False)
+    unequal = [k for k in eager if not np.array_equal(eager[k], graph[k])]
+    check(not unequal, f"fit: {FIT_EAGER_STEPS} steps through the CUDA graph differ from eager steps in {unequal}")
+    print(f"fit (card), {FIT_EAGER_STEPS} steps of {FIT_N} faces: the graph's replays bit-equal to eager steps; "
+          f"{ms_eager:.4f} ms a step eager, {ms_graph:.4f} through the graph (steps {FIT_EAGER_TIMED_FROM}-"
+          f"{FIT_EAGER_STEPS - 1}), on {smi}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, ms_step = timed_fit(FIT_STEPS, FIT_TIMED_FROM, True)
+    fit_s = time.perf_counter() - t0
+    check(fit["losses"].shape[0] == 11 and bool(np.isfinite(fit["losses"]).all()),
+          f"fit: logged losses {fit['losses'].tolist()}")
+    for k, shape in (("quats", (FIT_N, 4)), ("coords", (FIT_N, 3)), ("pt3d_68", (FIT_N, 68, 3)),
+                     ("shapeparams", (FIT_N, 50)), ("residual", (FIT_N,))):
+        check(fit[k].shape == shape and bool(np.isfinite(fit[k]).all()), f"fit: {k} {fit[k].shape} or not finite")
+    rot = rotation_deg(np, fit["quats"], faces["quats"])
+    xy = np.linalg.norm(fit["coords"][:, :2] - faces["coord"][:, :2], axis=-1)
+    size = np.abs(fit["coords"][:, 2] - faces["coord"][:, 2]) / faces["coord"][:, 2]
+    print(f"fit (card) of {FIT_N} faces, {FIT_STEPS} steps at lr {FIT_LR}: recovery mean rotation error "
+          f"{rot.mean():.4f} deg (limit {FIT_ROT_LIMIT}), p90 {np.percentile(rot, 90):.4f}, max {rot.max():.4f}; mean "
+          f"xy error {xy.mean():.4f} px (limit {FIT_XY_LIMIT}); mean relative size error {size.mean():.5f} (limit "
+          f"{FIT_SIZE_LIMIT}); residual mean {fit['residual'].mean():.5f}, p90 "
+          f"{np.percentile(fit['residual'], 90):.5f} (roi units)")
+    check(rot.mean() < FIT_ROT_LIMIT and xy.mean() < FIT_XY_LIMIT and size.mean() < FIT_SIZE_LIMIT,
+          "fit: the recovery of the synthetic poses misses the JAX test's limits")
+    print(f"fit (card): {ms_step:.4f} ms a step through the graph (CUDA events, steps {FIT_TIMED_FROM}-"
+          f"{FIT_STEPS - 1}), the fit {fit_s:.2f} s with its set-up, capture and read-back, on {smi}")
+
+    # (b) the rasterizer on a mesh of the full BFM's size
+    verts, tris = ellipsoid_mesh(np)
+    tris_dev = torch.from_numpy(tris).to(dev)
+    renders = []
+    for axes, angles in RENDER_POSES:
+        posed = Rotation.from_euler(axes, angles, degrees=True).apply(verts.astype(np.float64)) * RENDER_SCALE
+        posed[:, :2] += (RENDER_W / 2, RENDER_H / 2)
+        posed = posed.astype(np.float32)
+        v_dev = torch.from_numpy(posed).to(dev)
+        color, depth = (a.cpu().numpy() for a in vis3d.rasterize_mesh(v_dev, tris_dev, (RENDER_H, RENDER_W)))
+        ccpu, dcpu = (a.numpy() for a in vis3d.rasterize_mesh(posed, tris, (RENDER_H, RENDER_W), device="cpu"))
+        cover, cover_cpu = color.any(-1), ccpu.any(-1)
+        both = cover & cover_cpu
+        dd = float(np.abs(depth[both] - dcpu[both]).max())
+        dc = int(np.abs(color.astype(int) - ccpu.astype(int)).max())
+        vn = vis3d.estimate_vertex_normals(v_dev, tris_dev).cpu()
+        intensity = torch.ones(len(verts), device=dev)
+        pix, z, tri, _ = vis3d.rasterize_fragments(v_dev, tris_dev, intensity, RENDER_H, RENDER_W)
+        _, ties = vis3d.depth_test(pix, z, tri, RENDER_H * RENDER_W)
+        dn = float((vn - vis3d.estimate_vertex_normals(torch.from_numpy(posed), torch.from_numpy(tris))).abs().max())
+        check(np.array_equal(cover, cover_cpu), f"render {angles}: coverage differs at "
+              f"{int((cover != cover_cpu).sum())} pixels, {ties} of the card's pixels tie in depth")
+        check(dd <= 1e-4 and dc <= 1, f"render {angles}: card against CPU depth {dd}, colour {dc} levels")
+        check(0.05 < cover.mean() < 0.9, f"render {angles}: coverage {cover.mean()}")
+
+        def render_once():
+            return vis3d.rasterize_mesh(v_dev, tris_dev, (RENDER_H, RENDER_W))
+
+        for _ in range(3):
+            render_once()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(RENDER_TIMED):
+            render_once()
+        b.record()
+        b.synchronize()
+        renders.append(a.elapsed_time(b) / RENDER_TIMED)
+        print(f"render {axes} {angles} ({len(verts)} vertices, {len(tris)} triangles, {RENDER_W} x {RENDER_H}): "
+              f"{len(pix)} fragments, coverage {cover.mean():.4f} equal on card and CPU, {ties} pixels tie in depth; "
+              f"card vs CPU depth max {dd:.3e}, colour max {dc} levels, normals max {dn:.3e}; {renders[-1]:.3f} ms a "
+              f"render (CUDA events over {RENDER_TIMED} after warm-up), host "
+              f"{(time.perf_counter() - t0) * 1e3 / RENDER_TIMED:.3f} ms, on {smi}")
+
+    # FaceRender on the card through stub head models: the tetrahedron of tests/test_vis3d.py, and the ellipsoid
+    # with 50 random deformation bases at the frame size
+    class Tetrahedron:
+        scaled_vertices = np.array([[0.0, -1.0, -0.5], [-1.0, 0.8, 0.0], [1.0, 0.8, 0.0], [0.0, 0.2, 0.9]], np.float32)
+        scaled_bases = np.zeros((50, 4, 3), np.float32)
+        scaled_tri = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int32)
+
+    class Ellipsoid:
+        scaled_vertices, scaled_tri = verts, tris.astype(np.int32)
+        scaled_bases = np.random.RandomState(FIT_SEED).normal(scale=0.01, size=(50, len(verts), 3)).astype(np.float32)
+
+    require = vis3d._require_full_mesh
+    try:
+        vis3d._require_full_mesh = Tetrahedron
+        r = vis3d.FaceRender(backend="software")
+        check(r.device.type == "cuda" and r._pyrender is None, f"FaceRender: {r.device}, pyrender {r._pyrender}")
+        rot = Rotation.from_euler("y", 20, degrees=True)
+        r.set(xy=(32.0, 32.0), scale=20.0, rot=rot, shapeparams=np.zeros(50), image_shape=(64, 64))
+        color, depth = r.render()
+        cover = (depth != 0).mean()
+        check(isinstance(color, np.ndarray) and color.shape == (64, 64, 3) and depth.shape == (64, 64)
+              and 0.05 < cover < 0.9 and (color[depth != 0] > 0).any(), f"FaceRender (tetrahedron): cover {cover}")
+        r.set(xy=(8.0, 8.0), scale=6.0, rot=rot, shapeparams=np.zeros(50), image_shape=(64, 64))
+        check((r.render()[1] != 0).mean() < cover, "FaceRender (tetrahedron): the smaller head covers no less")
+        vis3d._require_full_mesh = Ellipsoid
+        card, host = vis3d.FaceRender(backend="software"), vis3d.FaceRender(backend="software", device="cpu")
+        sp = np.random.RandomState(1).normal(size=50)
+        for x in (card, host):
+            x.set(xy=(RENDER_W / 2, RENDER_H / 2), scale=RENDER_SCALE, rot=Rotation.from_euler("xy", (10, -30),
+                  degrees=True), shapeparams=sp, image_shape=(RENDER_H, RENDER_W))
+        (cc, cd), (hc, hd) = card.render(), host.render()
+        both = cc.any(-1) & hc.any(-1)
+        check(np.array_equal(cc.any(-1), hc.any(-1)) and float(np.abs(cd[both] - hd[both]).max()) <= 1e-4
+              and int(np.abs(cc.astype(int) - hc.astype(int)).max()) <= 1, "FaceRender (ellipsoid): card vs CPU")
+    finally:
+        vis3d._require_full_mesh = require
+    print(f"FaceRender on the card: the tetrahedron covers {cover:.4f} of 64 x 64; the deformed ellipsoid at "
+          f"{RENDER_W} x {RENDER_H} equal in coverage to the CPU's, depth within 1e-4, colour within 1 level")
+
+    alone, cpu_s = cpu_fit.result(timeout=900)
+    drot = rotation_deg(np, fit["quats"][:FIT_CPU_N], alone["quats"])
+    dparam = {k: float(np.abs(fit[k][:FIT_CPU_N] - alone[k]).max()) for k in ("quats", "coords", "shapeparams")}
+    print(f"fit card against CPU, first {FIT_CPU_N} faces fitted alone on the CPU ({cpu_s:.1f} s in a process of "
+          f"its own): rotation difference mean {drot.mean():.3e} deg, max {drot.max():.3e} deg (limits "
+          f"{FIT_AGREE_MEAN_DEG}, {FIT_AGREE_MAX_DEG}); largest parameter difference "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dparam.items()) + f" (limit {FIT_AGREE_PARAM})")
+    check(drot.mean() <= FIT_AGREE_MEAN_DEG and drot.max() <= FIT_AGREE_MAX_DEG
+          and max(dparam.values()) <= FIT_AGREE_PARAM, "fit: the card's rows disagree with the CPU's fit")
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    check(not any(launches.values()), f"face-model tools: kernels launched {launches}")
+    return launches
+
+
+def cpu_reference_fit(pt2d, rois, steps, lr):
+    """Phase 16's fit on the CPU, run in a spawned process: (the fit, its seconds)."""
+    from neuralnet_tracker_traincode_torch.scripts.fit_face_model import fit_face_model
+
+    t0 = time.perf_counter()
+    fit = fit_face_model(pt2d, rois, steps=steps, lr=lr, device="cpu", log=lambda line: None)
+    return fit, time.perf_counter() - t0
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -2536,6 +2824,7 @@ def main() -> int:
     ms_launches, timing, _, _, flagship = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
     errs_ms = multistep_run_phase(torch, np, dev, f"{name} ({smi})", run)
     dp_launches, errs_dp = data_parallel_phase(torch, np, dev, f"{name} ({smi})", flagship, timing)
+    ft_launches = face_tools_phase(torch, np, dev, f"{name} ({smi})")
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
             errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp)])
@@ -2549,7 +2838,7 @@ def main() -> int:
             launches_convergence_run=conv_launches[r["name"]], launches_localizer_run=loc_launches[r["name"]],
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
-            launches_data_parallel=dp_launches[r["name"]],
+            launches_data_parallel=dp_launches[r["name"]], launches_face_tools=ft_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

@@ -6,6 +6,9 @@ byte-identical copy of `assets/bfm_keypoints_subset.npz`:
     keypts      (68, 3)     head-radius-unit mean keypoint positions
     w_shp       (40, 68, 3) scaled shape eigvectors at the keypoints
     w_exp       (10, 68, 3) scaled expression eigvectors at the keypoints
+    source      what it was made from: "bfm_noneck_v3.pkl"
+                (`scripts/convert_bfm.py`) or "fitted_fallback"
+                (`scripts/make_bfm_fallback.py`); `BFMModel.is_authentic`
 
 `FullBFMModel` loads the full mesh from the 3DDFA pickle
 (`bfm_noneck_v3.pkl`, which is not distributable: `$BFM_PATH` names it);
@@ -119,11 +122,12 @@ class BFMModel:
     """68-keypoint deformable model: keypts + 50 eigvectors at the keypoints."""
 
     def __init__(self, shape_dim=40, exp_dim=10):
-        keypts, w_shp, w_exp = _load_subset_arrays()
+        keypts, w_shp, w_exp, source = _load_subset_arrays()
         assert shape_dim <= w_shp.shape[0] and exp_dim <= w_exp.shape[0]
         self.keypts = keypts  # (68, 3)
         self.w_shp = w_shp[:shape_dim]
         self.w_exp = w_exp[:exp_dim]
+        self.source = source  # what the artifact was made from (its `source` entry)
 
     @property
     def scaled_bases(self) -> np.ndarray:
@@ -134,6 +138,13 @@ class BFMModel:
     def num_eigvecs(self) -> int:
         return self.w_shp.shape[0] + self.w_exp.shape[0]
 
+    @property
+    def is_authentic(self) -> bool:
+        """True when the artifact was exported from the real `bfm_noneck_v3.pkl`
+        (`scripts/convert_bfm.py`), false for the fitted fallback
+        (`scripts/make_bfm_fallback.py`)."""
+        return self.source == "bfm_noneck_v3.pkl"
+
 
 @functools.lru_cache(1)
 def _load_subset_arrays():
@@ -142,4 +153,5 @@ def _load_subset_arrays():
             f["keypts"].astype(np.float32),
             f["w_shp"].astype(np.float32),
             f["w_exp"].astype(np.float32),
+            str(f["source"]),
         )

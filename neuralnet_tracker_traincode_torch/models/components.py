@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from neuralnet_tracker_traincode_torch.facemodel.bfm import BFMModel
-from neuralnet_tracker_traincode_torch.ops.mathfn import matmul_hp
+from neuralnet_tracker_traincode_torch.ops.mathfn import full_f32_matmul, matmul_hp
 from neuralnet_tracker_traincode_torch.ops.rotrepr import RotationRepr
 
 
@@ -46,6 +46,25 @@ class DeformableHeadKeypoints(nn.Module):
         K = self.keyeigvecs.shape[0]
         local = matmul_hp(shapeparams, self.keyeigvecs.reshape(K, -1))
         return local.reshape(shapeparams.shape[:-1] + (68, 3)) + self.keypts
+
+
+class PosedDeformableHead(nn.Module):
+    """The deformable keypoints posed by `rigid_transformation_25d`:
+    `forward(coord (..., 3), rots, params (..., 50)) -> (..., 68, 3)`, with
+    coord = (x, y, size) in the image frame. Full f32 whatever autocast and
+    TF32 are set to: the keypoint blend (and a `Mat33Repr` rotation) go
+    through `matmul_hp` with TF32 off (its backward runs where autograd is
+    called: `scripts/fit_face_model.py` keeps TF32 off for the whole fit)."""
+
+    def __init__(self, deformable_head: DeformableHeadKeypoints):
+        super().__init__()
+        self.deformable_head = deformable_head
+
+    def forward(self, coord: torch.Tensor, rots: RotationRepr, params: torch.Tensor) -> torch.Tensor:
+        with full_f32_matmul():
+            local = self.deformable_head(params)
+            coord = coord.float()
+            return rigid_transformation_25d(rots, coord[..., :2], coord[..., 2:], local)
 
 
 def center_of_mass(x: torch.Tensor, half_size):
@@ -129,8 +148,36 @@ class GaussianMixture:
         if isinstance(f, str):
             with h5py.File(f, "r") as file:
                 return GaussianMixture.from_hdf5(file)
-        _require_diag(f.attrs["covariance_type"], f.filename)
+        _require_diag(f.attrs["covariance_type"], f.file.filename)
         return GaussianMixture(weights=f["weights"][...], means=f["means"][...], cov=f["cov"][...])
+
+    @staticmethod
+    def from_sklearn(gmm) -> "GaussianMixture":
+        """From a fitted `sklearn.mixture.GaussianMixture` of diagonal covariance."""
+        return GaussianMixture(weights=gmm.weights_, means=gmm.means_, cov=gmm.covariances_)
+
+    def save_to_hdf5(self, f, group_name=None):
+        """Write the JAX package's layout (`weights`, `means`, `cov` as held,
+        attribute `covariance_type` "diag") into the h5py file or group `f`,
+        or into a new group `group_name` of it; returns the group."""
+        g = f.create_group(group_name) if group_name is not None else f
+        g.create_dataset("weights", data=np.asarray(self.weights))
+        g.create_dataset("means", data=np.asarray(self.means))
+        g.create_dataset("cov", data=np.asarray(self.cov))
+        g.attrs["covariance_type"] = "diag"
+        return g
+
+    def save_to_npz(self, path: str) -> str:
+        """Write the port's asset layout, which `from_npz` reads: `weights`
+        and `means` f4, `cov` f8, `covariance_type` "diag"."""
+        np.savez(
+            path,
+            weights=np.asarray(self.weights, np.float32),
+            means=np.asarray(self.means, np.float32),
+            cov=np.asarray(self.cov, np.float64),
+            covariance_type="diag",
+        )
+        return path
 
     def _constants(self, device: torch.device):
         if device not in self._by_device:

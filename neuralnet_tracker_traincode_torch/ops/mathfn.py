@@ -4,6 +4,8 @@ smoothclip0 = elu + 1 and its inverse, and the matrix-vector products the
 geometry code uses.
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -18,6 +20,20 @@ def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     with torch.autocast(a.device.type, enabled=False):
         return torch.matmul(a.float(), b.float())
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Within the block cuBLAS computes f32 matmuls in full f32 (no TF32),
+    whatever `torch.backends.cuda.matmul.allow_tf32` says; the flag is
+    restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = saved
 
 
 def matvecmul(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

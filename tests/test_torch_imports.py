@@ -1,9 +1,9 @@
 """The port stands alone: none of its modules, nor `chip_smoke.py`, imports
 JAX, flax, optax, msgpack, matplotlib, onnx, onnxruntime or the JAX package
 (parsed, not executed: the export writes and runs ONNX files with its own
-code), and nothing on its import path needs triton, h5py or cv2, which
-the machine with the card may lack. Its data files are its own copies, and
-the shape prior loads from its npz."""
+code), and nothing on its import path needs triton, h5py, cv2, sklearn,
+pyrender or trimesh, which the machine with the card may lack. Its data
+files are its own copies, and the shape prior loads from its npz."""
 
 import ast
 import filecmp
@@ -15,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "neuralnet_tracker_traincode_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib", "onnx", "onnxruntime",
              "neuralnet_tracker_traincode_tpu"}
-NOT_AT_IMPORT = {"triton", "h5py", "cv2"}
+NOT_AT_IMPORT = {"triton", "h5py", "cv2", "sklearn", "pyrender", "trimesh"}
 
 
 def _sources():
@@ -71,8 +71,8 @@ def test_the_shape_prior_loads_without_h5py(monkeypatch):
 
 _WITHOUT_H5PY_AND_CV2 = """
 import importlib, os, pkgutil, sys
-sys.modules["h5py"] = None  # any import of these now raises
-sys.modules["cv2"] = None
+for name in ("h5py", "cv2", "sklearn", "pyrender", "trimesh"):
+    sys.modules[name] = None  # any import of these now raises
 sys.path.insert(0, {root!r})
 import neuralnet_tracker_traincode_torch as port
 target = {target!r}
@@ -91,20 +91,22 @@ else:
 """
 
 CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
-        "add_pose_pseudolabels"]
+        "add_pose_pseudolabels", "fit_face_model"]
+HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm"]  # no device work, no --device
 
 
 def test_the_export_and_cli_modules_are_covered():
     for name in ("onnx_proto", "onnx_conformance", "onnx_run", "onnx_export"):
         assert os.path.join("neuralnet_tracker_traincode_torch", "export", name + ".py") in _sources()
-    for name in CLIS:
+    for name in CLIS + HOST_CLIS:
         assert os.path.join("neuralnet_tracker_traincode_torch", "scripts", name + ".py") in _sources()
 
 
-@pytest.mark.parametrize("target", ["package"] + CLIS)
+@pytest.mark.parametrize("target", ["package"] + CLIS + HOST_CLIS)
 def test_the_package_and_the_cli_help_load_without_h5py_and_cv2(target):
     """Every module of the port imports, and each CLI prints its `--help`,
-    on a machine without h5py and cv2 (as the card's may be)."""
+    on a machine without h5py, cv2, sklearn, pyrender and trimesh (as the
+    card's may be)."""
     import subprocess
     import sys
 
@@ -114,4 +116,4 @@ def test_the_package_and_the_cli_help_load_without_h5py_and_cv2(target):
     if target == "package":
         assert int(res.stdout.split("imported")[-1]) >= 60
     else:
-        assert "usage:" in res.stdout and "--device" in res.stdout
+        assert "usage:" in res.stdout and ("--device" in res.stdout) == (target in CLIS)
