@@ -217,14 +217,40 @@ Phases (any failure ends the run with a non-zero exit code):
     models (the tetrahedron of tests/test_vis3d.py; the ellipsoid with 50
     deformation bases, against `FaceRender` on the CPU). No kernel of K1-K3
     is on this path: their launch counts, reset before, must read 0 after;
- 17. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 17. the analysis and viewer CLIs. (a) `scripts/evaluate_stability.py`'s
+    analyses on the card on phase 9's `best.ckpt` (quaternion, point and NLL
+    heads), through the Predictor's f32 eval, on marker frames rendered on
+    the card: a "video" of 2,100 frames at 160^2 (yaw +-40 and pitch +-20
+    degrees as slow sines, position and size drifting; every blink window
+    fits), a yaw sweep of 200 frames, phase 9's 400 validation frames and 4
+    individuals x 6 frames of one pose each and other shape parameters.
+    Open-loop and closed-loop tracking at crops 1.0 and 1.2 with the blink
+    report, pitch-vs-yaw, noise-resist at the JAX script's levels (0-64),
+    the uncertainty correlation and variation-resist, under
+    `np.errstate(all="raise")`. It fails unless every output is finite and
+    every quaternion unit, open and closed loop agree on frame 0,
+    noise-resist at sigma 0 is `Predictor.evaluate`'s `GeodesicError` within
+    1e-6 rad, tril tril^T is positive definite and the open loop's first 128
+    frames agree with the CPU's (hpb 4e-4 rad, 1e-3 px); it prints the blink
+    lines, closed-loop ms a frame (CUDA events) and one frame's device time,
+    operations and busy share (`torch.profiler`), the noise curve, the
+    correlation and the mean deviation. (b)
+    `scripts/show_train_test_splits.py:iterate_samples` on 32 of phase 7's
+    training frames with the training augmentation, the launch counts reset
+    before and read after (K1 once, K2 four times, K3 once), each launch
+    held to its plain version (K1 0.02 gray, K2 bit-equal, K3 1e-6); the 32
+    PNGs written with cv2 read back equal. (c) One line says that the
+    figures and the pagers are not drawn where matplotlib does not import
+    (the CPU tests draw them);
+ 18. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
     `launches_export` from phase 13, `launches_multistep` from phase 14
     (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
-    both ranks of (b), `launches_face_tools` from phase 16, which are 0),
-    then `{"ok": true, "device": ...}` as the last line.
+    both ranks of (b), `launches_face_tools` from phase 16, which are 0,
+    `launches_viewer` from phase 17 (b)), then `{"ok": true, "device": ...}`
+    as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -298,6 +324,12 @@ FIT_AGREE_MEAN_DEG, FIT_AGREE_MAX_DEG, FIT_AGREE_PARAM = 1e-3, 1e-2, 1e-2
 # triangles) at a webcam frame, posed three ways; the full BFM itself is not distributable
 RENDER_H, RENDER_W, RENDER_LAT, RENDER_LON, RENDER_SCALE, RENDER_TIMED = 480, 640, 160, 240, 150.0, 20
 RENDER_POSES = [("xyz", (0, 0, 0)), ("xyz", (0, 40, 0)), ("xyz", (-25, -20, 15))]
+# evaluate_stability and show_train_test_splits (phase 17): a "video" long enough for every blink window, a yaw
+# sweep, individuals x frames of one pose each for the variation analysis, the open-loop frames held against the
+# CPU, and the samples show_train_test_splits writes
+VIEW_VIDEO_N, VIEW_YAW_N, VIEW_INDIVIDUALS, VIEW_PER_INDIVIDUAL, VIEW_CPU_N, VIEW_SAMPLES = 2100, 200, 4, 6, 128, 32
+# the eval's tolerances (tests/test_torch_eval.py): hpb within what 1e-4 per quaternion component allows, px
+VIEW_HPB_TOL, VIEW_PX_TOL = 4e-4, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -1034,9 +1066,10 @@ def eval_phase(torch, np, dev, smi, run):
     return stages
 
 
-def convergence_phase(torch, np, dev, smi):
+def convergence_phase(torch, np, dev, smi, keep_dir):
     """Phase 9: the convergence gate of the JAX package's
-    `tests/test_convergence.py` on the card."""
+    `tests/test_convergence.py` on the card. `best.ckpt` is copied into
+    `keep_dir` (for phase 17); returns the validation frames last."""
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
@@ -1122,6 +1155,7 @@ def convergence_phase(torch, np, dev, smi):
         nets = {f: CheckpointPoseNetwork(os.path.join(outdir, f), dev) for f in ("best.ckpt", "swa.ckpt")}
         rows, stages = report_rows(torch, np, dev, nets, samples, f"synthetic {CONV_N} (seed {CONV_SEED})", smi)
         eval_s = time.perf_counter() - t_eval
+        shutil.copy(os.path.join(outdir, "best.ckpt"), keep_dir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     for r in records:
@@ -1147,7 +1181,7 @@ def convergence_phase(torch, np, dev, smi):
         nonlocal state
         state, _ = trainer.train_step_multi(state, next(more), W, generator=gen)
 
-    return launches, errs, step
+    return launches, errs, step, val_frames
 
 
 def host_probe():
@@ -2765,6 +2799,212 @@ def cpu_reference_fit(pt2d, rois, steps, lr):
     return fit, time.perf_counter() - t0
 
 
+def posed_frames(torch, np, dev, hpb_deg, xy, size, shapeparams, individual=None):
+    """Marker frames of the given poses (heading, pitch, bank in degrees),
+    positions, sizes and shape parameters, rendered on the card with
+    `data/synthetic.py`'s pieces, as the eval loader's samples (head ROI)."""
+    from neuralnet_tracker_traincode_torch import utils
+    from neuralnet_tracker_traincode_torch.data.batch import frame
+    from neuralnet_tracker_traincode_torch.data.fields import Tag
+    from neuralnet_tracker_traincode_torch.data.synthetic import render_marker_images
+    from neuralnet_tracker_traincode_torch.models.components import DeformableHeadKeypoints, rigid_transformation_25d
+    from neuralnet_tracker_traincode_torch.ops.rotrepr import QuatRepr
+
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    quats = f32(utils.from_hpb(np.radians(hpb_deg)).as_quat())
+    xy, size, shapeparams = f32(xy), f32(np.reshape(size, (-1, 1))), f32(shapeparams)
+    with torch.no_grad():
+        pt3d = rigid_transformation_25d(QuatRepr(quats), xy, size, DeformableHeadKeypoints(40, 10).to(dev)(shapeparams))
+    rois = torch.cat([pt3d[..., :2].amin(dim=1), pt3d[..., :2].amax(dim=1)], dim=-1)
+    coords = torch.cat([xy, size], dim=-1)
+    images = render_marker_images(pt3d, coords, RUN_SRC)[..., None]
+    host = {k: v.cpu().numpy() for k, v in dict(image=images, pose=quats, coord=coords, pt3d_68=pt3d,
+                                                   shapeparam=shapeparams, roi=rois).items()}
+    frames = []
+    for i in range(len(host["pose"])):
+        fields = {k: v[i] for k, v in host.items()}
+        if individual is not None:
+            fields["individual"] = np.asarray(individual[i], np.int32)
+        frames.append(frame(Tag.POSE_WITH_LANDMARKS, fields))
+    return eval_samples(frames)
+
+
+def stability_sets(torch, np, dev):
+    """Phase 17's data: the "video" (slow sines of yaw +-40 and pitch +-20
+    degrees, drifting position and size, one face), the yaw sweep, and the
+    individuals who each keep one pose over frames of other shape parameters."""
+    rng = np.random.RandomState(17)
+    t = np.arange(VIEW_VIDEO_N, dtype=np.float64)
+    face = np.tile(rng.randn(1, 50) * 0.6, (VIEW_VIDEO_N, 1))
+    hpb = np.stack([40 * np.sin(2 * np.pi * t / 700), 20 * np.sin(2 * np.pi * t / 450 + 1.0), 5 * np.sin(t / 300)], -1)
+    xy = RUN_SRC * np.stack([0.5 + 0.08 * np.sin(t / 400), 0.5 + 0.06 * np.cos(t / 500)], -1)
+    video = posed_frames(torch, np, dev, hpb, xy, RUN_SRC * (0.21 + 0.03 * np.sin(t / 600)), face)
+    yaw = np.linspace(-40, 40, VIEW_YAW_N)
+    sweep = posed_frames(torch, np, dev, np.stack([yaw, 0 * yaw, 0 * yaw], -1), np.full((VIEW_YAW_N, 2), RUN_SRC / 2),
+                         np.full(VIEW_YAW_N, 0.21 * RUN_SRC), np.tile(rng.randn(1, 50) * 0.6, (VIEW_YAW_N, 1)))
+    n = VIEW_INDIVIDUALS * VIEW_PER_INDIVIDUAL
+    individual = np.repeat(np.arange(VIEW_INDIVIDUALS), VIEW_PER_INDIVIDUAL)
+    poses = rng.uniform([-35, -20, -10], [35, 20, 10], (VIEW_INDIVIDUALS, 3))[individual]
+    variations = posed_frames(torch, np, dev, poses, np.full((n, 2), RUN_SRC / 2), np.full(n, 0.21 * RUN_SRC),
+                              rng.randn(n, 50) * 0.6, individual)
+    return video, sweep, variations
+
+
+def unit_quats(np, predictor, samples, what):
+    """The predictions' quaternions on `samples`, checked finite and unit."""
+    from neuralnet_tracker_traincode_torch.eval import metrics as M
+
+    quats = predictor.evaluate(M.PredExtractor("pose"), samples)
+    norm = np.linalg.norm(quats, axis=-1)
+    check(bool(np.isfinite(quats).all()) and float(np.abs(norm - 1).max()) < 1e-5,
+          f"stability {what}: quaternions not unit and finite (|q| in [{norm.min()}, {norm.max()}])")
+    return quats
+
+
+def stability_phase(torch, np, dev, ckpt, val_samples):
+    """Phase 17 (a): evaluate_stability's analyses on the card on phase 9's
+    `best.ckpt` (quaternion, point and NLL heads), the f32 eval."""
+    from neuralnet_tracker_traincode_torch.eval import metrics as M
+    from neuralnet_tracker_traincode_torch.eval.predictor import Predictor
+    from neuralnet_tracker_traincode_torch.scripts import evaluate_stability as ES
+
+    t_data = time.perf_counter()
+    video, sweep, variations = stability_sets(torch, np, dev)
+    t_data = time.perf_counter() - t_data
+    finite = lambda poses: all(bool(np.isfinite(a).all()) for a in poses)  # noqa: E731
+    out = {}
+    with np.errstate(all="raise"):  # as the CLI runs its analyses
+        runs = {"open-loop": [], "closed-loop": []}
+        for crop in ES.CROP_FACTORS:
+            predictor = Predictor(ckpt, crop, device=dev)
+            unit_quats(np, predictor, video, f"video at crop {crop}")
+            runs["open-loop"].append(ES.open_loop_tracking(predictor, video))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs["closed-loop"].append(ES.closed_loop_tracking(predictor, video))
+            end.record()
+            torch.cuda.synchronize()
+            out[f"closed_loop_ms_per_frame_crop{crop}"] = start.elapsed_time(end) / len(video)
+            for a, b in zip(runs["open-loop"][-1], runs["closed-loop"][-1]):  # frame 0: both at its ground-truth ROI
+                tol = VIEW_HPB_TOL if a.ndim == 2 and a.shape[1] == 3 else VIEW_PX_TOL
+                check(float(np.abs(a[0] - b[0]).max()) <= tol, f"open and closed loop differ on frame 0: {a[0]} {b[0]}")
+        # where a closed-loop frame's time goes: one frame a call, 20 calls under the profiler
+        from neuralnet_tracker_traincode_torch.train.profiling import profile_steps
+
+        prof = profile_steps(lambda: ES.closed_loop_tracking(predictor, video[:1]), 20, top=4)
+        out["closed_loop_frame_profile"] = {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                                                 "device_busy_share", "device_ops_per_step")}
+        for mode, poses in runs.items():
+            check(all(finite(p) and len(p.hpb) == VIEW_VIDEO_N for p in poses), f"stability: {mode} not finite")
+            print(f"stability {mode} (blink-window MSE over crops {ES.CROP_FACTORS}, {VIEW_VIDEO_N} frames):")
+            blink = ES.report_blink_stability(poses)
+            check(blink is not None and all(bool(np.isfinite(v).all()) for v in blink.values()),
+                  f"stability {mode}: blink report {blink}")
+            out[f"blink_{mode}"] = {k: v.tolist() for k, v in blink.items()}
+        # the same analysis on the CPU, the first frames
+        cpu = ES.open_loop_tracking(Predictor(ckpt, ES.CROP_FACTORS[0], device="cpu"), video[:VIEW_CPU_N])
+        card = runs["open-loop"][0]
+        hpb_err = float(np.abs(cpu.hpb - card.hpb[:VIEW_CPU_N]).max())
+        px_err = max(float(np.abs(cpu.xy - card.xy[:VIEW_CPU_N]).max()),
+                     float(np.abs(cpu.sz - card.sz[:VIEW_CPU_N]).max()))
+        check(hpb_err <= VIEW_HPB_TOL and px_err <= VIEW_PX_TOL,
+              f"open loop, card against CPU on {VIEW_CPU_N} frames: hpb {hpb_err} rad, xy/size {px_err} px")
+        out["open_loop_card_vs_cpu"] = dict(hpb_rad=hpb_err, px=px_err)
+
+        predictor = Predictor(ckpt, 1.1, device=dev)
+        unit_quats(np, predictor, sweep, "yaw sweep")
+        yaw_poses = ES.pitch_yaw_poses(predictor, sweep)
+        check(finite(yaw_poses), "stability pitch-yaw not finite")
+        out["pitch_yaw_deg_first_last"] = [yaw_poses.hpb[0, :2].tolist(), yaw_poses.hpb[-1, :2].tolist()]
+
+        predictor = Predictor(ckpt, 1.2, device=dev)
+        unit_quats(np, predictor, val_samples, "phase 9 validation")
+        errors = ES.noise_resist(predictor, val_samples, ES.NOISE_LEVELS, np.random.RandomState(ES.NOISE_SEED))
+        check(bool(np.isfinite(errors).all()), "stability noise-resist not finite")
+        direct = predictor.evaluate(M.GeodesicError(), val_samples)
+        zero_err = float(np.abs(errors[0] - direct).max())
+        check(zero_err <= 1e-6, f"noise-resist at sigma 0 is {zero_err} rad from Predictor.evaluate")
+        out["noise_resist_deg"] = {lv: float(np.mean(e)) * 180 / np.pi for lv, e in zip(ES.NOISE_LEVELS, errors)}
+        out["noise_zero_vs_evaluate_rad"] = zero_err
+        rot_err, uncertainty, corr = ES.uncertainty_error_correlation(predictor, val_samples)
+        tril = predictor.evaluate(M.PredExtractor("pose_scales_tril"), val_samples)
+        eig = np.linalg.eigvalsh(np.matmul(tril, np.swapaxes(tril, -1, -2)))
+        check(bool(np.isfinite(uncertainty).all()) and np.isfinite(corr) and float(eig.min()) > 0,
+              f"stability uncertainty: corr {corr}, least eigenvalue {eig.min()}")
+        out["corr_err_uncertainty"] = float(corr)
+
+        unit_quats(np, predictor, variations, "variations")
+        means, deviations, gt = ES.stability_vs_variations(predictor, variations)
+        check(means.shape == (VIEW_INDIVIDUALS, 4) and bool(np.isfinite(deviations).all())
+              and float(np.abs(np.linalg.norm(means, axis=-1) - 1).max()) < 1e-5, f"stability variations: {deviations}")
+        out["variation_mean_deviation_deg"] = float(np.average(deviations)) * 180 / np.pi
+    print(f"stability (a): data {t_data:.2f} s on the card; " + json.dumps(out))
+    return out
+
+
+def viewer_phase(torch, np, dev, frames):
+    """Phase 17 (b): show_train_test_splits' `iterate_samples` on the card on
+    one batch of `frames`, with the training augmentation (K1, K2, K3 held to
+    their plain versions at these launches); the PNGs written and read back.
+    Returns the launch counts and the errors."""
+    import cv2
+
+    from neuralnet_tracker_traincode_torch import vis
+    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
+    from neuralnet_tracker_traincode_torch.data.loader import pack_fused_batch
+    from neuralnet_tracker_traincode_torch.kernels import equalize as K2
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import noise as K3
+    from neuralnet_tracker_traincode_torch.kernels import warp as K1
+    from neuralnet_tracker_traincode_torch.scripts.show_train_test_splits import iterate_samples
+
+    batch = pack_fused_batch(frames[:VIEW_SAMPLES], [0] * VIEW_SAMPLES, RUN_SRC)
+    cfg = TrainAugmentationConfig(inputsize=S, rotation_aug_angle=THETA, extension_factor=1.1)
+    with k1_captured(K1, lambda skip, n: True) as crops, wrapper_captured(K2, "equalize", 1) as equalized, \
+            wrapper_captured(K3, "add_gaussian_noise", 1) as noised:
+        torch.cuda.synchronize()
+        ext.reset_launch_counts()
+        samples = list(iterate_samples([batch], cfg, torch.Generator().manual_seed(17), dev))
+        torch.cuda.synchronize()
+        launches = dict(ext.LAUNCHES)
+    check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0},
+          f"show_train_test_splits: launches {launches}")
+    errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "show_train_test_splits")
+    errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "show_train_test_splits")
+    check(len(samples) == VIEW_SAMPLES, f"{len(samples)} samples from a batch of {VIEW_SAMPLES}")
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_splits_")
+    try:
+        for i, gp in enumerate(samples):
+            check(all(bool(np.isfinite(v).all()) for k, v in gp[0].items() if k != "image"), f"sample {i} not finite")
+            img = vis.draw_prediction(gp)
+            path = os.path.join(outdir, f"sample_{i:03d}.png")
+            check(cv2.imwrite(path, img[..., ::-1]), f"cv2 wrote no {path}")
+            check(np.array_equal(cv2.imread(path)[..., ::-1], img), f"{path} reads back otherwise")
+        written = len(os.listdir(outdir))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    print(f"show_train_test_splits (b): {written} PNGs written and read back equal; K1 max |kernel - plain| "
+          f"{errs['warp_roi_rotate']:.3e} gray; launches {launches}")
+    return launches, errs
+
+
+def analysis_phase(torch, np, dev, smi, ckpt, val_frames, train_frames):
+    """Phase 17: (a) `stability_phase`, (b) `viewer_phase`, (c) the figures."""
+    from neuralnet_tracker_traincode_torch.vis import matplotlib_import_error
+
+    t_phase = time.perf_counter()
+    stability_phase(torch, np, dev, ckpt, eval_samples(val_frames))
+    launches, errs = viewer_phase(torch, np, dev, train_frames)
+    error = matplotlib_import_error()
+    if error is not None:
+        print(f"analysis (c): the figures of (a) and the pager of (b) are not drawn here: matplotlib does not import "
+              f"({error}); the CPU tests draw them (tests/test_torch_stability.py, tests/test_torch_viewers.py)")
+    else:
+        print("analysis (c): matplotlib imports here; the figures are drawn and held by the CPU tests")
+    print(f"analysis: phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return launches, errs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -2801,6 +3041,7 @@ def main() -> int:
         print("profile: " + json.dumps(profile_steps(step, 5, trace)))
     run_launches, errs_run, run_step, run = training_run_phase(torch, np, dev, f"{name} ({smi})")
     export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")  # phase 7's best.ckpt for phase 13
+    conv_dir = tempfile.mkdtemp(prefix="chip_smoke_conv_best_")  # phase 9's best.ckpt for phase 17
     try:
         try:
             if profile:
@@ -2809,7 +3050,7 @@ def main() -> int:
             shutil.copy(os.path.join(run["outdir"], "best.ckpt"), export_dir)
         finally:
             shutil.rmtree(run["outdir"], ignore_errors=True)
-        conv_launches, errs_conv, conv_step = convergence_phase(torch, np, dev, f"{name} ({smi})")
+        conv_launches, errs_conv, conv_step, conv_val = convergence_phase(torch, np, dev, f"{name} ({smi})", conv_dir)
         if profile:
             print("profile (convergence run's dispatch of 8 steps): "
                   + json.dumps(profile_steps(conv_step, 2, steps_per_call=8)))
@@ -2819,15 +3060,18 @@ def main() -> int:
         cli_phase(np, f"{name} ({smi})")
         ex_launches = export_phase(torch, np, dev, f"{name} ({smi})", os.path.join(export_dir, "best.ckpt"),
                                    eval_samples(run["val_frames"]), localizer)
+        ms_launches, timing, _, _, flagship = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
+        errs_ms = multistep_run_phase(torch, np, dev, f"{name} ({smi})", run)
+        dp_launches, errs_dp = data_parallel_phase(torch, np, dev, f"{name} ({smi})", flagship, timing)
+        ft_launches = face_tools_phase(torch, np, dev, f"{name} ({smi})")
+        vw_launches, errs_vw = analysis_phase(torch, np, dev, f"{name} ({smi})", os.path.join(conv_dir, "best.ckpt"),
+                                              conv_val, run["train_frames"])
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
-    ms_launches, timing, _, _, flagship = multistep_phase(torch, np, dev, f"{name} ({smi})", profile)
-    errs_ms = multistep_run_phase(torch, np, dev, f"{name} ({smi})", run)
-    dp_launches, errs_dp = data_parallel_phase(torch, np, dev, f"{name} ({smi})", flagship, timing)
-    ft_launches = face_tools_phase(torch, np, dev, f"{name} ({smi})")
+        shutil.rmtree(conv_dir, ignore_errors=True)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
-            errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp)])
+            errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp, errs_vw)])
 
     kernels = []
     for r in rows:
@@ -2839,6 +3083,7 @@ def main() -> int:
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
             launches_data_parallel=dp_launches[r["name"]], launches_face_tools=ft_launches[r["name"]],
+            launches_viewer=vw_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

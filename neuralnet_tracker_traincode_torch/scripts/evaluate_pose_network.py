@@ -11,8 +11,9 @@ OnnxPoseNetwork`, run in the port's executor on `--device`). Each row is
 `eval/report.py:add_report_row` over the Predictor in f32 (`--precision
 bfloat16`: a checkpoint's forward under bf16 autocast instead; an ONNX file
 stays f32, as the JAX package's executor does). `--vis kpts|rot|size` with
-`--vis-outdir` writes overlays of the 32 worst samples as PNGs; the
-interactive browser (`--vis` without `--vis-outdir`) is not ported yet.
+`--vis-outdir` writes overlays of the 32 worst samples as PNGs; without
+`--vis-outdir` it pages through the worst samples, worst first, in a
+matplotlib window (`vis.matplotlib_plot_iterable`).
 """
 
 import argparse
@@ -35,20 +36,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ds", type=str, default="aflw2k3d")
     parser.add_argument("--vis", default="none", choices=["none", "kpts", "rot", "size"],
                         help="overlays of the worst samples by this error quantity")
-    parser.add_argument("--vis-outdir", default=None, type=str, help="write the overlays here as PNG files")
+    parser.add_argument("--vis-outdir", default=None, type=str,
+                        help="write the overlays here as PNG files (else a matplotlib window pages through them)")
     parser.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
                         help="float32: the f32 eval; bfloat16: the forward under bf16 autocast")
     return parser
-
-
-def parse_args(argv=None) -> argparse.Namespace:
-    """The flags, refusing the values whose machinery is not ported yet."""
-    from neuralnet_tracker_traincode_torch.device import not_ported
-
-    args = build_parser().parse_args(argv)
-    if args.vis != "none" and not args.vis_outdir:
-        raise not_ported("--vis without --vis-outdir (the interactive browser needs matplotlib)")
-    return args
 
 
 def bf16_network(net):
@@ -85,28 +77,42 @@ def report(net_filename, data_name, roi_config, args, builder, device):
     add_report_row(builder, predictor, loader, net_filename, data_name, roi_config, args.alignment_scheme,
                    errors_out=errors)
     if args.vis != "none":
-        write_worst_cases(args, data_name, roi_config, predictor, errors[args.vis])
+        show_worst_cases(args, data_name, roi_config, predictor, errors[args.vis])
 
 
-def write_worst_cases(args, data_name, roi_config, predictor, quantity, count: int = 32):
-    """Overlays (ground truth green, prediction red) of the `count` samples
-    with the largest `quantity`, as `worst_NNN.png` in `--vis-outdir`."""
-    import cv2
-
+def show_worst_cases(args, data_name, roi_config, predictor, quantity, count: int = 32):
+    """Overlays (ground truth green, prediction red) of the samples by
+    decreasing `quantity`: the first `count` as `worst_NNN.png` in
+    `--vis-outdir`, else all of them in a matplotlib pager."""
     from neuralnet_tracker_traincode_torch import pipelines, vis
 
     if quantity is None:
         print(f"Prediction for {args.vis} is not available.")
         return
-    order = np.ascontiguousarray(np.argsort(np.asarray(quantity))[::-1])[:count]
+    order = np.ascontiguousarray(np.argsort(np.asarray(quantity))[::-1])
+    if args.vis_outdir:
+        order = order[:count]
     loader = pipelines.make_validation_loader(data_name, order=order, use_head_roi=roi_config.use_head_roi)
-    os.makedirs(args.vis_outdir, exist_ok=True)
-    for i, sample in enumerate(loader):
-        image = np.asarray(sample["image"])
-        pred = predictor.predict_batch([image], np.asarray(sample["roi"])[None]).to_numpy()
-        img = vis.draw_prediction((sample, next(iter(pred.undo_collate()))))
-        cv2.imwrite(join(args.vis_outdir, f"worst_{i:03d}.png"), img[..., ::-1])
-    print(f"Wrote worst-case overlays to {args.vis_outdir}")
+
+    def gt_and_preds():
+        for sample in loader:
+            image = np.asarray(sample["image"])
+            pred = predictor.predict_batch([image], np.asarray(sample["roi"])[None]).to_numpy()
+            yield sample, next(iter(pred.undo_collate()))
+
+    if args.vis_outdir:
+        import cv2
+
+        os.makedirs(args.vis_outdir, exist_ok=True)
+        for i, gp in enumerate(gt_and_preds()):
+            cv2.imwrite(join(args.vis_outdir, f"worst_{i:03d}.png"), vis.draw_prediction(gp)[..., ::-1])
+        print(f"Wrote worst-case overlays to {args.vis_outdir}")
+        return
+    from matplotlib import pyplot  # the backend of the user's matplotlib settings
+
+    fig, _button = vis.matplotlib_plot_iterable(gt_and_preds(), vis.draw_prediction)
+    fig.suptitle(f"{data_name} / {roi_config}")
+    pyplot.show()
 
 
 def run(args) -> str:
@@ -140,7 +146,7 @@ def run(args) -> str:
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    run(build_parser().parse_args(argv))
     return 0
 
 

@@ -19,9 +19,12 @@ the same trajectory. The default (0) is the JAX CLI's rule
 (`steps_per_dispatch`): on the card with batches of at most 128, the largest
 of 8, 4 and 2 that divides the epoch's steps; else 1. An explicit K that
 does not divide the epoch rounds it down. `--profile-dir` traces the first
-8 calls (dispatches) with `torch.profiler`. Not ported yet (it raises before
-any data is read): `--plot-save-filename` (matplotlib); the loss plot
-`train.pdf` is not written.
+8 calls (dispatches) with `torch.profiler`. Every epoch the loss plot is
+written to `--plot-save-filename`, by default `<outdir>/<network
+name>/train.pdf` (`train/plotting.py:TrainHistoryPlotter`). Where matplotlib
+does not import, the CLI says at its start that `train.pdf` will not be
+written and trains; `--plot-save-filename` there raises before any data is
+read.
 
 On R GPUs of a machine, data-parallel (`parallel/distributed.py`):
 
@@ -106,12 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The flags, refusing the values whose machinery is not ported yet."""
-    from neuralnet_tracker_traincode_torch.device import not_ported
+    """The flags; `--plot-save-filename` raises where matplotlib does not
+    import (`args.plot_error`: the error of its import, or None)."""
+    from neuralnet_tracker_traincode_torch.vis import matplotlib_import_error
 
     args = build_parser().parse_args(argv)
-    if args.plot_save_filename is not None:
-        raise not_ported("--plot-save-filename (the loss plot needs matplotlib)")
+    args.plot_error = matplotlib_import_error()
+    if args.plot_save_filename is not None and args.plot_error is not None:
+        raise ImportError(f"--plot-save-filename needs matplotlib, which does not import: {args.plot_error}")
     args.input_size = 129
     return args
 
@@ -151,10 +156,13 @@ def _train(args, parallel, dev) -> int:
     )
     from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
     from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    from neuralnet_tracker_traincode_torch.train.plotting import TrainHistoryPlotter
     from neuralnet_tracker_traincode_torch.train.profiling import profile_batches
     from neuralnet_tracker_traincode_torch.train.run import run_training, setup_losses
     from neuralnet_tracker_traincode_torch.train.validation import FusedValidation
 
+    if args.plot_error is not None and parallel.rank == 0:
+        print(f"train.pdf will not be written: matplotlib does not import ({args.plot_error})")
     # every rank of a node must sample the node's batches and draw the augmentation alike
     seed = parallel.agreed_seed(args.seed)
     dsids, dataset_weights = parse_dataset_definition(args.ds)
@@ -215,9 +223,13 @@ def _train(args, parallel, dev) -> int:
         prefetched = device_prefetch(it, dev, size=2) if K == 1 else device_prefetch_stacked(it, dev, K, size=2)
         return profile_batches(prefetched, args.profile_dir if parallel.rank == 0 else None)
 
+    plotter = None
+    if args.plot_error is None:
+        plotter = TrainHistoryPlotter(args.plot_save_filename or join(model_out_dir, "train.pdf"))
+
     t0 = time.perf_counter()
     state, records = run_training(trainer, state, batches, validation, model_out_dir, generator, resume=resume,
-                                  steps_per_dispatch=K)
+                                  steps_per_dispatch=K, plotter=plotter)
     total = time.perf_counter() - t0
     samples = sum(r["steps"] for r in records) * args.batchsize * parallel.nodes
     if parallel.rank == 0:

@@ -1,10 +1,10 @@
-"""Loss histories and the console summary of a training run (counterpart of
-the JAX package's `train/plotting.py`). `TrainHistoryPlotter`, which renders
-the histories to a PDF with matplotlib, waits (ROADMAP.md)."""
+"""Loss histories of a training run: the console summary and the PDF of
+every history (counterpart of the JAX package's `train/plotting.py`).
+`TrainHistoryPlotter` renders with matplotlib, imported where it draws."""
 
 import dataclasses
 from collections import defaultdict
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -52,3 +52,62 @@ class ConsoleTrainOutput:
 
     def close(self):
         pass
+
+
+class TrainHistoryPlotter:
+    """Keeps every history and renders them to `save_filename` (a PDF) at
+    each `update_graph`: one panel a history, the train points' mean and
+    spread an epoch in red, the test points in blue."""
+
+    def __init__(self, save_filename: Optional[str] = None):
+        self.histories: Dict[str, History] = defaultdict(History)
+        self.save_filename = save_filename
+
+    def add_train_point(self, epoch, step, name, value):
+        self.histories[name].current_train_buffer.append((epoch, value))
+
+    def add_test_point(self, epoch, name, value):
+        self.histories[name].test.append((epoch, np.asarray(value)))
+
+    def summarize_train_values(self):
+        for k, h in self.histories.items():
+            summarize_single_train_history(k, h)
+
+    def update_graph(self):
+        if not self.save_filename:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from matplotlib import pyplot
+
+        histories = {k: h for k, h in self.histories.items() if (h.train or h.test)}
+        num_rows = len(histories)
+        if num_rows == 0:
+            return
+        if num_rows > 5:
+            r, c = (num_rows + 1) // 2, 2
+        else:
+            r, c = num_rows, 1
+        fig, axes = pyplot.subplots(r, c, figsize=(10, 3 * r))
+        axes = np.atleast_1d(axes).ravel()
+        for ax, (name, h) in zip(axes, histories.items()):
+            if h.train:
+                t, x, xerr = np.asarray(h.train).T
+                ax.errorbar(t, x, yerr=xerr, label=name, color="r")
+            if h.test:
+                t, x = zip(*h.test)
+                ax.plot(t, [float(v) for v in x], label="test " + name, marker="x", color="b")
+            if h.logplot and not name.startswith("nll") and name != "loss":
+                try:
+                    ax.set_yscale("log")
+                except ValueError:
+                    pass
+            ax.grid(axis="y", which="both")
+            ax.legend()
+        fig.tight_layout()
+        fig.savefig(self.save_filename)
+        pyplot.close(fig)
+
+    def close(self):
+        self.update_graph()

@@ -137,6 +137,7 @@ def run_training(
     generator: Optional[torch.Generator] = None,
     resume: Optional[str] = None,
     steps_per_dispatch: int = 1,
+    plotter=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Train for `trainer.config.epochs` epochs of `steps_per_epoch` steps,
     the augmentation drawing from `generator`; write `last.ckpt`,
@@ -154,7 +155,9 @@ def run_training(
     final state and one record per epoch (host seconds of the steps, images/s,
     images/s sustained since the run's second step with validation and
     checkpoints included, validation loss and milliseconds, milliseconds of
-    each checkpoint file written, the epoch's mean of each train metric)."""
+    each checkpoint file written, the epoch's mean of each train metric).
+    `plotter` (a `train/plotting.py:TrainHistoryPlotter`) gets the points the
+    console gets and renders them at every epoch's end."""
     cfg = trainer.config
     K = int(steps_per_dispatch)
     if K < 1:
@@ -171,6 +174,7 @@ def run_training(
     os.makedirs(outdir, exist_ok=True)
     resume_path = os.path.join(outdir, "resume.pt")
     console = ConsoleTrainOutput()
+    recorders = [console] if plotter is None else [plotter, console]
     start_epoch, best_val = 0, math.inf
     if resume is not None and os.path.exists(resume):
         state, extra = load_train_state(trainer, resume, generator, state=state)
@@ -202,12 +206,14 @@ def run_training(
         if writer:
             for j in range(steps):
                 for n in names:
-                    console.add_train_point(epoch, step0 + j + 1, n, float(per_step[n][j]))
+                    for rec in recorders:
+                        rec.add_train_point(epoch, step0 + j + 1, n, float(per_step[n][j]))
 
         t_val = time.perf_counter()
-        val_loss = validation.run(epoch, console)
+        val_loss = validation.run(epoch, *recorders)
         val_ms = (time.perf_counter() - t_val) * 1e3
-        console.add_test_point(epoch, "lr", cfg.lr * trainer.epoch_schedule(epoch))
+        for rec in recorders:
+            rec.add_test_point(epoch, "lr", cfg.lr * trainer.epoch_schedule(epoch))
         if cfg.swa_start_epoch is not None and epoch > cfg.swa_start_epoch:
             state = trainer.update_swa(state)
         checkpoint_ms = {}
@@ -225,8 +231,9 @@ def run_training(
                 t_ckpt = time.perf_counter()
                 trainer.save_checkpoint(state, os.path.join(outdir, "best.ckpt"))
                 checkpoint_ms["best"] = (time.perf_counter() - t_ckpt) * 1e3
-            console.summarize_train_values()
-            console.update_graph()
+            for rec in recorders:
+                rec.summarize_train_values()
+                rec.update_graph()
         parallel.barrier()
         ips, sustained = steps * cfg.batchsize / train_s, meter.images_per_sec
         if writer:
@@ -238,6 +245,10 @@ def run_training(
             val_loss=val_loss, val_ms=val_ms, checkpoint_ms=checkpoint_ms,
             train_metrics={n: float(per_step[n].double().mean()) for n in names},
         ))
+    # a generator's clean-up (the profiler's trace, the loader's workers) runs now, not when the collector finds it
+    close = getattr(batches, "close", None)
+    if close is not None:
+        close()
     if cfg.swa_start_epoch is not None and writer:
         trainer.save_checkpoint(state, os.path.join(outdir, "swa.ckpt"), swa=True)
     parallel.barrier()

@@ -1,6 +1,6 @@
 """Host-side helpers (the port's own copy of the parts of the JAX package's
-`utils.py` that eval, the sampler and the loader need): the AFLW euler
-convention, batching of an iterable, the padding bucket, `cycle`, the
+`utils.py` that eval, the sampler, the loader and the stability analyses
+need): the heading/pitch/bank and AFLW euler conventions, batching of an iterable, the padding bucket, `cycle`, the
 loader's worker count and the walk over an HDF5 file's datasets. numpy and
 scipy only; h5py is imported where a file is walked."""
 
@@ -12,6 +12,16 @@ import numpy as np
 from scipy.spatial.transform import Rotation
 
 rad2deg = 180.0 / np.pi
+
+
+def as_hpb(rot: Rotation) -> np.ndarray:
+    """Heading, pitch, bank (..., 3): an aeronautic-like convention, the
+    extrinsic euler angles "YXZ"."""
+    return rot.as_euler("YXZ")
+
+
+def from_hpb(hpb) -> Rotation:
+    return Rotation.from_euler("YXZ", hpb)
 
 
 def convert_to_rot(net_output: np.ndarray) -> Rotation:

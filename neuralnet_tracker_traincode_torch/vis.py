@@ -1,9 +1,9 @@
-"""Drawing of samples and predictions with cv2 (the port's own copy of the
-parts of the JAX package's `vis.py` that the CLIs' `--vis-outdir` needs):
-pose axes, landmarks, ROIs, the head circle, the no-face cross, and the
-ground truth (green) beside the prediction (red) on one image. Images are
-RGB. cv2 is imported where a function draws; the matplotlib browsers of the
-JAX package wait (ROADMAP.md)."""
+"""Drawing of samples and predictions (the port's own copy of the JAX
+package's `vis.py`): pose axes, landmarks, ROIs, the head circle, the
+no-face cross, and the ground truth (green) beside the prediction (red) on
+one image, with cv2; the iBUG colours of a semantic segmentation, with
+numpy; the 3D landmark scatter and the paging browser, with matplotlib.
+Images are RGB. cv2 and matplotlib are imported where a function draws."""
 
 from typing import Optional, Tuple
 
@@ -12,6 +12,16 @@ from scipy.spatial.transform import Rotation
 
 PRED_COLOR = (0, 0, 255)
 GT_COLOR = (0, 200, 0)
+
+
+def matplotlib_import_error() -> Optional[ImportError]:
+    """None where matplotlib imports, else the error its import raised (the
+    machine with the card may have no matplotlib)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        return e
+    return None
 
 
 def _cv2():
@@ -125,3 +135,70 @@ def draw_prediction(gt_pred, linewidth=2):
         if "pose" in pred and "coord" in pred:
             draw_pose(img, pred, color=PRED_COLOR, linewidth=linewidth)
     return img
+
+
+def plot3dlandmarks(ax, keypts):
+    """The keypoints (N, 3) on a 3D matplotlib axis, each with its index."""
+    keypts = np.asarray(keypts)
+    xs, ys, zs = keypts.T
+    ax.scatter(xs, ys, zs, s=3.0)
+    for i, p in enumerate(keypts):
+        ax.text(p[0], p[1], p[2], s=str(i), size=9)
+    ax.set_xlabel("X")
+    ax.set_ylabel("Y")
+    ax.set_zlabel("Z")
+
+
+# iBUG face parsing class colours
+_ibug_semseg_colors = np.asarray(
+    [
+        (0, 0, 0), (255, 255, 0), (139, 76, 57), (139, 54, 38), (0, 205, 0),
+        (0, 138, 0), (154, 50, 205), (72, 118, 255), (255, 165, 0), (0, 0, 139),
+        (255, 0, 0),
+    ],
+    dtype=np.uint8,
+)
+
+
+def draw_semseg_class_indices(semseg: np.ndarray) -> np.ndarray:
+    """(H, W, 1) class indices -> (H, W, 3) uint8 colours."""
+    H, W, C = semseg.shape
+    assert C == 1, f"bad shape {semseg.shape}"
+    return _ibug_semseg_colors[semseg.ravel(), :].reshape((H, W, -1))
+
+
+def draw_semseg_logits(semseg: np.ndarray) -> np.ndarray:
+    """(H, W, classes) log-probabilities -> (H, W, 3) uint8, the classes'
+    colours weighted by their probabilities."""
+    probs = np.exp(semseg)
+    colored = np.sum(_ibug_semseg_colors[None, None, :, :].astype(np.float32) * probs[..., None], axis=-2)
+    return np.clip(colored, 0.0, 255.0).astype(np.uint8)
+
+
+def matplotlib_plot_iterable(iterable, drawfunc, rows=3, cols=3, figsize=(10, 10)):
+    """A paging grid over an iterable of samples, each drawn by `drawfunc`
+    into an image; the "Next" button shows the next page. Returns (figure,
+    button): keep the button referenced while the window is open."""
+    from matplotlib import pyplot
+    from matplotlib.widgets import Button
+
+    fig, axes = pyplot.subplots(rows, cols, figsize=figsize)
+    axes = np.atleast_1d(axes).ravel()
+    iterator = iter(iterable)
+
+    def show_next(event=None):
+        for ax in axes:
+            ax.clear()
+            ax.axis("off")
+            try:
+                item = next(iterator)
+            except StopIteration:
+                break
+            ax.imshow(drawfunc(item))
+        fig.canvas.draw_idle()
+
+    ax_button = fig.add_axes([0.81, 0.01, 0.15, 0.05])
+    button = Button(ax_button, "Next")
+    button.on_clicked(show_next)
+    show_next()
+    return fig, button

@@ -23,8 +23,11 @@ files at a small size.
    on the `--full` file gives the checkpoint's row within 1e-3, and
    `add_pose_pseudolabels` on it writes the labels the JAX CLI writes from
    the same file, within 1e-4.
- - Every flag value whose machinery is not ported raises `not_ported`
-   before any data is read.
+ - The figure paths: the trainer writes its loss plot `train.pdf`; where
+   matplotlib does not import, `--plot-save-filename` raises before any data
+   is read and a run without it says that it writes no plot; the eval CLI's
+   `--vis` without `--vis-outdir` pages through the overlays that
+   `--vis-outdir` writes.
 """
 
 import importlib.util
@@ -107,10 +110,10 @@ def pose_run(datadir, tmp_path_factory):
 
 def test_pose_trainer_runs_and_resumes(pose_run, capsys):
     outdir, first = pose_run
-    assert first == ["best.ckpt", "last.ckpt", "resume.pt"]
+    assert first == ["best.ckpt", "last.ckpt", "resume.pt", "train.pdf"]
     with open(os.path.join(os.path.dirname(outdir), "profile", "trace.json")) as f:  # --profile-dir's trace
         assert json.load(f)["traceEvents"]
-    assert sorted(os.listdir(outdir)) == ["best.ckpt", "last.ckpt", "resume.pt", "swa.ckpt"]
+    assert sorted(os.listdir(outdir)) == ["best.ckpt", "last.ckpt", "resume.pt", "swa.ckpt", "train.pdf"]
     from neuralnet_tracker_traincode_torch.train.checkpointing import FORMAT
 
     with open(os.path.join(outdir, "resume.pt"), "rb") as f:
@@ -137,6 +140,7 @@ def test_pose_trainer_steps_per_dispatch_on_the_cpu(datadir, tmp_path, monkeypat
     for name in ("last.ckpt", "best.ckpt"):
         files = [tmp_path / k / "NetworkWithPointHead_mobilenetv1" / name for k in ("0", "2")]
         assert files[0].read_bytes() == files[1].read_bytes(), name
+    assert train_cli.parse_args([]).device == eval_cli.build_parser().parse_args(["m.ckpt"]).device == "cuda"
 
 
 def test_pose_eval_cli_writes_the_report_row(pose_run, datadir, tmp_path, monkeypatch):
@@ -184,17 +188,58 @@ def test_localizer_clis(datadir, tmp_path, monkeypatch, capsys):
     assert eval_loc_cli.main([ckpt, "--ds", f"{datadir}/widerfacessingle.h5", "-n", "8", "--device", "cpu"]) == 0
 
 
-@pytest.mark.parametrize("cli,argv,what", [
-    (train_cli, ["--plot-save-filename", "x.pdf"], "plot-save-filename"),
-    (eval_cli, ["m.ckpt", "--vis", "rot"], "--vis without"),
-])
-def test_flags_that_wait_raise_not_ported(cli, argv, what, monkeypatch):
+def test_pose_run_writes_the_loss_plot(pose_run):
+    """`train.pdf` in the model directory (the JAX CLI's default), a PDF of
+    the second run's histories: every train metric, the test losses and lr."""
+    with open(os.path.join(pose_run[0], "train.pdf"), "rb") as f:
+        blob = f.read()
+    assert blob.startswith(b"%PDF") and len(blob) > 10_000
+
+
+def test_without_matplotlib_the_trainer_plots_nothing(datadir, tmp_path, monkeypatch, capsys):
+    """matplotlib blocked (any import of it raises), as on the card's
+    machine: `--plot-save-filename` raises before any data is read, with a
+    message that names matplotlib; without the flag the run says at its
+    start that it writes no `train.pdf`, and trains."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     monkeypatch.delenv("DATADIR", raising=False)  # nothing is read before the refusal
-    with pytest.raises(NotImplementedError, match=what):
-        cli.parse_args(argv)
-    with pytest.raises(NotImplementedError, match=what):
-        cli.main(argv)
-    assert cli.parse_args(["m.ckpt"] if cli is eval_cli else []).device == "cuda"
+    argv = ["--ds", "300wlp", "--batchsize", "8", "--samples-per-epoch", "8", "--device", "cpu", "--dtype", "float32",
+            "--seed", "0", "--epochs", "1", "--outdir", str(tmp_path)]
+    with pytest.raises(ImportError, match="--plot-save-filename needs matplotlib"):
+        train_cli.main(argv + ["--plot-save-filename", str(tmp_path / "x.pdf")])
+    monkeypatch.setenv("DATADIR", datadir)
+    monkeypatch.setenv("NUM_WORKERS", "1")
+    assert train_cli.main(argv) == 0
+    assert capsys.readouterr().out.startswith("train.pdf will not be written: matplotlib does not import")
+    assert sorted(os.listdir(tmp_path / "NetworkWithPointHead_mobilenetv1")) == ["best.ckpt", "last.ckpt", "resume.pt"]
+
+
+def test_pose_eval_cli_pages_through_the_worst_cases(pose_run, datadir, tmp_path, monkeypatch):
+    """`--vis rot` without `--vis-outdir` under the Agg backend, with
+    `pyplot.show` patched to a no-op: the pager's first page shows the nine
+    worst samples, each the image that `--vis-outdir` writes for it."""
+    import cv2
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot
+
+    monkeypatch.setenv("DATADIR", datadir)
+    shown = []
+    monkeypatch.setattr(pyplot, "show", lambda *a, **k: shown.append(pyplot.gcf()))
+    ckpt = os.path.join(pose_run[0], "best.ckpt")
+    assert eval_cli.main([ckpt, "--ds", "aflw2k3d", "--vis", "rot", "--device", "cpu"]) == 0
+    (fig,) = shown
+    assert fig._suptitle.get_text().startswith("aflw2k3d / ")
+    pages = [ax.get_images()[0].get_array() for ax in fig.axes if ax.get_images()]
+    assert len(pages) == 9
+    vis = tmp_path / "vis"
+    assert eval_cli.main([ckpt, "--ds", "aflw2k3d", "--vis", "rot", "--vis-outdir", str(vis), "--device", "cpu"]) == 0
+    for i, page in enumerate(pages):
+        np.testing.assert_array_equal(np.asarray(page), cv2.imread(str(vis / f"worst_{i:03d}.png"))[..., ::-1])
+    pyplot.close(fig)
 
 
 @pytest.fixture(scope="module")

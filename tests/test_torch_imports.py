@@ -1,9 +1,11 @@
 """The port stands alone: none of its modules, nor `chip_smoke.py`, imports
-JAX, flax, optax, msgpack, matplotlib, onnx, onnxruntime or the JAX package
-(parsed, not executed: the export writes and runs ONNX files with its own
-code), and nothing on its import path needs triton, h5py, cv2, sklearn,
-pyrender or trimesh, which the machine with the card may lack. Its data
-files are its own copies, and the shape prior loads from its npz."""
+JAX, flax, optax, msgpack, onnx, onnxruntime or the JAX package (parsed, not
+executed: the export writes and runs ONNX files with its own code), and
+nothing on its import path needs triton, h5py, cv2, sklearn, pyrender,
+trimesh or matplotlib, which the machine with the card may lack: those are
+imported inside the functions that use them (matplotlib only where a figure
+is drawn). Its data files are its own copies, and the shape prior loads
+from its npz."""
 
 import ast
 import filecmp
@@ -13,9 +15,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "neuralnet_tracker_traincode_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib", "onnx", "onnxruntime",
-             "neuralnet_tracker_traincode_tpu"}
-NOT_AT_IMPORT = {"triton", "h5py", "cv2", "sklearn", "pyrender", "trimesh"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "onnx", "onnxruntime", "neuralnet_tracker_traincode_tpu"}
+NOT_AT_IMPORT = {"triton", "h5py", "cv2", "sklearn", "pyrender", "trimesh", "matplotlib"}
 
 
 def _sources():
@@ -71,7 +72,7 @@ def test_the_shape_prior_loads_without_h5py(monkeypatch):
 
 _WITHOUT_H5PY_AND_CV2 = """
 import importlib, os, pkgutil, sys
-for name in ("h5py", "cv2", "sklearn", "pyrender", "trimesh"):
+for name in ("h5py", "cv2", "sklearn", "pyrender", "trimesh", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises
 sys.path.insert(0, {root!r})
 import neuralnet_tracker_traincode_torch as port
@@ -91,8 +92,8 @@ else:
 """
 
 CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
-        "add_pose_pseudolabels", "fit_face_model"]
-HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm"]  # no device work, no --device
+        "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits"]
+HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm", "show_face_model"]  # no device, no --device
 
 
 def test_the_export_and_cli_modules_are_covered():
@@ -105,8 +106,8 @@ def test_the_export_and_cli_modules_are_covered():
 @pytest.mark.parametrize("target", ["package"] + CLIS + HOST_CLIS)
 def test_the_package_and_the_cli_help_load_without_h5py_and_cv2(target):
     """Every module of the port imports, and each CLI prints its `--help`,
-    on a machine without h5py, cv2, sklearn, pyrender and trimesh (as the
-    card's may be)."""
+    on a machine without h5py, cv2, sklearn, pyrender, trimesh and
+    matplotlib (as the card's may be)."""
     import subprocess
     import sys
 

@@ -596,7 +596,7 @@ def _resume_file(path):
 def test_training_cli_over_two_ranks(datadir, tmp_path):
     """`train_poseestimator` under `torchrun`'s variables, 2 gloo ranks of 4
     rows, one epoch of one step, beside one process on the batch of 8: rank
-    0 writes the files, rank 1 none, and its `last.ckpt` holds the weights
+    0 writes the files (the loss plot too), rank 1 none, and its `last.ckpt` holds the weights
     of its `resume.pt`. That state against the one process's, at the f32
     floor of another order of reductions at full width, where a permutation
     of one process's rows moves `bn1.weight`'s gradient by 16%: each leaf of
@@ -619,7 +619,7 @@ def test_training_cli_over_two_ranks(datadir, tmp_path):
          out + "/one"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     _finish(procs, "training CLI")
     name = "NetworkWithPointHead_mobilenetv1"
-    assert sorted(os.listdir(os.path.join(out, "rank0", name))) == ["best.ckpt", "last.ckpt", "resume.pt"]
+    assert sorted(os.listdir(os.path.join(out, "rank0", name))) == ["best.ckpt", "last.ckpt", "resume.pt", "train.pdf"]
     assert os.listdir(os.path.join(out, "rank1", name)) == []
     two, one = (_resume_file(os.path.join(out, d, name, "resume.pt")) for d in ("rank0", "one"))
     assert two["count"] == one["count"] == 1
