@@ -104,7 +104,7 @@ Phases (any failure ends the run with a non-zero exit code):
     heads, the 12-term criterion, bf16, batch 64, 4 epochs of 1,024 samples,
     SWA after epoch 1) on 2,048 training and 256 validation marker frames at
     448^2 rendered on the card and JPEG-encoded on the host (quality 95),
-    held as `JpegFrames` (the samples `Hdf5PoseDataset` gives under
+    held as `scripts/bench_loader.py:JpegFrames` (the samples `Hdf5PoseDataset` gives under
     `use_raw_images`), through the training CLI's sampler (seed 3),
     `FusedBatchLoader` with 4 process workers and shared memory, and
     `device_prefetch`. It fails unless the first 8 batches of the process
@@ -242,21 +242,48 @@ Phases (any failure ends the run with a non-zero exit code):
     PNGs written with cv2 read back equal. (c) One line says that the
     figures and the pagers are not drawn where matplotlib does not import
     (the CPU tests draw them);
- 18. the `kernels` line (`launches` from phase 5's steps, `launches_training_run`
+ 18. the JPEG decode on the card (`data/native_loader.py`: the host entropy
+    decode; K4, `kernels/csrc/jpeg_idct.cu`: dequantization, libjpeg's
+    ISLOW IDCT, the range limit, the zero-padded batch). (a) K4 against its
+    plain version and `cv2.imdecode(..., IMREAD_GRAYSCALE)`, bit-equal, on
+    64 of phase 12a's 448^2 q95 frames, 64 noise frames at 448^2 q95 (every
+    block dense) and a seeded set (noise at q 1, 50 and 100; 1 x 1, 7 x 9
+    and 123 x 301; colour 4:2:0 and 4:4:4; a restart interval; two files
+    whose quantization tables were raised to 255 after encoding, one of
+    flat blocks); K4's `ms`, `ms_stream` and plain version at 64 x 448^2 on
+    phase 12a's frames, and its `ms` and `ms_stream` on the noise frames,
+    each beside its bound (`k4_work`: the bytes and the integer operations
+    that the payload needs), and the host's cv2 decode and entropy decode
+    in images/s on one core on both (`scripts/bench_loader.py:decode_stage`).
+    (b) Phase 12a's frames through `FusedBatchLoader(jpeg_decode="device")`
+    (4 process workers, shared memory): its first 8 batches, through
+    `device_prefetch_stacked` at K = 8, equal field for field phase 12a's
+    host decode of the same plans; the loader alone in images/s beside
+    phase 12a's. (c) Phase 7's run (as 12a) through that stream at K = 8,
+    one CUDA graph replay a group, the launch counts reset just before and
+    read just after: every loss finite, the validation loss below the
+    untrained model's, K4 once a batch (the groups prefetched past the
+    run's end included), K1, K2 and K3 launched; the training thread's wait
+    in `next()` a step (median, p90), images/s per epoch
+    (`scripts/bench_loader.py:training_stage`, whose `--ab --train` runs
+    the same in both decodes);
+ 19. the `kernels` line (`launches` from phase 5's steps, but K4's from
+    phase 18's run, its own main path; `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
     `launches_export` from phase 13, `launches_multistep` from phase 14
     (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
     both ranks of (b), `launches_face_tools` from phase 16, which are 0,
-    `launches_viewer` from phase 17 (b)), then `{"ok": true, "device": ...}`
-    as the last line.
+    `launches_viewer` from phase 17 (b), `launches_jpeg_run` from phase 18
+    (c)), then `{"ok": true, "device": ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
-`native/nntc_loader.so` loads; it fails nothing. The port decodes JPEGs
-with cv2 (phase 12a needs it) and reads HDF5 files with h5py (phase 12b
-runs only where it imports).
+`native/nntc_loader.so` loads; it fails nothing. Phase 12a decodes JPEGs
+with cv2 on the host and phase 18 on the card (both need cv2: 18 holds K4
+to it), and the port reads HDF5 files with h5py (phase 12b runs only where
+it imports).
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
 """
@@ -304,6 +331,8 @@ BACKBONES = [("resnet18", {"use_blurpool": True}, True), ("efficientnet_b0", {},
 BACKBONE_WARMUP, BACKBONE_STEPS, BACKBONE_EVAL = 3, 10, 256
 # the host loader: phase 7's run on JPEG frames at 448^2 through FusedBatchLoader's process workers
 LOADER_SRC, LOADER_WORKERS, LOADER_CHECK_BATCHES, LOADER_ALONE_BATCHES = 448, 4, 8, 32
+# the JPEG decode on the card (phase 18): the seeded set's seed, and the frames the host decodes are timed on
+JPEG_SEED, JPEG_DECODE_N = 20261017, 256
 # the CLIs through files (where h5py imports): aflw2k.h5 at 160^2
 CLI_N, CLI_SRC = 1024, 160
 # export and the ONNX runtime: the Predictor's chunk
@@ -333,41 +362,6 @@ VIEW_HPB_TOL, VIEW_PX_TOL = 4e-4, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
-
-
-class JpegFrames:
-    """Labelled frames held as JPEG buffers; item i is the single-frame
-    `Batch` that `Hdf5PoseDataset` gives under `use_raw_images` (the image a
-    `RawJpegBuffer`, the labels, `index` and `coord_convention_id`). Defined
-    at the top level so that the loader's spawned workers can unpickle it."""
-
-    def __init__(self, buffers, labels, size, tag):
-        self.offsets = [0]
-        for b in buffers:
-            self.offsets.append(self.offsets[-1] + len(b))
-        import numpy as np
-
-        self.blob = np.concatenate(buffers)
-        self.labels, self.size, self.tag = labels, size, tag
-
-    def __len__(self):
-        return len(self.offsets) - 1
-
-    def __getitem__(self, i):
-        import numpy as np
-
-        from neuralnet_tracker_traincode_torch.data.batch import Batch, Metadata
-        from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES, FieldCategory
-        from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
-
-        if not 0 <= i < len(self):
-            raise IndexError(i)
-        fields = {"image": RawJpegBuffer(self.blob[self.offsets[i]:self.offsets[i + 1]], self.size, self.size)}
-        fields.update((k, v[i]) for k, v in self.labels.items())
-        fields["index"] = np.asarray(i, np.int32)
-        fields["coord_convention_id"] = np.asarray(0, np.int32)
-        cats = {k: POSE_FIELD_CATEGORIES.get(k, FieldCategory.general) for k in fields}
-        return Batch(Metadata((self.size, self.size), 0, self.tag, None, categories=cats), fields)
 
 
 def fail(msg: str):
@@ -1437,27 +1431,19 @@ def backbones_phase(torch, np, dev, smi):
 
 def jpeg_frames(torch, np, n, seed, dev):
     """`n` marker frames at LOADER_SRC^2 rendered on the card from `seed`,
-    encoded on the host by the port's `imencode` at the JAX writer's quality
-    (95), as `JpegFrames`."""
-    from concurrent.futures import ThreadPoolExecutor
+    encoded on the host at the JAX writer's quality (95), as `JpegFrames`
+    (`scripts/bench_loader.py`)."""
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames as frames
 
-    from neuralnet_tracker_traincode_torch.data.fields import Tag
-    from neuralnet_tracker_traincode_torch.data.preprocessing import imencode
-    from neuralnet_tracker_traincode_torch.data.synthetic import make_labels, render_marker_images
-
-    quats, coords, pt3d, shapeparams, rois = make_labels(n, LOADER_SRC, seed=seed, device=dev)
-    images = render_marker_images(pt3d, coords, LOADER_SRC).cpu().numpy()
-    with ThreadPoolExecutor(8) as pool:  # cv2 releases the GIL while it encodes
-        buffers = list(pool.map(lambda im: imencode(im, quality=95), images))
-    labels = {k: a.cpu().numpy() for k, a in
-              zip(("pose", "coord", "pt3d_68", "shapeparam", "roi"), (quats, coords, pt3d, shapeparams, rois))}
-    return JpegFrames(buffers, labels, LOADER_SRC, Tag.POSE_WITH_LANDMARKS)
+    return frames(n, LOADER_SRC, seed, dev)
 
 
 def loader_phase(torch, np, dev, smi):
     """Phase 12a: phase 7's training run on JPEG frames at 448^2 through the
     host loader (`FusedBatchLoader` with process workers and shared memory,
-    then `device_prefetch`)."""
+    then `device_prefetch`), the JPEGs decoded by cv2 on the host. Returns
+    the launches, the errors and, for phase 18, the frames, the padding, the
+    first batches packed here and the loader alone's images/s."""
     import multiprocessing as mp
 
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
@@ -1525,6 +1511,7 @@ def loader_phase(torch, np, dev, smi):
             for _ in range(LOADER_ALONE_BATCHES):
                 next(it)
             alone_bps = LOADER_ALONE_BATCHES / (time.perf_counter() - t0)
+            host_alone = alone_bps * B
             print(f"loader alone ({LOADER_WORKERS} process workers, {os.cpu_count()} host cores, {pad}^2 JPEG q95, "
                   f"batch {B}): {alone_bps:.2f} batches/s, {alone_bps * B:.1f} images/s over {LOADER_ALONE_BATCHES} "
                   f"batches (the first {LOADER_CHECK_BATCHES} took {first_s:.2f} s, worker start-up included) on {smi}")
@@ -1609,7 +1596,7 @@ def loader_phase(torch, np, dev, smi):
           f"{waits[0]:.1f} ms, worker start-up included); validation loss {untrained_loss:.4f} -> {final_loss:.4f}; "
           f"K1 at the run's crops max |kernel - plain| {errs['warp_roi_rotate']:.3e} gray; launches {launches}; "
           f"data {t_data:.2f} s, run {run_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s on {smi}")
-    return launches, errs
+    return launches, errs, dict(train=train, val=val, pad=pad, want=want, host_alone=host_alone)
 
 
 def cli_phase(np, smi):
@@ -2967,7 +2954,8 @@ def viewer_phase(torch, np, dev, frames):
         samples = list(iterate_samples([batch], cfg, torch.Generator().manual_seed(17), dev))
         torch.cuda.synchronize()
         launches = dict(ext.LAUNCHES)
-    check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0},
+    check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0,
+                       "jpeg_idct": 0},
           f"show_train_test_splits: launches {launches}")
     errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "show_train_test_splits")
     errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "show_train_test_splits")
@@ -3005,6 +2993,204 @@ def analysis_phase(torch, np, dev, smi, ckpt, val_frames, train_frames):
     return launches, errs
 
 
+def raise_dqt(buf: bytes, value: int = 255) -> bytes:
+    """`buf` with every entry of its quantization tables set to `value`
+    after encoding: its coefficients then dequantize past 16 bits, where
+    libjpeg-turbo's SIMD lanes wrap and saturate (`kernels/jpeg.py`)."""
+    b = bytearray(buf)
+    i = 2
+    while b[i + 1] != 0xDA:
+        n = (b[i + 2] << 8) | b[i + 3]
+        j = i + 4
+        while b[i + 1] == 0xDB and j < i + 2 + n:
+            wide = b[j] >> 4
+            for k in range(64):
+                if wide:
+                    b[j + 1 + 2 * k:j + 3 + 2 * k] = bytes([value >> 8, value & 255])
+                else:
+                    b[j + 1 + k] = value
+            j += 1 + 64 * (wide + 1)
+        i += 2 + n
+    return bytes(b)
+
+
+def jpeg_cases(np, cv2):
+    """Phase 18 (a)'s seeded set: (name, JPEG bytes)."""
+    rng = np.random.default_rng(JPEG_SEED)
+
+    def enc(img, *params):
+        return cv2.imencode(".jpg", img, list(params))[1].tobytes()
+
+    noise = rng.integers(0, 256, (123, 301), dtype=np.uint8)
+    color = rng.integers(0, 256, (123, 301, 3), dtype=np.uint8)
+    bands = np.repeat(np.repeat(np.arange(96, 176, dtype=np.uint8).reshape(8, 10), 8, 0), 8, 1)  # flat blocks
+    cases = [(f"noise q{q}", enc(noise, cv2.IMWRITE_JPEG_QUALITY, q)) for q in (1, 50, 100)]
+    cases += [(f"{h}x{w}", enc(rng.integers(0, 256, (h, w), dtype=np.uint8))) for h, w in ((1, 1), (7, 9), (123, 301))]
+    cases += [("colour 4:2:0", enc(color, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)),
+              ("colour 4:4:4", enc(color, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)),
+              ("restart interval 3", enc(noise, cv2.IMWRITE_JPEG_QUALITY, 80, cv2.IMWRITE_JPEG_RST_INTERVAL, 3)),
+              ("DQT raised to 255", raise_dqt(enc(noise[:96, :128], cv2.IMWRITE_JPEG_QUALITY, 95))),
+              ("DQT raised to 255, flat blocks", raise_dqt(enc(bands, cv2.IMWRITE_JPEG_QUALITY, 95)))]
+    return cases
+
+
+def k4_against_cv2_and_plain(torch, np, cv2, buffers, pad, dev, what):
+    """K4 on the card over `buffers` decoded into slots of `pad`, against its
+    plain version and cv2, bit for bit; returns the payload on the card and
+    max |kernel - plain|."""
+    from neuralnet_tracker_traincode_torch.data import native_loader as NL
+    from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+
+    payload = NL.entropy_decode(buffers, pad).to(dev)
+    got = payload.decode()
+    plain = K4.idct_pack_plain(*payload.arrays, pad)
+    want = np.zeros((len(buffers), pad, pad, 1), np.uint8)
+    for i, b in enumerate(buffers):
+        im = cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_GRAYSCALE)
+        want[i, :im.shape[0], :im.shape[1], 0] = im
+    torch.cuda.synchronize()
+    err = float((got.int() - plain.int()).abs().max())
+    check(torch.equal(got, plain), f"K4 differs from its plain version on {what}: max {err}")
+    differ = [i for i in range(len(buffers)) if not np.array_equal(got[i].cpu().numpy(), want[i])]
+    check(not differ, f"K4 differs from cv2 on {what}: images {differ}")
+    return payload, err
+
+
+def k4_work(K4, coeffs, block_start, out):
+    """K4's work on a payload, for its bound: the bytes (the payload's arrays
+    read once, `out` written once) and the integer operations that this
+    payload needs. Each coefficient present: its dequantization (a product,
+    its low 16 bits), 2. A block whose run is its DC alone: one value for
+    its 64 pixels (x 4, low 16 bits, the row pass's x 2^13, add and shift,
+    the clamp and + 128), 8. A block with terms in its first row only
+    (each column its first value x 4): that shortcut on 8 columns (16), one
+    row pass for its eight equal rows (66) and 8 range limits (24), 106.
+    Any other block: 8 column and 8 row passes of 66 operations each, the
+    column pass's saturation (2 a value) and the range limit (clamp and
+    + 128, 3 a pixel), 1,376. Returns (bytes, operations, blocks, blocks of
+    the last kind)."""
+    blocks = block_start.shape[0] - 1
+    runs = block_start[1:] - block_start[:-1]
+    dc_only = int((runs == 1).sum())
+    full = int((K4.dense_blocks(coeffs, block_start, 0, blocks).reshape(-1, 8, 8)[:, 1:, :] != 0).any(2).any(1).sum())
+    present = int(block_start[-1] - block_start[0])
+    ops = 2 * present + 8 * dc_only + 106 * (blocks - dc_only - full) + 1376 * full
+    nbytes = sum(t.numel() * t.element_size() for t in (coeffs, block_start)) + out.numel()
+    return nbytes, ops, blocks, full
+
+
+def k4_timing(torch, payload, pad, dev):
+    """K4 on `payload` into a (N, pad, pad, 1) batch: `ms`, `ms_stream` and
+    the bound with the work it is computed from."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    out = torch.empty((payload.meta.shape[0], pad, pad, 1), dtype=torch.uint8, device=dev)
+    launch = lambda c, s, q, m: ext.extension().jpeg_idct_pack(c, s, q, m, out, pad)  # noqa: E731
+    coeffs, block_start, qtables, meta = payload.arrays
+    nbytes, ops, blocks, full = k4_work(K4, coeffs, block_start, out)
+    nbytes += qtables.numel() * qtables.element_size() + meta.numel() * meta.element_size()
+    return dict(ms=time_ms(torch, lambda: launch(*payload.arrays), flush),
+                ms_stream=stream_ms(torch, launch, rotating(torch, *payload.arrays)),
+                bound=bound_ms(nbytes, i32_ops=ops), bytes=nbytes, ops=ops, blocks=blocks, full=full)
+
+
+def k4_line(t, what, smi):
+    return (f"K4 on {what}: {t['ms']:.4f} ms ({t['ms_stream']:.4f} ms_stream) a batch of {B}, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}: {t['bytes'] / 1e6:.1f} MB, {t['ops'] / 1e9:.4f} G integer "
+            f"operations, {t['full']} of {t['blocks']} blocks with terms past their first row) on {smi}")
+
+
+def jpeg_phase(torch, np, dev, smi, frames):
+    """Phase 18: the JPEG decode on the card (host entropy decode, K4) for
+    the training loader, on phase 12a's frames, and K4 and the host decode
+    on dense frames (noise)."""
+    import cv2
+
+    from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import decode_stage, print_training
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames as make_frames
+
+    t_phase = time.perf_counter()
+    train, val, pad = frames["train"], frames["val"], frames["pad"]
+    buffers = [train.buffer(i) for i in range(len(train))]
+    noise = make_frames(B, pad, JPEG_SEED, dev, "noise")
+    dense = [noise.buffer(i) for i in range(B)]
+
+    # (a) K4 against its plain version and cv2, bit for bit
+    cases = jpeg_cases(np, cv2)
+    payload, err = k4_against_cv2_and_plain(torch, np, cv2, buffers[:B], pad, dev, f"{B} of phase 12a's frames")
+    dense_payload, err_dense = k4_against_cv2_and_plain(torch, np, cv2, dense, pad, dev, f"{B} noise frames")
+    _, err_cases = k4_against_cv2_and_plain(torch, np, cv2, [b for _, b in cases], 320, dev, "the seeded set")
+    err = max(err, err_dense, err_cases)
+    print(f"jpeg (a): K4 bit-equal to its plain version and to cv2.imdecode(..., IMREAD_GRAYSCALE) on {B} of phase "
+          f"12a's {pad}^2 q95 frames, on {B} noise frames at {pad}^2 q95 and on the seeded set "
+          f"({', '.join(n for n, _ in cases)}) on {smi}")
+
+    # K4 at the main path's shape (phase 12a's frames, mostly flat) and on dense frames: ms, ms_stream, the bound
+    row = dict(name="jpeg_idct", source="neuralnet_tracker_traincode_torch/kernels/csrc/jpeg_idct.cu",
+               replaces="neuralnet_tracker_traincode_tpu/data/native_loader.py:93", max_abs_err=err, library_ms=None,
+               plain_ms=time_ms(torch, lambda: K4.idct_pack_plain(*payload.arrays, pad), torch.empty(
+                   64 * 2**20, dtype=torch.uint8, device=dev), n=5, warmup=1))
+    flat_t, dense_t = k4_timing(torch, payload, pad, dev), k4_timing(torch, dense_payload, pad, dev)
+    row.update((k, flat_t[k]) for k in ("ms", "ms_stream", "bound"))
+    row.update(ms_dense=dense_t["ms"], ms_stream_dense=dense_t["ms_stream"], bound_ms_dense=dense_t["bound"][0])
+    del payload, dense_payload
+    print(k4_line(flat_t, f"{B} of phase 12a's frames", smi) + f"; plain {row['plain_ms']:.3f} ms")
+    print(k4_line(dense_t, f"{B} noise frames", smi))
+    for what, bufs in ((f"{JPEG_DECODE_N} of phase 12a's frames", buffers[:JPEG_DECODE_N]),
+                       (f"{B} noise frames", dense)):
+        rates = decode_stage(bufs, pad, dev)
+        print(f"jpeg decode on the host, one thread each, {what} at {pad}^2 q95: cv2 {rates['cv2']:.1f} images/s, the "
+              f"entropy decode {rates['entropy']:.1f} images/s per core ({os.cpu_count()} host cores) on {smi}")
+
+    # (b) and (c): phase 7's run (as phase 12a) on phase 12a's frames through FusedBatchLoader decoding on the
+    # card and device_prefetch_stacked at K = 8, the CLI's default on the card
+    r = jpeg_loader_run(torch, np, dev, train, val, pad, "device")
+    for k, want in enumerate(frames["want"][:MS_K]):
+        differ = [n for n in want if not np.array_equal(r["first"][n][k].cpu().numpy(), want[n])]
+        check(set(r["first"]) == set(want) and not differ,
+              f"device-decoded batch {k} differs from the host decode: {differ}")
+    print(f"jpeg (b): the first {MS_K} batches of {LOADER_WORKERS} process workers decoding on the card, through "
+          f"device_prefetch_stacked at K = {MS_K}, equal field for field the host decode's (phase 12a); loader alone "
+          f"({LOADER_WORKERS} process workers, {os.cpu_count()} host cores, {pad}^2 JPEG q95, batch {B}): "
+          f"{r['alone']:.1f} images/s entropy-decoding, {frames['host_alone']:.1f} images/s decoding by cv2 "
+          f"(phase 12a) on {smi}")
+    print_training(r, "jpeg (c)", smi)
+    print(f"jpeg: phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    return r["launches"], row
+
+
+def jpeg_loader_run(torch, np, dev, train, val, pad, mode):
+    """Phase 7's run (the configuration of phase 12a) at K = 8 through
+    `FusedBatchLoader(jpeg_decode=mode)` (4 process workers) and
+    `device_prefetch_stacked` (`scripts/bench_loader.py:training_stage`),
+    held to what it must show."""
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import training_stage
+
+    torch.backends.cudnn.allow_tf32 = True  # as in phase 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = training_stage(train, val, pad, dev, mode, batchsize=B, epochs=RUN_EPOCHS,
+                       samples_per_epoch=RUN_SAMPLES_PER_EPOCH, steps_per_dispatch=MS_K, workers=LOADER_WORKERS,
+                       alone_batches=LOADER_ALONE_BATCHES)
+    check(not multiprocessing.active_children(), "loader workers outlived the run")
+    steps = RUN_EPOCHS * RUN_SAMPLES_PER_EPOCH // B
+    check(r["steps"] == steps and len(r["waits"]) == steps // MS_K, f"step {r['steps']}, {len(r['waits'])} groups")
+    for rec in r["records"]:
+        bad = [k for k, v in rec["train_metrics"].items() if not math.isfinite(v)]
+        check(not bad and math.isfinite(rec["val_loss"]), f"jpeg run epoch {rec['epoch']}: non-finite {bad or 'val'}")
+    untrained_loss, final_loss = r["losses"]
+    check(final_loss < untrained_loss, f"validation loss {final_loss} is not below the untrained {untrained_loss}")
+    # K4 once a batch decoded on the card (the groups prefetched past the run's end included); K1, K2, K3 in the
+    # graph's warm-up, capture and replays
+    launches = r["launches"]
+    k4 = (steps, steps + 2 * MS_K) if mode == "device" else (0, 0)
+    check(k4[0] <= launches["jpeg_idct"] <= k4[1] and launches["warp_roi_rotate"] > 0 and launches["equalize"] > 0
+          and launches["gaussian_noise"] > 0, f"jpeg run ({mode} decode) launches {launches}")
+    return r
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -3029,7 +3215,6 @@ def main() -> int:
     t0 = time.perf_counter()
     ext.extension()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s into {ext.BUILD_DIR}")
-
     rows = kernel_phase(torch, np, dev)
     reference_phase(torch, np, dev)
     launches, step = training_phase(torch, np, dev, f"{name} ({smi})")
@@ -3056,7 +3241,7 @@ def main() -> int:
                   + json.dumps(profile_steps(conv_step, 2, steps_per_call=8)))
         loc_launches, errs_loc, loc_stream, localizer = localizer_phase(torch, np, dev, f"{name} ({smi})")
         bb_launches, errs_bb = backbones_phase(torch, np, dev, f"{name} ({smi})")
-        ld_launches, errs_ld = loader_phase(torch, np, dev, f"{name} ({smi})")
+        ld_launches, errs_ld, jpeg_inputs = loader_phase(torch, np, dev, f"{name} ({smi})")
         cli_phase(np, f"{name} ({smi})")
         ex_launches = export_phase(torch, np, dev, f"{name} ({smi})", os.path.join(export_dir, "best.ckpt"),
                                    eval_samples(run["val_frames"]), localizer)
@@ -3066,15 +3251,18 @@ def main() -> int:
         ft_launches = face_tools_phase(torch, np, dev, f"{name} ({smi})")
         vw_launches, errs_vw = analysis_phase(torch, np, dev, f"{name} ({smi})", os.path.join(conv_dir, "best.ckpt"),
                                               conv_val, run["train_frames"])
+        jp_launches, jpeg_row = jpeg_phase(torch, np, dev, f"{name} ({smi})", jpeg_inputs)
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
         shutil.rmtree(conv_dir, ignore_errors=True)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
             errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp, errs_vw)])
+    # K4's own main path is phase 18's run: its `launches` are that run's
+    launches = dict(launches, jpeg_idct=jp_launches["jpeg_idct"])
 
     kernels = []
-    for r in rows:
+    for r in rows + [jpeg_row]:
         (b_ms, b_by) = r.pop("bound")
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
@@ -3083,11 +3271,14 @@ def main() -> int:
             launches_backbones=bb_launches[r["name"]], launches_loader_run=ld_launches[r["name"]],
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
             launches_data_parallel=dp_launches[r["name"]], launches_face_tools=ft_launches[r["name"]],
-            launches_viewer=vw_launches[r["name"]],
+            launches_viewer=vw_launches[r["name"]], launches_jpeg_run=jp_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
         ))
+        if "ms_dense" in r:  # K4 on dense frames (noise) at the main path's shape
+            kernels[-1].update(ms_dense=r["ms_dense"], ms_stream_dense=r["ms_stream_dense"],
+                               bound_ms_dense=r["bound_ms_dense"])
         if r["name"] in loc_stream:  # at the localizer's shape, (64, 224 x 288)
             ms, (b, _) = loc_stream[r["name"]]
             kernels[-1].update(ms_stream_localizer=ms, bound_ms_localizer=b)

@@ -10,15 +10,20 @@ loss weights), `hasface` label-smoothed to 0.9 / 0.1, and `tag_id`,
 sample is a single-frame `Batch` of either package (`data/batch.py:frame`
 makes the port's), or a sequence (`meta.seq`) whose frames share one
 `param_index`. Undecoded JPEGs (`data/hdf5.py:RawJpegBuffer`) are decoded
-by cv2 on `decode_threads` threads.
+on `decode_threads` threads: by cv2 (`jpeg_decode="host"`), or, with
+`jpeg_decode="device"` and every image of the batch undecoded, only
+entropy-decoded (`data/native_loader.py`), so that "image" holds a
+`JpegCoefficients` payload that the upload decodes on the card with K4
+(`kernels/jpeg.py`) into the same padded batch, bit for bit.
 
 `plan_batches` cuts a sampler's index stream (`data/sampling.py`) into
 batch plans of `batchsize` frames, carrying a sequence that does not fit
 into the next plan. `FusedBatchLoader` dispatches the plans round-robin to
 thread or spawned process workers and reads the batches back in the same
 order, so the stream is the same for any worker count and type; process
-workers hand the image plane over through a shared-memory ring. Workers
-never touch CUDA. `device_prefetch` uploads batches to the card ahead of
+workers hand the image plane (or the payload) over through a shared-memory
+ring, from which a reader thread copies each batch out, into pinned memory
+where a card is present, ahead of the consumer. Workers never touch CUDA. `device_prefetch` uploads batches to the card ahead of
 the consumer from pinned memory on a side stream; `device_prefetch_stacked`
 does so for groups of K batches stacked on a leading axis, the input of
 `PoseTrainer.train_step_multi` (`stack_batches` stacks batches that are on
@@ -48,6 +53,13 @@ import torch
 
 from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES
 from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
+from neuralnet_tracker_traincode_torch.data.native_loader import (
+    JpegCoefficients,
+    decode_mode,
+    entropy_decode,
+    get_lib,
+    payload_bytes_bound,
+)
 from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
 from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel, local_rows
 from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
@@ -64,8 +76,9 @@ LABEL_SCHEMA = {
 LABEL_CATEGORIES = {k: POSE_FIELD_CATEGORIES[k] for k in LABEL_SCHEMA}
 
 # Each slot of the shared-memory image ring starts with the producer's int64
-# sequence number, which the consumer checks on both sides of its copy-out.
-_SHM_STAMP_BYTES = 8
+# sequence number, which the consumer checks on both sides of its copy-out;
+# the arrays follow it from byte 64 of the slot on, each on a 64-byte boundary.
+_SHM_ALIGN = 64
 
 
 def _image_dims(im):
@@ -95,11 +108,15 @@ def pack_fused_batch(
     pad_size: int,
     dataset_weights: Optional[Sequence[float]] = None,
     decode_threads: Optional[int] = None,
-) -> Dict[str, np.ndarray]:
+    jpeg_decode: str = "host",
+) -> Dict[str, Any]:
     """Pack samples (single frames or sequences) into one fused batch dict of
     numpy arrays. An image larger than `pad_size` grows this batch's padding
     to the next multiple of 64. Undecoded JPEGs are decoded on
-    `decode_threads` threads (default: one)."""
+    `decode_threads` threads (default: one); with `jpeg_decode="device"` a
+    batch of undecoded JPEGs only, entropy-decoded, is a `JpegCoefficients`
+    payload under "image" (ValueError naming the frame for a file the
+    entropy decoder refuses)."""
     frames, frame_tags, frame_weights, param_index = [], [], [], []
     for si, s in enumerate(samples):
         start = len(frames)
@@ -115,21 +132,27 @@ def pack_fused_batch(
     if largest > pad_size:
         pad_size = ceil_to_multiple(largest)
 
-    first = _materialize(raw[0])
-    images = np.zeros((B, pad_size, pad_size, first.shape[-1]), np.uint8)
-
-    def put(i, im):
-        img = first if i == 0 else _materialize(im)
-        images[i, : img.shape[0], : img.shape[1], :] = img
-
     threads = max(1, int(decode_threads or 1))
-    if threads > 1 and sum(isinstance(im, RawJpegBuffer) for im in raw) > 1:
-        list(_decode_pool(threads).map(put, range(B), raw))  # cv2 releases the GIL while it decodes
-    else:
-        for i, im in enumerate(raw):
-            put(i, im)
+    images = None
+    if decode_mode(jpeg_decode) == "device" and all(isinstance(im, RawJpegBuffer) for im in raw):
+        names = [f"frame {i} of the batch" + (f" (index {int(f['index'])})" if "index" in f else "")
+                 for i, f in enumerate(frames)]
+        images = entropy_decode([im.buffer for im in raw], pad_size, threads, names)
+    if images is None:
+        first = _materialize(raw[0])
+        images = np.zeros((B, pad_size, pad_size, first.shape[-1]), np.uint8)
 
-    out: Dict[str, np.ndarray] = {"image": images}
+        def put(i, im):
+            img = first if i == 0 else _materialize(im)
+            images[i, : img.shape[0], : img.shape[1], :] = img
+
+        if threads > 1 and sum(isinstance(im, RawJpegBuffer) for im in raw) > 1:
+            list(_decode_pool(threads).map(put, range(B), raw))  # cv2 releases the GIL while it decodes
+        else:
+            for i, im in enumerate(raw):
+                put(i, im)
+
+    out: Dict[str, Any] = {"image": images}
     for k, shape in LABEL_SCHEMA.items():
         out[k] = np.zeros((B,) + shape, np.float32)
     out["coord_convention_id"] = np.zeros((B,), np.int32)
@@ -221,22 +244,24 @@ def plan_batches(
 
 
 def _produce_batch(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int,
-                   rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
+                   rows: Optional[slice] = None, jpeg_decode: str = "host") -> Dict[str, Any]:
     """The fused batch of `plan`; a short one (the stream's last) filled up
     with repeats of its first frame at weight 0, so that shapes stay fixed.
     With `rows`, only those rows of it (`_produce_rows`)."""
     if rows is not None:
-        return _produce_rows(ds, plan, batchsize, pad_size, decode_threads, rows)
-    batch = pack_fused_batch([ds[gi] for gi in plan.indices], plan.tag_ids, pad_size, plan.weights, decode_threads)
+        return _produce_rows(ds, plan, batchsize, pad_size, decode_threads, rows, jpeg_decode)
+    batch = pack_fused_batch([ds[gi] for gi in plan.indices], plan.tag_ids, pad_size, plan.weights, decode_threads,
+                             jpeg_decode)
     B = batch["tag_id"].shape[0]
     if B < batchsize:
-        batch = {k: np.concatenate([v, np.repeat(v[:1], batchsize - B, axis=0)], axis=0) for k, v in batch.items()}
+        take = np.concatenate([np.arange(B), np.zeros(batchsize - B, np.int64)])
+        batch = {k: v[take] for k, v in batch.items()}
         batch["dataset_weight"][B:] = 0.0
     return batch
 
 
 def _produce_rows(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_threads: int,
-                  rows: slice) -> Dict[str, np.ndarray]:
+                  rows: slice, jpeg_decode: str = "host") -> Dict[str, Any]:
     """Rows `rows` of `_produce_batch(ds, plan, batchsize, ...)`, equal to
     them field for field but for the padding, which follows only the images
     packed here. Only the samples with a frame in `rows` are read and
@@ -251,7 +276,7 @@ def _produce_rows(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_thr
     sample = np.searchsorted(starts, source, side="right") - 1
     chosen = sorted(set(sample.tolist()))
     packed = pack_fused_batch([ds[plan.indices[s]] for s in chosen], [plan.tag_ids[s] for s in chosen], pad_size,
-                              [plan.weights[s] for s in chosen], decode_threads)
+                              [plan.weights[s] for s in chosen], decode_threads, jpeg_decode)
     first_row = dict(zip(chosen, np.cumsum([0] + [counts[s] for s in chosen[:-1]]).tolist()))
     take = np.asarray([first_row[s] + r - starts[s] for r, s in zip(source.tolist(), sample.tolist())])
     batch = {k: v[take] for k, v in packed.items()}
@@ -260,15 +285,17 @@ def _produce_rows(ds, plan: BatchPlan, batchsize: int, pad_size: int, decode_thr
     return batch
 
 
-def _agreed_padding(batches: Iterator[Dict[str, np.ndarray]], parallel: DataParallel
-                    ) -> Iterator[Dict[str, np.ndarray]]:
+def _agreed_padding(batches: Iterator[Dict[str, Any]], parallel: DataParallel) -> Iterator[Dict[str, Any]]:
     """The batches of `batches`, each image plane zero-padded to the largest
-    padding of any rank's same batch (one host all-reduce a batch)."""
+    padding of any rank's same batch (one host all-reduce a batch); a JPEG
+    payload is decoded into slots of that padding."""
     try:
         for batch in batches:
             img = batch["image"]
             (pad,) = parallel.host_all_reduce([img.shape[1]], "max", torch.int64)
-            if pad > img.shape[1]:
+            if isinstance(img, JpegCoefficients):
+                batch = dict(batch, image=img.with_pad(pad))
+            elif pad > img.shape[1]:
                 grown = np.zeros((img.shape[0], pad, pad) + img.shape[3:], img.dtype)
                 grown[:, : img.shape[1], : img.shape[2]] = img
                 batch = dict(batch, image=grown)
@@ -277,13 +304,57 @@ def _agreed_padding(batches: Iterator[Dict[str, np.ndarray]], parallel: DataPara
         batches.close()
 
 
+def _image_arrays(image) -> List[np.ndarray]:
+    """The arrays that carry a batch's "image": the plane, or a payload's."""
+    return [np.asarray(a) for a in image.arrays] if isinstance(image, JpegCoefficients) else [image]
+
+
+def _shm_layout(arrays: Sequence[np.ndarray]) -> List[tuple]:
+    """(offset after the stamp, shape, dtype) of each array in a slot."""
+    layout, offset = [], 0
+    for a in arrays:
+        layout.append((offset, a.shape, a.dtype.str))
+        offset += -(-a.nbytes // _SHM_ALIGN) * _SHM_ALIGN
+    return layout
+
+
+def _shm_bytes(layout: Sequence[tuple]) -> int:
+    if not layout:
+        return 0
+    offset, shape, dtype = layout[-1]
+    return offset + int(np.prod(shape)) * np.dtype(dtype).itemsize
+
+
+def shm_slot_bytes(batchsize: int, pad_size: int, jpeg_decode: str = "host") -> int:
+    """A ring slot: the stamp's 64 bytes and the planned batch's image plane
+    at one uint8 channel or, decoding on the card, its JPEG payload at its
+    largest (`payload_bytes_bound`, each of its four arrays on a 64-byte
+    boundary). A batch that does not fit (its padding grew) goes through
+    the queue whole."""
+    plane = batchsize * pad_size * pad_size
+    if jpeg_decode == "device":
+        plane = max(plane, payload_bytes_bound(batchsize, pad_size) + 4 * _SHM_ALIGN)
+    return _SHM_ALIGN + plane
+
+
+def _host_array(shape, dtype) -> np.ndarray:
+    """An empty host array, page-locked (a view of a pinned tensor) where a
+    card is present, so that `device_prefetch` uploads it without copying
+    it again."""
+    if torch.cuda.is_available():
+        torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        return torch.empty(tuple(shape), dtype=torch_dtype, pin_memory=True).numpy()
+    return np.empty(shape, dtype)
+
+
 def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, parent_pid, shm_name=None,
-                         shm_slots=0, rows=None):
+                         shm_slots=0, rows=None, jpeg_decode="host"):
     """A spawned worker: the batches of the plans it is sent, in order.
 
-    With `shm_name`, the image plane of each batch goes into the next slot of
-    that shared-memory ring and the message carries (slot, seq, shape,
-    dtype, the labels); a batch whose padding outgrew its slot goes through
+    With `shm_name`, the image plane of each batch (or its JPEG payload's
+    arrays) goes into the next slot of that shared-memory ring and the
+    message carries (slot, seq, the arrays' layout, the payload's padding or
+    None, the labels); a batch whose padding outgrew its slot goes through
     the queue whole. The ring has qsize + 3 slots: at most qsize batches wait
     in the queue and one in a blocked put beyond the one the consumer copies
     out, so a slot is never rewritten before it is read. The slot's stamp is
@@ -299,7 +370,7 @@ def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, p
             from multiprocessing import shared_memory
 
             shm = shared_memory.SharedMemory(name=shm_name)
-            slot_bytes = shm.size // shm_slots - _SHM_STAMP_BYTES
+            slot_bytes = shm.size // shm_slots - _SHM_ALIGN
         seq = 0
 
         def orphaned() -> bool:
@@ -325,17 +396,21 @@ def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, p
             if plan is None:
                 return
             try:
-                batch = _produce_batch(ds, plan, batchsize, pad_size, decode_threads, rows)
+                batch = _produce_batch(ds, plan, batchsize, pad_size, decode_threads, rows, jpeg_decode)
             except Exception as e:  # noqa: BLE001 - forwarded to the consumer
                 put_or_exit(e)
                 return
             img = batch["image"]
-            if shm is not None and img.nbytes <= slot_bytes:
+            arrays = _image_arrays(img)
+            layout = _shm_layout(arrays)
+            if shm is not None and _shm_bytes(layout) <= slot_bytes:
                 slot = seq % shm_slots
-                offset = slot * (slot_bytes + _SHM_STAMP_BYTES)
+                offset = slot * (slot_bytes + _SHM_ALIGN)
                 np.ndarray((), np.int64, buffer=shm.buf, offset=offset)[...] = seq
-                np.ndarray(img.shape, img.dtype, buffer=shm.buf, offset=offset + _SHM_STAMP_BYTES)[...] = img
-                item = ("shm", slot, seq, img.shape, img.dtype.str, {k: v for k, v in batch.items() if k != "image"})
+                for a, (off, shape, dtype) in zip(arrays, layout):
+                    np.ndarray(shape, dtype, buffer=shm.buf, offset=offset + _SHM_ALIGN + off)[...] = a
+                pad = img.pad if isinstance(img, JpegCoefficients) else None
+                item = ("shm", slot, seq, layout, pad, {k: v for k, v in batch.items() if k != "image"})
             else:
                 item = batch
             seq += 1
@@ -370,6 +445,15 @@ class FusedBatchLoader:
     node's batches of `batchsize` frames, the loader packs this rank's rows
     of each (`local_rows` of its place on the node), and every batch is
     padded as the ranks agree (`_agreed_padding`).
+
+    `jpeg_decode` ("host" or "device", `pack_fused_batch`) is resolved once
+    (`$NNTC_NO_NATIVE` turns "device" into "host") and printed; in "device"
+    mode the entropy decoder is built here, before any worker starts, and
+    the batches hold JPEG payloads that `device_prefetch` and
+    `device_prefetch_stacked` decode on the card (K4). A batch with a frame
+    that is not an undecoded JPEG (another dataset mixed in) is decoded on
+    the host all the same, as the JAX loader does; `host_decoded_batches`
+    counts such batches, and the first one is printed.
     """
 
     def __init__(
@@ -386,8 +470,17 @@ class FusedBatchLoader:
         worker_type: str = "auto",
         shared_memory: bool = True,
         parallel: Optional[DataParallel] = None,
+        jpeg_decode: str = "host",
     ):
         assert worker_type in ("auto", "thread", "process"), worker_type
+        self.jpeg_decode = decode_mode(jpeg_decode)
+        if self.jpeg_decode == "device":
+            get_lib()  # a build failure raises here, not in a worker
+            print("loader: JPEG decode on the card (host entropy decode, then K4)")
+        else:
+            print("loader: JPEG decode by cv2 on the host"
+                  + (" ($NNTC_NO_NATIVE is set)" if jpeg_decode == "device" else ""))
+        self.host_decoded_batches = 0
         self.parallel = parallel or DataParallel()
         self.rows = None
         if self.parallel.active:
@@ -424,7 +517,23 @@ class FusedBatchLoader:
             batches = self._iter_process_workers(plans)
         else:
             batches = self._iter_thread_workers(plans)
+        if self.jpeg_decode == "device":
+            batches = self._count_host_decoded(batches)
         return _agreed_padding(batches, self.parallel) if self.parallel.active else batches
+
+    def _count_host_decoded(self, batches: Iterator[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:
+        """`batches`, counting in `host_decoded_batches` those that hold
+        decoded images in "device" mode; the first is printed."""
+        try:
+            for batch in batches:
+                if not isinstance(batch["image"], JpegCoefficients):
+                    self.host_decoded_batches += 1
+                    if self.host_decoded_batches == 1:
+                        print("loader: a batch holds frames that are not undecoded JPEGs, so it is decoded on the "
+                              "host (FusedBatchLoader.host_decoded_batches counts such batches)")
+                yield batch
+        finally:
+            batches.close()
 
     def _decode_threads(self) -> int:
         return max(1, (os.cpu_count() or 1) // self.num_workers)
@@ -473,7 +582,7 @@ class FusedBatchLoader:
                         put_with_cancel(out_qs[wi], stop)
                         return
                     put_with_cancel(out_qs[wi], _produce_batch(self.ds, plan, self.batchsize, self.pad_size,
-                                                               decode_threads, self.rows))
+                                                               decode_threads, self.rows, self.jpeg_decode))
             except Exception as e:  # noqa: BLE001 - forwarded to the consumer
                 put_with_cancel(out_qs[wi], e)
 
@@ -516,14 +625,13 @@ class FusedBatchLoader:
         shm_slots = per_worker + 3
         shms = []
         if self.shared_memory:
-            # slots sized for the planned batch at one uint8 channel; a larger one goes through the queue
-            stride = self.batchsize * self.pad_size * self.pad_size + _SHM_STAMP_BYTES
+            stride = shm_slot_bytes(self.batchsize, self.pad_size, self.jpeg_decode)
             shms = [shared_memory.SharedMemory(create=True, size=stride * shm_slots) for _ in range(W)]
         procs = [
             ctx.Process(
                 target=_process_worker_main,
                 args=(self.ds, in_qs[i], out_qs[i], self.batchsize, self.pad_size, self._decode_threads(),
-                      os.getpid(), shms[i].name if shms else None, shm_slots, self.rows),
+                      os.getpid(), shms[i].name if shms else None, shm_slots, self.rows, self.jpeg_decode),
                 daemon=True,
             )
             for i in range(W)
@@ -571,9 +679,14 @@ class FusedBatchLoader:
 
         feeder_t = threading.Thread(target=feeder, daemon=True)
         feeder_t.start()
+        # batches copied out of the ring by the reader thread, ahead of the consumer
+        ready: "queue.Queue[Any]" = queue.Queue(maxsize=2)
+        end = object()
 
         def cleanup():
             cancel.set()
+            if reader_t.is_alive():
+                reader_t.join(timeout=5)  # out of the ring before the ring goes
             for p in procs:
                 p.terminate()
             for p in procs:
@@ -591,37 +704,71 @@ class FusedBatchLoader:
         def unpack(w, item):
             if not (isinstance(item, tuple) and len(item) == 6 and item[0] == "shm"):
                 return item
-            _, slot, seq, shape, dtype, batch = item
+            _, slot, seq, layout, pad, batch = item
             offset = slot * (shms[w].size // shm_slots)
             stamp = np.ndarray((), np.int64, buffer=shms[w].buf, offset=offset)
-            view = np.ndarray(shape, np.dtype(dtype), buffer=shms[w].buf, offset=offset + _SHM_STAMP_BYTES)
             if int(stamp) != seq:
                 raise RuntimeError(f"shm ring lapped: worker {w} slot {slot} holds seq {int(stamp)}, expected {seq}")
-            batch["image"] = np.array(view)  # copied out before the slot can be rewritten
+            # copied out before the slot can be rewritten, into memory that device_prefetch uploads as it is
+            arrays = []
+            for off, shape, dtype in layout:
+                arrays.append(_host_array(shape, dtype))
+                arrays[-1][...] = np.ndarray(shape, np.dtype(dtype), buffer=shms[w].buf, offset=offset + _SHM_ALIGN + off)
+            batch["image"] = arrays[0] if pad is None else JpegCoefficients(*arrays, pad)
             if int(stamp) != seq:
                 raise RuntimeError(f"shm ring lapped during the copy: worker {w} slot {slot} now holds seq "
                                    f"{int(stamp)}, expected {seq}")
             return batch
 
-        atexit.register(cleanup)
-        try:
+        def hand_on(item) -> bool:
+            while not cancel.is_set():
+                try:
+                    ready.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def read():
+            """The workers' batches in dispatch order, each copied out of its
+            ring slot (off the consumer's thread), then the end or the error."""
             w = 0
+            try:
+                while not cancel.is_set():
+                    try:
+                        item = out_qs[w].get(timeout=0.2)
+                    except queue.Empty:
+                        if done_feeding.is_set() and received[w] >= sent[w] and not feeder_t.is_alive():
+                            hand_on(end if feeder_error[0] is None else feeder_error[0])
+                            return
+                        if not procs[w].is_alive():
+                            raise RuntimeError(f"loader worker {w} died (exit {procs[w].exitcode})")
+                        continue
+                    received[w] += 1
+                    if isinstance(item, Exception):
+                        raise item
+                    if not hand_on(unpack(w, item)):
+                        return
+                    w = (w + 1) % W
+            except Exception as e:  # noqa: BLE001 - forwarded to the consumer
+                hand_on(e)
+
+        reader_t = threading.Thread(target=read, daemon=True)
+        atexit.register(cleanup)
+        reader_t.start()
+        try:
             while True:
                 try:
-                    item = out_qs[w].get(timeout=0.2)
+                    item = ready.get(timeout=0.2)
                 except queue.Empty:
-                    if done_feeding.is_set() and received[w] >= sent[w] and not feeder_t.is_alive():
-                        if feeder_error[0] is not None:
-                            raise feeder_error[0]
-                        return
-                    if not procs[w].is_alive():
-                        raise RuntimeError(f"loader worker {w} died (exit {procs[w].exitcode})")
+                    if not reader_t.is_alive() and ready.empty():
+                        raise RuntimeError("the loader's reader thread ended without a batch or an error")
                     continue
-                received[w] += 1
+                if item is end:
+                    return
                 if isinstance(item, Exception):
                     raise item
-                yield unpack(w, item)
-                w = (w + 1) % W
+                yield item
         finally:
             cleanup()
             atexit.unregister(cleanup)
@@ -631,27 +778,52 @@ class StackedBatch(dict):
     """A group of K batches stacked on a leading axis, on the device, with
     `host`: the pinned host tensors it was uploaded from, for the reads a
     step's host part makes (K1's plan reads the ROIs) without waiting for
-    the device."""
+    the device. A JPEG payload's arrays are not kept there: the images exist
+    only on the device."""
 
     def __init__(self, fields: Dict[str, torch.Tensor], host: Dict[str, torch.Tensor]):
         super().__init__(fields)
         self.host = host
 
 
-def _upload_ahead(pinned_items: Iterator[Dict[str, torch.Tensor]], dev: torch.device, size: int, keep_host: bool):
+def _to_device(value, dev: torch.device) -> torch.Tensor:
+    """A pinned field on `dev`, copied `non_blocking` on the current stream; a
+    JPEG payload uploaded and decoded by K4 on that stream; a list of K
+    planes or payloads (a stacked "image") into one (K, ...) tensor."""
+    if isinstance(value, JpegCoefficients):
+        return value.to(dev, non_blocking=True).decode()
+    if isinstance(value, list):
+        out = torch.empty((len(value),) + tuple(value[0].shape), dtype=torch.uint8, device=dev)
+        for k, v in enumerate(value):
+            if tuple(v.shape) != tuple(value[0].shape):
+                raise ValueError(f"batch {k} of a group has images of shape {tuple(v.shape)}, the first "
+                                 f"{tuple(value[0].shape)}")
+            if isinstance(v, JpegCoefficients):
+                v.to(dev, non_blocking=True).decode(out=out[k])
+            else:
+                out[k].copy_(v, non_blocking=True)
+        return out
+    return value.to(dev, non_blocking=True)
+
+
+def _upload_ahead(pinned_items: Iterator[Dict[str, Any]], dev: torch.device, size: int, keep_host: bool):
     """The dicts of pinned host tensors of `pinned_items` on the card, each
     uploaded `non_blocking` on a side stream `size` items ahead of the
-    consumer; the consuming stream waits on the upload's event, and each
-    tensor is marked as used by it (`record_stream`), so that the caching
-    allocator does not hand its memory out while the consumer still reads it."""
+    consumer, JPEG payloads decoded there by K4 after their upload; the
+    consuming stream waits on the side stream's event, recorded after the
+    last copy and launch, and each tensor is marked as used by it
+    (`record_stream`), so that the caching allocator does not hand its
+    memory out while the consumer still reads it."""
     stream = torch.cuda.Stream(dev)
 
     def upload(pinned):
         with torch.cuda.stream(stream):
-            out = {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+            out = {k: _to_device(v, dev) for k, v in pinned.items()}
             done = torch.cuda.Event()
             done.record(stream)
-        return (StackedBatch(out, pinned) if keep_host else out), done
+        if keep_host:
+            out = StackedBatch(out, {k: v for k, v in pinned.items() if isinstance(v, torch.Tensor)})
+        return out, done
 
     buf = collections.deque(upload(p) for p in itertools.islice(pinned_items, size))
     while buf:
@@ -666,11 +838,25 @@ def _upload_ahead(pinned_items: Iterator[Dict[str, torch.Tensor]], dev: torch.de
         yield out
 
 
-def _pinned(src) -> torch.Tensor:
+def _pinned(src):
+    """`src` in pinned host memory: as it is where it lies there already
+    (the shared-memory ring's copies), else copied."""
+    if isinstance(src, JpegCoefficients):
+        return src.pinned()
     src = torch.as_tensor(src)
+    if src.is_pinned():
+        return src
     pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
     pinned.copy_(src)
     return pinned
+
+
+def _on_cpu_device(value, dev: torch.device) -> torch.Tensor:
+    """A host field as a tensor on `dev` (not a card); a JPEG payload decoded
+    there by K4's plain version."""
+    if isinstance(value, JpegCoefficients):
+        return value.to(dev).decode()
+    return torch.as_tensor(value).to(dev)
 
 
 def device_prefetch(iterator: Iterable[Dict[str, Any]], device: DeviceLike = None, size: int = 2
@@ -680,13 +866,15 @@ def device_prefetch(iterator: Iterable[Dict[str, Any]], device: DeviceLike = Non
 
     On a card each host batch is copied into pinned memory when it arrives
     (the loader may then reuse its buffers) and uploaded as `_upload_ahead`
-    says. On the CPU it is a plain conversion to tensors."""
+    says. On the CPU it is a plain conversion to tensors. A JPEG payload
+    under "image" becomes the padded uint8 batch (K4; its plain version on
+    the CPU)."""
     dev = resolve_device(device)
     it = iter(iterator)
     try:
         if dev.type != "cuda":
             for batch in it:
-                yield {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+                yield {k: _on_cpu_device(v, dev) for k, v in batch.items()}
             return
         yield from _upload_ahead(({k: _pinned(v) for k, v in b.items()} for b in it), dev, size, keep_host=False)
     finally:
@@ -719,7 +907,10 @@ def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLi
     K is dropped (the sampler streams are infinite in training; only bounded
     runs reach it). On a card the K batches are copied into one pinned
     tensor per field and uploaded as `device_prefetch` uploads, and each
-    group is a `StackedBatch` that keeps its pinned host tensors."""
+    group is a `StackedBatch` that keeps its pinned host tensors; the images
+    are uploaded batch by batch from their own pinned memory into row k of
+    the group's (K, B, pad, pad, 1) image tensor, and a JPEG payload is
+    decoded there by K4."""
     dev = resolve_device(device)
     k = int(steps_per_dispatch)
     it = iter(iterator)
@@ -727,6 +918,9 @@ def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLi
     def pinned_group(group):
         out = {}
         for name in group[0]:
+            if name == "image":
+                out[name] = [_pinned(b[name]) for b in group]
+                continue
             first = torch.as_tensor(group[0][name])
             out[name] = torch.empty((k,) + tuple(first.shape), dtype=first.dtype, pin_memory=True)
             for i, b in enumerate(group):
@@ -736,7 +930,7 @@ def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLi
     try:
         if dev.type != "cuda":
             for group in _groups(it, k):
-                yield {n: torch.stack([torch.as_tensor(b[n]) for b in group]).to(dev) for n in group[0]}
+                yield {n: torch.stack([_on_cpu_device(b[n], dev) for b in group]) for n in group[0]}
             return
         yield from _upload_ahead((pinned_group(g) for g in _groups(it, k)), dev, size, keep_host=True)
     finally:

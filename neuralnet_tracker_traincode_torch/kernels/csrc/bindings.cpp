@@ -1,4 +1,4 @@
-// PyTorch bindings of the augmentation kernels: the only source that includes
+// PyTorch bindings of the port's kernels: the only source that includes
 // PyTorch's headers. The Python wrappers (kernels/*.py) validate shapes and
 // types and allocate the outputs; these functions re-check what a wrong
 // pointer would turn into a fault, launch on the current stream, and check
@@ -78,6 +78,24 @@ void gaussian_noise_from_bits(torch::Tensor x, torch::Tensor bits1, torch::Tenso
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void jpeg_idct_pack(torch::Tensor coeffs, torch::Tensor block_start, torch::Tensor qtables, torch::Tensor meta,
+                    torch::Tensor out, int64_t pad) {
+    check(coeffs, torch::kInt16, "coeffs");
+    check(block_start, torch::kInt32, "block_start");
+    check(qtables, torch::kInt32, "qtables");
+    check(meta, torch::kInt32, "meta");
+    check(out, torch::kUInt8, "out");
+    TORCH_CHECK(coeffs.dim() == 1 && block_start.dim() == 1 && block_start.size(0) >= 1 && meta.dim() == 2 &&
+                meta.size(1) == 4 && qtables.dim() == 2 && qtables.size(0) == meta.size(0) && qtables.size(1) == 64);
+    TORCH_CHECK(out.numel() == meta.size(0) * pad * pad, "out must hold N x pad x pad bytes");
+    const c10::cuda::CUDAGuard guard(coeffs.device());
+    C10_CUDA_CHECK(nntc_jpeg_idct_pack(coeffs.data_ptr<int16_t>(), block_start.data_ptr<int32_t>(),
+                                       qtables.data_ptr<int32_t>(), meta.data_ptr<int32_t>(), out.data_ptr<uint8_t>(),
+                                       (long)coeffs.size(0), (long)block_start.size(0) - 1, (int)meta.size(0),
+                                       (int)pad, at::cuda::getCurrentCUDAStream()));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -85,4 +103,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("equalize", &equalize, "K2: per-image histogram equalization, one cluster of 8 CTAs per image");
     m.def("gaussian_noise", &gaussian_noise, "K3: Philox-seeded gaussian noise, clip, + offset");
     m.def("gaussian_noise_from_bits", &gaussian_noise_from_bits, "K3: gaussian noise from injected bits");
+    m.def("jpeg_idct_pack", &jpeg_idct_pack, "K4: JPEG dequantize, ISLOW IDCT, range limit, zero-padded batch");
 }

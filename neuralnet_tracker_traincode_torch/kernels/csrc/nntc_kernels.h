@@ -1,4 +1,4 @@
-// Launchers of the port's augmentation kernels. Plain C++ interface: the .cu
+// Launchers of the port's kernels (the augmentation's and the JPEG decode's). Plain C++ interface: the .cu
 // files do not include PyTorch's headers (that keeps nvcc fast); only
 // bindings.cpp does. Each launcher enqueues on `stream`, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
@@ -36,3 +36,15 @@ cudaError_t nntc_gaussian_noise(const float* x, const int32_t* seeds, const floa
 cudaError_t nntc_gaussian_noise_from_bits(const float* x, const int32_t* bits1, const int32_t* bits2,
                                           const float* sigma, float* out, int B, int P,
                                           cudaStream_t stream);
+
+// K4: the JPEG decode's device half. For image n of N (meta (N, 4) int32:
+// height, width, block-grid width ceil(w/8), first block) and every 8x8 tile
+// of its pad x pad slot of out (N, pad, pad) uint8: the block's pixels
+// (dequantized by qtables (N, 64) int32, libjpeg-turbo's ISLOW IDCT, + 128,
+// range limit) inside (h, w), zeros elsewhere. Block b is its coefficients in
+// zigzag order up to its last nonzero one, coeffs[block_start[b] ..
+// block_start[b + 1]) (num_coeffs int16; block_start num_blocks + 1 int32).
+// Returns cudaErrorInvalidValue for more than 65,535 images.
+cudaError_t nntc_jpeg_idct_pack(const int16_t* coeffs, const int32_t* block_start, const int32_t* qtables,
+                                const int32_t* meta, uint8_t* out, long num_coeffs, long num_blocks, int N, int pad,
+                                cudaStream_t stream);

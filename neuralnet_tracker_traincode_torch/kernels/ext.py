@@ -18,7 +18,7 @@ from typing import Dict
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, ".cache", "torch_kernels")
-SOURCES = ("bindings.cpp", "warp.cu", "equalize.cu", "noise.cu")
+SOURCES = ("bindings.cpp", "warp.cu", "equalize.cu", "noise.cu", "jpeg_idct.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {
@@ -26,6 +26,7 @@ LAUNCHES: Dict[str, int] = {
     "equalize": 0,
     "gaussian_noise": 0,
     "gaussian_noise_from_bits": 0,
+    "jpeg_idct": 0,
 }
 
 _ext = None

@@ -6,7 +6,9 @@ split); `make_pose_estimation_loaders` mixes the training sets by weights,
 as sampling frequencies or as loss weights, into a `FusedBatchLoader` with
 the training CLI's sampler, and gives the aflw2k3d test split for
 validation. With `roi_override="original"` the training sets serve
-undecoded JPEGs, which the loader's workers decode a batch at a time.
+undecoded JPEGs, which the loader's workers decode a batch at a time (with
+`jpeg_decode="device"`, the training CLI's on the card, they only
+entropy-decode and K4 finishes the decode on the card).
 `make_validation_dataset` and `make_validation_loader` give the eval CLI's
 single-frame samples (half-pixel offset, the ROI from the landmarks).
 """
@@ -230,12 +232,14 @@ def make_pose_estimation_loaders(
     seed: Optional[int] = None,
     num_workers: Optional[int] = None,
     parallel: Optional[DataParallel] = None,
+    jpeg_decode: str = "host",
 ):
     """The training CLI's data: (train loader, aflw2k3d test split, number of
     training samples, tag order, augmentation config). The sampler draws
     from `seed`; with `parallel` (a data-parallel rank) from the node's
     `process_local_seed(seed, node, nodes)`, as each JAX process does, and
-    the loader packs this rank's rows of the node's batches of `batchsize`."""
+    the loader packs this rank's rows of the node's batches of `batchsize`.
+    `jpeg_decode` is the loader's (`FusedBatchLoader`)."""
     parallel = parallel or DataParallel()
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
 
@@ -319,6 +323,7 @@ def make_pose_estimation_loaders(
         dataset_weight_by_index=None if loss_weights is None else loss_weights.__getitem__,
         num_workers=num_workers if num_workers is not None else utils.num_workers(),
         parallel=parallel,
+        jpeg_decode=jpeg_decode,
     )
 
     _, test_set = make_aflw2k3d_datasets(transform=transform)

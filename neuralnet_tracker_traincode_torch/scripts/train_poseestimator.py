@@ -7,8 +7,10 @@
 `--ds` mixes the datasets of `$DATADIR` ("name[:weight]+name2[:weight2]");
 the weights are sampling frequencies, or loss weights with `--ds-weighting`.
 Batches come from `FusedBatchLoader` (`$NUM_WORKERS` workers, default 4)
-through `device_prefetch` to the card; validation runs on the aflw2k3d test
-split. The run writes `last.ckpt`, `best.ckpt`, `swa.ckpt` (with
+through `device_prefetch` to the card; on the card the workers only
+entropy-decode the JPEGs and K4 finishes the decode there
+(`jpeg_decode="device"`; `$NNTC_NO_NATIVE=1` decodes with cv2 on the host,
+as `--device cpu` does). Validation runs on the aflw2k3d test split. The run writes `last.ckpt`, `best.ckpt`, `swa.ckpt` (with
 `--with-swa`) and `resume.pt` into `<outdir>/<network name>`; `--resume
 auto` continues from that `resume.pt`.
 
@@ -178,6 +180,7 @@ def _train(args, parallel, dev) -> int:
         pad_size=args.pad_size,
         seed=seed,
         parallel=parallel,
+        jpeg_decode="device" if dev.type == "cuda" else "host",
     )
 
     model = NetworkWithPointHead(

@@ -23,6 +23,10 @@ files at a small size.
    on the `--full` file gives the checkpoint's row within 1e-3, and
    `add_pose_pseudolabels` on it writes the labels the JAX CLI writes from
    the same file, within 1e-4.
+ - `bench_loader` at `-n 64` with `--raw`: every stage, the loader in
+   both JPEG decode modes; with `--memory noise --ab` (no file) the pack
+   stage in turns; its training stage at K = 2 for one group, its first
+   group equal to the host decode's batches.
  - The figure paths: the trainer writes its loss plot `train.pdf`; where
    matplotlib does not import, `--plot-save-filename` raises before any data
    is read and a run without it says that it writes no plot; the eval CLI's
@@ -38,6 +42,7 @@ import numpy as np
 import pytest
 
 from neuralnet_tracker_traincode_torch.scripts import add_pose_pseudolabels as pseudo_cli
+from neuralnet_tracker_traincode_torch.scripts import bench_loader as bench_loader_cli
 from neuralnet_tracker_traincode_torch.scripts import evaluate_localizer as eval_loc_cli
 from neuralnet_tracker_traincode_torch.scripts import evaluate_pose_network as eval_cli
 from neuralnet_tracker_traincode_torch.scripts import export_model as export_cli
@@ -373,3 +378,49 @@ def test_pseudolabel_cli_matches_jax(full_onnx, datadir, tmp_path):
             assert ours.shape == theirs.shape == shape and ours.dtype == np.float32, key
             np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-4, err_msg=key)
         np.testing.assert_allclose(np.linalg.norm(a["quats"][...], axis=-1), 1.0, atol=1e-5)
+
+
+def test_bench_loader_runs_every_stage_on_the_cpu(capsys):
+    assert bench_loader_cli.main(["-n", "64", "--batchsize", "16", "--raw", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for line in ("h5 read:", "decode:", "host entropy decode", "K4", "cv2 on the host", "entropy on the host, K4"):
+        assert line in out, line
+    assert out.count("pack:") == 2
+
+
+def test_bench_loader_in_memory_frames_take_both_decodes_in_turns(capsys):
+    args = ["--memory", "noise", "--size", "64", "-n", "32", "--batchsize", "8", "--ab", "--device", "cpu"]
+    assert bench_loader_cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "h5 read:" not in out and "made:     32 noise frames at 64^2" in out and "host entropy decode" in out
+    modes = [line.split("raw-jpeg batch decode, ")[1].split(",")[0] for line in out.splitlines()
+             if line.startswith("pack:")]
+    assert modes == ["entropy on the host", "cv2 on the host", "cv2 on the host", "entropy on the host"]
+    with pytest.raises(SystemExit):
+        bench_loader_cli.main(["--train", "--device", "cpu"])
+
+
+def test_bench_loader_training_stage_runs_a_group_on_the_cpu():
+    """The training stage at K = 2 for one group over one process worker
+    decoding with the plain K4: its first group equals the host decode's
+    first two batches of the same sampler, no kernel is launched."""
+    import torch
+
+    from neuralnet_tracker_traincode_torch.data.loader import FusedBatchLoader
+    from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
+
+    cpu = torch.device("cpu")
+    train = bench_loader_cli.jpeg_frames(16, 64, 3, cpu, "markers")
+    val = bench_loader_cli.jpeg_frames(4, 64, 4, cpu, "markers")
+    r = bench_loader_cli.training_stage(train, val, 64, cpu, "device", batchsize=4, epochs=1, samples_per_epoch=8,
+                                        steps_per_dispatch=2, workers=1, alone_batches=2)
+    assert r["steps"] == 2 and len(r["waits"]) == 1 and len(r["records"]) == 1 and r["alone"] > 0
+    assert not any(r["launches"].values())
+    assert all(np.isfinite(v) for v in r["records"][0]["train_metrics"].values()) and np.isfinite(r["losses"][1])
+    concat = ConcatDataset([train])
+    host = FusedBatchLoader(concat, lambda i: train.tag, {train.tag: 0},
+                            make_concat_dataset_item_sampler(concat, [1.0], seed=3), 4, 64).iterate()
+    for k, want in zip(range(2), host):
+        for name, v in want.items():
+            np.testing.assert_array_equal(r["first"][name][k].numpy(), v, err_msg=name)
+    host.close()

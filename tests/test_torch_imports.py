@@ -92,7 +92,7 @@ else:
 """
 
 CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
-        "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits"]
+        "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits", "bench_loader"]
 HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm", "show_face_model"]  # no device, no --device
 
 

@@ -35,6 +35,7 @@ from neuralnet_tracker_traincode_tpu.augmentation.warp_pallas import warp_roi_ro
 from neuralnet_tracker_traincode_torch.augmentation import warp_fast as TW
 from neuralnet_tracker_traincode_torch.kernels import equalize as K2
 from neuralnet_tracker_traincode_torch.kernels import ext
+from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
 from neuralnet_tracker_traincode_torch.kernels import noise as K3
 from neuralnet_tracker_traincode_torch.kernels import warp as K1
 from tests.torch_port_helpers import t
@@ -390,5 +391,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     x, gate = _eq_images(0)
     K2.equalize(t(x), t(gate))
     K3.add_gaussian_noise(t(x), torch.arange(10, dtype=torch.int32), torch.full((10,), 0.1))
-    assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits"}
+    # K4 on one flat 8 x 8 block: its DC alone
+    K4.idct_pack(torch.tensor([5], dtype=torch.int16), torch.tensor([0, 1], dtype=torch.int32),
+                 torch.ones((1, 64), dtype=torch.int32), torch.tensor([[8, 8, 1, 0]], dtype=torch.int32), 8)
+    assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits",
+                                 "jpeg_idct"}
     assert all(v == 0 for v in ext.LAUNCHES.values())
