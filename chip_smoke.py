@@ -242,33 +242,39 @@ Phases (any failure ends the run with a non-zero exit code):
     PNGs written with cv2 read back equal. (c) One line says that the
     figures and the pagers are not drawn where matplotlib does not import
     (the CPU tests draw them);
- 18. the JPEG decode on the card (`data/native_loader.py`: the host entropy
-    decode; K4, `kernels/csrc/jpeg_idct.cu`: dequantization, libjpeg's
-    ISLOW IDCT, the range limit, the zero-padded batch). (a) K4 against its
-    plain version and `cv2.imdecode(..., IMREAD_GRAYSCALE)`, bit-equal, on
-    64 of phase 12a's 448^2 q95 frames, 64 noise frames at 448^2 q95 (every
-    block dense) and a seeded set (noise at q 1, 50 and 100; 1 x 1, 7 x 9
+ 18. the JPEG decode on the card (`data/native_loader.py:scan_batch`: the
+    host parses, builds the tables and unstuffs the Y scan; K5,
+    `kernels/csrc/jpeg_huffman.cu`: the Huffman decode by synchronized
+    subsequences; K4, `kernels/csrc/jpeg_idct.cu`: dequantization, libjpeg's
+    ISLOW IDCT, the range limit, the zero-padded batch). (a) K5 against its
+    plain version (run on the card) and the host entropy decoder, and K4 on
+    K5's slots against its plain version and `cv2.imdecode(...,
+    IMREAD_GRAYSCALE)`, bit-equal, on 64 of phase 12a's 448^2 q95 frames, 64
+    noise frames at 448^2 q95 (every block dense), 64 colour 4:2:0 q95
+    frames at 448^2 and a seeded set (noise at q 1, 50 and 100; 1 x 1, 7 x 9
     and 123 x 301; colour 4:2:0 and 4:4:4; a restart interval; two files
     whose quantization tables were raised to 255 after encoding, one of
-    flat blocks); K4's `ms`, `ms_stream` and plain version at 64 x 448^2 on
-    phase 12a's frames, and its `ms` and `ms_stream` on the noise frames,
-    each beside its bound (`k4_work`: the bytes and the integer operations
-    that the payload needs), and the host's cv2 decode and entropy decode
-    in images/s on one core on both (`scripts/bench_loader.py:decode_stage`).
-    (b) Phase 12a's frames through `FusedBatchLoader(jpeg_decode="device")`
-    (4 process workers, shared memory): its first 8 batches, through
-    `device_prefetch_stacked` at K = 8, equal field for field phase 12a's
-    host decode of the same plans; the loader alone in images/s beside
-    phase 12a's. (c) Phase 7's run (as 12a) through that stream at K = 8,
-    one CUDA graph replay a group, the launch counts reset just before and
-    read just after: every loss finite, the validation loss below the
-    untrained model's, K4 once a batch (the groups prefetched past the
-    run's end included), K1, K2 and K3 launched; the training thread's wait
-    in `next()` a step (median, p90), images/s per epoch
-    (`scripts/bench_loader.py:training_stage`, whose `--ab --train` runs
-    the same in both decodes);
- 19. the `kernels` line (`launches` from phase 5's steps, but K4's from
-    phase 18's run, its own main path; `launches_training_run`
+    flat blocks); each kernel's `ms`, `ms_stream` on the three frame sets
+    and plain version on phase 12a's, beside its bound (`k4_work`: the
+    sectors and bytes and the integer operations that the slots need;
+    `k5_timing`: the bytes and the codewords), K5's passes to synchronize
+    and the subsequences that did not synchronize within one and within two,
+    and the host's cv2 decode, scan stage and old entropy decode in
+    images/s on one core on each set (`scripts/bench_loader.py:
+    decode_stage`). (b) Phase 12a's frames through
+    `FusedBatchLoader(jpeg_decode="device")` (4 process workers, shared
+    memory): its first 8 batches, through `device_prefetch_stacked` at
+    K = 8, equal field for field phase 12a's host decode of the same plans;
+    the loader alone in images/s beside phase 12a's. (c) Phase 7's run (as
+    12a) through that stream at K = 8, one CUDA graph replay a group, the
+    launch counts reset just before and read just after: every loss finite,
+    the validation loss below the untrained model's, K5 and K4 once a batch
+    (the groups prefetched past the run's end included), K1, K2 and K3
+    launched; the training thread's wait in `next()` a step (median, p90),
+    images/s per epoch (`scripts/bench_loader.py:training_stage`, whose
+    `--ab --train` runs the same in both decodes);
+ 19. the `kernels` line (`launches` from phase 5's steps, but K4's and
+    K5's from phase 18's run, their own main path; `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
     phase 11's steps, `launches_loader_run` from phase 12a's run,
@@ -282,7 +288,7 @@ Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
 `native/nntc_loader.so` loads; it fails nothing. Phase 12a decodes JPEGs
 with cv2 on the host and phase 18 on the card (both need cv2: 18 holds K4
-to it), and the port reads HDF5 files with h5py (phase 12b runs only where
+and K5 to it), and the port reads HDF5 files with h5py (phase 12b runs only where
 it imports).
 
 Imports nothing of JAX. Numbers it prints are of the card it ran on.
@@ -2955,7 +2961,7 @@ def viewer_phase(torch, np, dev, frames):
         torch.cuda.synchronize()
         launches = dict(ext.LAUNCHES)
     check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0,
-                       "jpeg_idct": 0},
+                       "jpeg_idct": 0, "jpeg_huffman": 0},
           f"show_train_test_splits: launches {launches}")
     errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "show_train_test_splits")
     errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "show_train_test_splits")
@@ -3034,65 +3040,95 @@ def jpeg_cases(np, cv2):
     return cases
 
 
-def k4_against_cv2_and_plain(torch, np, cv2, buffers, pad, dev, what):
-    """K4 on the card over `buffers` decoded into slots of `pad`, against its
-    plain version and cv2, bit for bit; returns the payload on the card and
-    max |kernel - plain|."""
+def decode_against_plain_and_cv2(torch, np, cv2, buffers, pad, dev, what, plain_k5=True):
+    """The decode on the card over `buffers` into slots of `pad`: the host's
+    parse (`scan_batch`), K5 against the host entropy decoder (slots up to
+    each block's length, the lengths, a clean status) and, with `plain_k5`,
+    against its plain version (run on the card, at the same subsequence
+    size: also the status and the stats), then K4 on K5's slots against its
+    plain version and cv2, bit for bit. Returns the payload on the card,
+    K5's slots and lengths, its stats, the plain version's stats and time
+    on the card (host clock, synchronized; one run) or None, and max
+    |kernel - plain| of K5 (0 where the plain K5 did not run) and of K4."""
     from neuralnet_tracker_traincode_torch.data import native_loader as NL
     from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+    from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
 
-    payload = NL.entropy_decode(buffers, pad).to(dev)
-    got = payload.decode()
-    plain = K4.idct_pack_plain(*payload.arrays, pad)
+    payload = NL.scan_batch(buffers, pad).to(dev)
+    blocks, ys, bits, nint = payload.counts
+    scan, intervals, tables, meta, qtables = payload.arrays
+    slots, lens, status, stats = K5.huffman_decode(scan, intervals, tables, meta, blocks, ys, nint, bits)
+    ref = NL.entropy_decode(buffers, pad)
+    hs, hl = K4.runs_to_slots(torch.as_tensor(ref.coeffs).to(dev), torch.as_tensor(ref.block_start).to(dev))
+    torch.cuda.synchronize()
+    k5 = torch.where(torch.arange(64, device=dev) < lens[:, None].long(), slots, 0)
+    check(torch.equal(lens, hl) and torch.equal(k5, hs) and not bool(status.any()),
+          f"K5 differs from the host entropy decoder on {what}")
+    pstats, plain_ms, err5 = None, None, 0.0
+    if plain_k5:
+        t0 = time.perf_counter()
+        ps, pl, pst, pstats = K5.huffman_decode_plain(scan, intervals, tables, meta, blocks, ys)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err5 = float((k5.int() - ps.int()).abs().max()) if blocks else 0.0
+        check(torch.equal(lens, pl) and torch.equal(k5, ps), f"K5 differs from its plain version on {what}: max {err5}")
+        check(torch.equal(status, pst) and torch.equal(stats, pstats[:, :K5.STATS]),
+              f"K5's status or stats differ from its plain version's on {what}")
+    got = payload.decode()  # K5 and K4 through the payload, as the loader runs them
+    plain = K4.idct_pack_plain(k5, lens, qtables, meta, pad)
     want = np.zeros((len(buffers), pad, pad, 1), np.uint8)
     for i, b in enumerate(buffers):
         im = cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_GRAYSCALE)
         want[i, :im.shape[0], :im.shape[1], 0] = im
     torch.cuda.synchronize()
-    err = float((got.int() - plain.int()).abs().max())
-    check(torch.equal(got, plain), f"K4 differs from its plain version on {what}: max {err}")
+    err4 = float((got.int() - plain.int()).abs().max())
+    check(torch.equal(got, plain), f"K4 differs from its plain version on {what}: max {err4}")
     differ = [i for i in range(len(buffers)) if not np.array_equal(got[i].cpu().numpy(), want[i])]
-    check(not differ, f"K4 differs from cv2 on {what}: images {differ}")
-    return payload, err
+    check(not differ, f"K5 and K4 differ from cv2 on {what}: images {differ}")
+    return dict(payload=payload, slots=slots, lens=lens, stats=stats.cpu(), err5=err5, err4=err4, plain_ms=plain_ms,
+                plain_stats=None if pstats is None else pstats.cpu())
 
 
-def k4_work(K4, coeffs, block_start, out):
-    """K4's work on a payload, for its bound: the bytes (the payload's arrays
-    read once, `out` written once) and the integer operations that this
-    payload needs. Each coefficient present: its dequantization (a product,
-    its low 16 bits), 2. A block whose run is its DC alone: one value for
-    its 64 pixels (x 4, low 16 bits, the row pass's x 2^13, add and shift,
-    the clamp and + 128), 8. A block with terms in its first row only
-    (each column its first value x 4): that shortcut on 8 columns (16), one
-    row pass for its eight equal rows (66) and 8 range limits (24), 106.
-    Any other block: 8 column and 8 row passes of 66 operations each, the
-    column pass's saturation (2 a value) and the range limit (clamp and
-    + 128, 3 a pixel), 1,376. Returns (bytes, operations, blocks, blocks of
-    the last kind)."""
-    blocks = block_start.shape[0] - 1
-    runs = block_start[1:] - block_start[:-1]
-    dc_only = int((runs == 1).sum())
-    full = int((K4.dense_blocks(coeffs, block_start, 0, blocks).reshape(-1, 8, 8)[:, 1:, :] != 0).any(2).any(1).sum())
-    present = int(block_start[-1] - block_start[0])
+def k4_work(K4, slots, lens, out):
+    """K4's work on K5's slots, for its bound: the bytes (each block's
+    32-byte sectors up to its length and its length byte read once, `out`
+    written once) and the integer operations that these slots need. Each
+    coefficient present: its dequantization (a product, its low 16 bits), 2.
+    A block whose slot is its DC alone: one value for its 64 pixels (x 4,
+    low 16 bits, the row pass's x 2^13, add and shift, the clamp and + 128),
+    8. A block with terms in its first row only (each column its first value
+    x 4): that shortcut on 8 columns (16), one row pass for its eight equal
+    rows (66) and 8 range limits (24), 106. Any other block: 8 column and 8
+    row passes of 66 operations each, the column pass's saturation (2 a
+    value) and the range limit (clamp and + 128, 3 a pixel), 1,376. Returns
+    (bytes, operations, blocks, blocks of the last kind)."""
+    ln = lens.long()
+    blocks = int(ln.numel())
+    dc_only = int((ln == 1).sum())
+    dense = K4.slot_blocks(slots, lens, 0, blocks).reshape(-1, 8, 8)
+    full = int((dense[:, 1:, :] != 0).any(2).any(1).sum())
+    present = int(ln.sum())
     ops = 2 * present + 8 * dc_only + 106 * (blocks - dc_only - full) + 1376 * full
-    nbytes = sum(t.numel() * t.element_size() for t in (coeffs, block_start)) + out.numel()
+    nbytes = int(((ln * 2 + 31) // 32).sum()) * 32 + blocks + out.numel()
     return nbytes, ops, blocks, full
 
 
-def k4_timing(torch, payload, pad, dev):
-    """K4 on `payload` into a (N, pad, pad, 1) batch: `ms`, `ms_stream` and
-    the bound with the work it is computed from."""
+def k4_timing(torch, r, pad, dev):
+    """K4 on K5's slots (`r`, from `decode_against_plain_and_cv2`) into a
+    (N, pad, pad, 1) batch: `ms`, `ms_stream` and the bound with the work it
+    is computed from."""
     from neuralnet_tracker_traincode_torch.kernels import ext
     from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
 
+    _, _, _, meta, qtables = r["payload"].arrays
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    out = torch.empty((payload.meta.shape[0], pad, pad, 1), dtype=torch.uint8, device=dev)
-    launch = lambda c, s, q, m: ext.extension().jpeg_idct_pack(c, s, q, m, out, pad)  # noqa: E731
-    coeffs, block_start, qtables, meta = payload.arrays
-    nbytes, ops, blocks, full = k4_work(K4, coeffs, block_start, out)
-    nbytes += qtables.numel() * qtables.element_size() + meta.numel() * meta.element_size()
-    return dict(ms=time_ms(torch, lambda: launch(*payload.arrays), flush),
-                ms_stream=stream_ms(torch, launch, rotating(torch, *payload.arrays)),
+    out = torch.empty((meta.shape[0], pad, pad, 1), dtype=torch.uint8, device=dev)
+    launch = lambda s, ln, q, m: ext.extension().jpeg_idct_pack(s, ln, q, m, out, pad)  # noqa: E731
+    args = (r["slots"], r["lens"], qtables, meta)
+    nbytes, ops, blocks, full = k4_work(K4, r["slots"], r["lens"], out)
+    nbytes += qtables.numel() * qtables.element_size() + meta.shape[0] * 4 * 4
+    return dict(ms=time_ms(torch, lambda: launch(*args), flush),
+                ms_stream=stream_ms(torch, launch, rotating(torch, *args)),
                 bound=bound_ms(nbytes, i32_ops=ops), bytes=nbytes, ops=ops, blocks=blocks, full=full)
 
 
@@ -3102,52 +3138,160 @@ def k4_line(t, what, smi):
             f"operations, {t['full']} of {t['blocks']} blocks with terms past their first row) on {smi}")
 
 
+# integer operations a codeword of K5's decode: the window's shift and refill test, the table's choice and
+# lookup, length and symbol, the run and size, the magnitude's shifts and sign extension, the state's update
+K5_OPS_PER_CODEWORD = 20
+
+
+def k5_timing(torch, r, dev):
+    """K5 over a payload on the card (`r`, from `decode_against_plain_and_cv2`):
+    `ms`, `ms_stream` and the bound: the bytes (the 32-bit words of the
+    scans that the restart intervals span, the intervals, tables and dims
+    read once; the slots up to each block's length, the lengths, the status
+    and stats written once; not the headers, tables and tail of each file
+    that the scan buffer also reserves room for) and K5_OPS_PER_CODEWORD
+    integer operations for each codeword the sequential decode takes (the
+    stats' count)."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
+
+    payload = r["payload"]
+    scan, intervals, tables, meta, _ = payload.arrays
+    blocks, ys, bits, nint = payload.counts
+    N = meta.shape[0]
+    S = K5.auto_subsequence_bits(bits, N)
+    subs = K5.scratch_words(N, nint, bits, S)
+    slots = torch.empty((blocks, 64), dtype=torch.int16, device=dev)
+    lens = torch.empty(blocks, dtype=torch.uint8, device=dev)
+    status = torch.empty((N, 4), dtype=torch.int32, device=dev)
+    stats = torch.empty((N, K5.STATS), dtype=torch.int32, device=dev)
+    scratch = torch.empty(5 * subs + nint + N + ys + 2, dtype=torch.int64, device=dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def launch(sc, iv, tb, m):
+        ext.extension().jpeg_huffman_decode(sc, iv, tb, m, slots, lens, status, stats, scratch, S, subs, nint)
+
+    args = (scan, intervals, tables, meta)
+    codewords = int(r["stats"][:, 2].sum())
+    iv = intervals.long()
+    scan_bytes = int(((iv[:, 1] + 31) // 32 - iv[:, 0] // 32).clamp(min=0).sum()) * 4
+    nbytes = (scan_bytes + sum(t.numel() * t.element_size() for t in args[1:]) + int(r["lens"].long().sum()) * 2
+              + blocks + N * 4 * (4 + K5.STATS))
+    return dict(ms=time_ms(torch, lambda: launch(*args), flush),
+                ms_stream=stream_ms(torch, launch, rotating(torch, *args)),
+                bound=bound_ms(nbytes, i32_ops=K5_OPS_PER_CODEWORD * codewords), bytes=nbytes, codewords=codewords)
+
+
+def sync_line(r):
+    """K5's passes to synchronize (the kernel's stats) and, where the plain
+    version ran, its diagnostics of the guess."""
+    passes, subs = r["stats"].long()[:, 0], r["stats"].long()[:, 1]
+    line = (f"passes to synchronize median {int(passes.median())}, max {int(passes.max())}; {int(subs.sum())} "
+            f"subsequences of {r['bits']} bits")
+    if r["plain_stats"] is not None:
+        missed, missed_next = r["plain_stats"].long()[:, 3], r["plain_stats"].long()[:, 4]
+        line += (f", of which {int(missed.sum())} did not reach the sequential decode's state from the guess by "
+                 f"their end and {int(missed_next.sum())} not by their successor's end either (the plain version)")
+    return line
+
+
+def k5_line(t, r, what, smi):
+    return (f"K5 on {what}: {t['ms']:.4f} ms ({t['ms_stream']:.4f} ms_stream) a batch of {B}, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}: {t['bytes'] / 1e6:.2f} MB, {t['codewords']} codewords); "
+            f"{sync_line(r)} on {smi}")
+
+
+def colour_frames(np, n, seed):
+    """`n` colour 4:2:0 q95 frames at LOADER_SRC^2 (`scripts/bench_loader.py`'s
+    "colour" content), as JPEG buffers."""
+    import torch
+
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames as make_frames
+
+    frames = make_frames(n, LOADER_SRC, seed, torch.device("cuda"), "colour")
+    return [frames.buffer(i) for i in range(n)]
+
+
 def jpeg_phase(torch, np, dev, smi, frames):
-    """Phase 18: the JPEG decode on the card (host entropy decode, K4) for
-    the training loader, on phase 12a's frames, and K4 and the host decode
-    on dense frames (noise)."""
+    """Phase 18: the JPEG decode on the card (the host's parse, K5, K4) for
+    the training loader, on phase 12a's frames, and K5, K4 and the host's
+    stages on dense frames (noise) and colour 4:2:0 frames."""
     import cv2
 
     from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+    from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
     from neuralnet_tracker_traincode_torch.scripts.bench_loader import decode_stage, print_training
     from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames as make_frames
 
     t_phase = time.perf_counter()
+    laps = [("start", t_phase)]
+
+    def lap(what):  # the seconds each part of the phase took
+        laps.append((what, time.perf_counter()))
+
     train, val, pad = frames["train"], frames["val"], frames["pad"]
     buffers = [train.buffer(i) for i in range(len(train))]
     noise = make_frames(B, pad, JPEG_SEED, dev, "noise")
     dense = [noise.buffer(i) for i in range(B)]
+    colour = colour_frames(np, B, JPEG_SEED + 1)
+    lap("frames")
 
-    # (a) K4 against its plain version and cv2, bit for bit
+    # (a) K5 against the host decoder, K4 against its plain version and cv2, bit for bit; K5 also against its
+    # plain version on the main path's frames and the seeded set (on the dense and colour sets the lockstep plain
+    # version would take most of the phase; the host decoder is an exact oracle independent of both)
     cases = jpeg_cases(np, cv2)
-    payload, err = k4_against_cv2_and_plain(torch, np, cv2, buffers[:B], pad, dev, f"{B} of phase 12a's frames")
-    dense_payload, err_dense = k4_against_cv2_and_plain(torch, np, cv2, dense, pad, dev, f"{B} noise frames")
-    _, err_cases = k4_against_cv2_and_plain(torch, np, cv2, [b for _, b in cases], 320, dev, "the seeded set")
-    err = max(err, err_dense, err_cases)
-    print(f"jpeg (a): K4 bit-equal to its plain version and to cv2.imdecode(..., IMREAD_GRAYSCALE) on {B} of phase "
-          f"12a's {pad}^2 q95 frames, on {B} noise frames at {pad}^2 q95 and on the seeded set "
-          f"({', '.join(n for n, _ in cases)}) on {smi}")
+    sets = [("flat", f"{B} of phase 12a's frames", buffers[:B], pad, True),
+            ("dense", f"{B} noise frames", dense, pad, False),
+            ("colour", f"{B} colour 4:2:0 q95 frames", colour, pad, False),
+            ("cases", "the seeded set", [b for _, b in cases], 320, True)]
+    res = {}
+    for key, what, bufs, p, plain_k5 in sets:
+        res[key] = decode_against_plain_and_cv2(torch, np, cv2, bufs, p, dev, what, plain_k5)
+        res[key]["bits"] = K5.auto_subsequence_bits(res[key]["payload"].counts[2], len(bufs))
+    lap("(a)")
+    err4 = max(r["err4"] for r in res.values())
+    err5 = max(r["err5"] for r in res.values())
+    print(f"jpeg (a): K5 bit-equal to the host entropy decoder, K4 bit-equal to its plain version and to "
+          f"cv2.imdecode(..., IMREAD_GRAYSCALE), on {B} of phase 12a's {pad}^2 q95 frames, {B} noise frames at "
+          f"{pad}^2 q95, {B} colour 4:2:0 q95 frames at {pad}^2 and the seeded set "
+          f"({', '.join(n for n, _ in cases)}); K5 bit-equal to its plain version on phase 12a's frames and the "
+          f"seeded set on {smi}")
 
-    # K4 at the main path's shape (phase 12a's frames, mostly flat) and on dense frames: ms, ms_stream, the bound
-    row = dict(name="jpeg_idct", source="neuralnet_tracker_traincode_torch/kernels/csrc/jpeg_idct.cu",
-               replaces="neuralnet_tracker_traincode_tpu/data/native_loader.py:93", max_abs_err=err, library_ms=None,
-               plain_ms=time_ms(torch, lambda: K4.idct_pack_plain(*payload.arrays, pad), torch.empty(
-                   64 * 2**20, dtype=torch.uint8, device=dev), n=5, warmup=1))
-    flat_t, dense_t = k4_timing(torch, payload, pad, dev), k4_timing(torch, dense_payload, pad, dev)
-    row.update((k, flat_t[k]) for k in ("ms", "ms_stream", "bound"))
-    row.update(ms_dense=dense_t["ms"], ms_stream_dense=dense_t["ms_stream"], bound_ms_dense=dense_t["bound"][0])
-    del payload, dense_payload
-    print(k4_line(flat_t, f"{B} of phase 12a's frames", smi) + f"; plain {row['plain_ms']:.3f} ms")
-    print(k4_line(dense_t, f"{B} noise frames", smi))
+    # each kernel at the main path's shape (phase 12a's frames, mostly flat), on dense and on colour frames
+    flat = res["flat"]
+    meta, qtables = flat["payload"].meta, flat["payload"].qtables
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    k4_row = dict(name="jpeg_idct", source="neuralnet_tracker_traincode_torch/kernels/csrc/jpeg_idct.cu",
+                  replaces="neuralnet_tracker_traincode_tpu/data/native_loader.py:93", max_abs_err=err4,
+                  library_ms=None, plain_ms=time_ms(torch, lambda: K4.idct_pack_plain(
+                      flat["slots"], flat["lens"], qtables, meta, pad), flush, n=3, warmup=1))
+    k5_row = dict(name="jpeg_huffman", source="neuralnet_tracker_traincode_torch/kernels/csrc/jpeg_huffman.cu",
+                  replaces="neuralnet_tracker_traincode_tpu/data/native_loader.py:93", max_abs_err=err5,
+                  library_ms=None, plain_ms=flat["plain_ms"])
+    for row, timing, line in ((k4_row, lambda r: k4_timing(torch, r, pad, dev), lambda t, r, w: k4_line(t, w, smi)),
+                              (k5_row, lambda r: k5_timing(torch, r, dev), lambda t, r, w: k5_line(t, r, w, smi))):
+        for key, what, _, _, _ in sets[:3]:
+            t = timing(res[key])
+            if key == "flat":
+                row.update((k, t[k]) for k in ("ms", "ms_stream", "bound"))
+            else:
+                row.update({f"ms_{key}": t["ms"], f"ms_stream_{key}": t["ms_stream"], f"bound_ms_{key}": t["bound"][0]})
+            print(line(t, res[key], what) + (f"; plain {row['plain_ms']:.3f} ms" if key == "flat" else ""))
+    print(f"K5 on the seeded set: {sync_line(res['cases'])} on {smi}")
+    del res
+    lap("timing")
     for what, bufs in ((f"{JPEG_DECODE_N} of phase 12a's frames", buffers[:JPEG_DECODE_N]),
-                       (f"{B} noise frames", dense)):
+                       (f"{B} noise frames", dense), (f"{B} colour 4:2:0 frames", colour)):
         rates = decode_stage(bufs, pad, dev)
         print(f"jpeg decode on the host, one thread each, {what} at {pad}^2 q95: cv2 {rates['cv2']:.1f} images/s, the "
-              f"entropy decode {rates['entropy']:.1f} images/s per core ({os.cpu_count()} host cores) on {smi}")
+              f"scan stage {rates['scan']:.1f} images/s, the old entropy decode {rates['entropy']:.1f} images/s, per "
+              f"core ({os.cpu_count()} host cores); K5 and K4 {rates['card']:.1f} images/s on {smi}")
 
+    lap("host rates")
     # (b) and (c): phase 7's run (as phase 12a) on phase 12a's frames through FusedBatchLoader decoding on the
     # card and device_prefetch_stacked at K = 8, the CLI's default on the card
     r = jpeg_loader_run(torch, np, dev, train, val, pad, "device")
+    lap("(b), (c)")
     for k, want in enumerate(frames["want"][:MS_K]):
         differ = [n for n in want if not np.array_equal(r["first"][n][k].cpu().numpy(), want[n])]
         check(set(r["first"]) == set(want) and not differ,
@@ -3155,11 +3299,12 @@ def jpeg_phase(torch, np, dev, smi, frames):
     print(f"jpeg (b): the first {MS_K} batches of {LOADER_WORKERS} process workers decoding on the card, through "
           f"device_prefetch_stacked at K = {MS_K}, equal field for field the host decode's (phase 12a); loader alone "
           f"({LOADER_WORKERS} process workers, {os.cpu_count()} host cores, {pad}^2 JPEG q95, batch {B}): "
-          f"{r['alone']:.1f} images/s entropy-decoding, {frames['host_alone']:.1f} images/s decoding by cv2 "
+          f"{r['alone']:.1f} images/s parsing on the host, {frames['host_alone']:.1f} images/s decoding by cv2 "
           f"(phase 12a) on {smi}")
     print_training(r, "jpeg (c)", smi)
-    print(f"jpeg: phase {time.perf_counter() - t_phase:.2f} s on {smi}")
-    return r["launches"], row
+    parts = ", ".join(f"{w} {t - t0:.1f}" for (_, t0), (w, t) in zip(laps, laps[1:]))
+    print(f"jpeg: phase {time.perf_counter() - t_phase:.2f} s (seconds: {parts}) on {smi}")
+    return r["launches"], [k4_row, k5_row]
 
 
 def jpeg_loader_run(torch, np, dev, train, val, pad, mode):
@@ -3182,12 +3327,13 @@ def jpeg_loader_run(torch, np, dev, train, val, pad, mode):
         check(not bad and math.isfinite(rec["val_loss"]), f"jpeg run epoch {rec['epoch']}: non-finite {bad or 'val'}")
     untrained_loss, final_loss = r["losses"]
     check(final_loss < untrained_loss, f"validation loss {final_loss} is not below the untrained {untrained_loss}")
-    # K4 once a batch decoded on the card (the groups prefetched past the run's end included); K1, K2, K3 in the
-    # graph's warm-up, capture and replays
+    # K5 and K4 once a batch decoded on the card (the groups prefetched past the run's end included); K1, K2, K3
+    # in the graph's warm-up, capture and replays
     launches = r["launches"]
     k4 = (steps, steps + 2 * MS_K) if mode == "device" else (0, 0)
-    check(k4[0] <= launches["jpeg_idct"] <= k4[1] and launches["warp_roi_rotate"] > 0 and launches["equalize"] > 0
-          and launches["gaussian_noise"] > 0, f"jpeg run ({mode} decode) launches {launches}")
+    check(k4[0] <= launches["jpeg_idct"] <= k4[1] and k4[0] <= launches["jpeg_huffman"] <= k4[1]
+          and launches["warp_roi_rotate"] > 0 and launches["equalize"] > 0 and launches["gaussian_noise"] > 0,
+          f"jpeg run ({mode} decode) launches {launches}")
     return r
 
 
@@ -3251,18 +3397,18 @@ def main() -> int:
         ft_launches = face_tools_phase(torch, np, dev, f"{name} ({smi})")
         vw_launches, errs_vw = analysis_phase(torch, np, dev, f"{name} ({smi})", os.path.join(conv_dir, "best.ckpt"),
                                               conv_val, run["train_frames"])
-        jp_launches, jpeg_row = jpeg_phase(torch, np, dev, f"{name} ({smi})", jpeg_inputs)
+        jp_launches, jpeg_rows = jpeg_phase(torch, np, dev, f"{name} ({smi})", jpeg_inputs)
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
         shutil.rmtree(conv_dir, ignore_errors=True)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
             errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp, errs_vw)])
-    # K4's own main path is phase 18's run: its `launches` are that run's
-    launches = dict(launches, jpeg_idct=jp_launches["jpeg_idct"])
+    # K4's and K5's own main path is phase 18's run: their `launches` are that run's
+    launches = dict(launches, jpeg_idct=jp_launches["jpeg_idct"], jpeg_huffman=jp_launches["jpeg_huffman"])
 
     kernels = []
-    for r in rows + [jpeg_row]:
+    for r in rows + jpeg_rows:
         (b_ms, b_by) = r.pop("bound")
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
@@ -3276,9 +3422,9 @@ def main() -> int:
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
         ))
-        if "ms_dense" in r:  # K4 on dense frames (noise) at the main path's shape
-            kernels[-1].update(ms_dense=r["ms_dense"], ms_stream_dense=r["ms_stream_dense"],
-                               bound_ms_dense=r["bound_ms_dense"])
+        for extra in ("dense", "colour"):  # K4 and K5 on dense (noise) and colour 4:2:0 frames at 64 x 448^2
+            if f"ms_{extra}" in r:
+                kernels[-1].update({f"{k}_{extra}": r[f"{k}_{extra}"] for k in ("ms", "ms_stream", "bound_ms")})
         if r["name"] in loc_stream:  # at the localizer's shape, (64, 224 x 288)
             ms, (b, _) = loc_stream[r["name"]]
             kernels[-1].update(ms_stream_localizer=ms, bound_ms_localizer=b)

@@ -1,12 +1,14 @@
 """Phase 15 of `chip_smoke.py` (data-parallel training) with faults planted
 in memory, one after another, its checks recorded instead of failing: the
 readings of the sound run and of each fault, between which `chip_smoke.py`'s
-`DP_*` limits are fixed; and phase 18 (a) (K4 against its plain version and
-cv2, bit for bit) with faults planted in K4's arithmetic. Needs the card;
+`DP_*` limits are fixed; and phase 18 (a) (K5 against the host decoder and,
+on phase 12a's frames and the seeded set, its plain version; K4 against its
+plain version and cv2; bit for bit) with
+faults planted in K4's arithmetic and in K5's algorithm. Needs the card;
 from the repo's root:
 
     python3 chip_smoke_faults.py none bn_xmu_dropped bn_dx_sign bn_count_doubled bn_unsynced grads_summed
-    python3 chip_smoke_faults.py k4_none k4_range_wrap k4_descale_round
+    python3 chip_smoke_faults.py k4_none k4_range_wrap k4_descale_round k5_none k5_dc_no_reset k5_sync_bits_only
 
 The faults: `bn_xmu_dropped`, `bn_dx_sign` and `bn_count_doubled` patch
 `torch.batch_norm_backward_elemt` (the synchronized BatchNorm's input
@@ -16,17 +18,22 @@ the count doubled); `bn_unsynced` normalises each rank by its own rows;
 The spawned ranks of part (b) plant the same fault. Nothing of the repo
 changes.
 
-The K4 faults are copies of `kernels/csrc/jpeg_idct.cu` patched in a
-temporary directory and built there by `nvcc` with a plain C entry
-(`k4_none` unpatched, through the same route): `k4_range_wrap` limits the
+The JPEG faults are copies of `kernels/csrc/jpeg_idct.cu` (K4) or
+`jpeg_huffman.cu` (K5) patched in a temporary directory and built there by
+`nvcc` with a plain C entry (`k4_none`, `k5_none` unpatched, through the
+same route): `k5_dc_no_reset` runs the DC scan along the whole image
+instead of restarting it at each restart marker; `k5_sync_bits_only`
+ends the synchronization passes when the exits' bit offsets stop changing,
+whatever their block and zigzag index; `k4_range_wrap` limits the
 row pass's value as jidctint.c's table does, read as a signed 10-bit number
 (`& RANGE_MASK`), in place of the saturation that libjpeg-turbo's SIMD code
 (and cv2) apply; `k4_descale_round` rounds the row pass's DESCALE with
 2^17 - 1 in place of 2^17. While one is planted, `kernels/ext.extension()`
-gives that build's K4; phase 18 (a) then runs on 64 of phase 12a's frames
-(rendered here), its 64 noise frames and its seeded set.
+gives that build's kernel; phase 18 (a) then runs on 64 of phase 12a's
+frames (rendered here), its 64 noise frames, its 64 colour 4:2:0 frames and
+its seeded set.
 
-Exits 1 unless each sound run (`none`, `k4_none`) passes every check and
+Exits 1 unless each sound run (`none`, `k4_none`, `k5_none`) passes every check and
 every other fault but `grads_summed` fails one: Adam and the global-norm
 clip divide the gradient's scale out, so summing instead of averaging
 changes no result while the clip binds, as it does at the flagship's first
@@ -47,21 +54,39 @@ import chip_smoke as C  # noqa: E402
 
 RECORDED = []
 INVISIBLE = {"grads_summed"}
-SOUND = {"none", "k4_none"}
-# (the sound source's text, the fault's) in kernels/csrc/jpeg_idct.cu
-K4_FAULTS = {
-    "k4_none": None,
-    "k4_range_wrap": ("max(-128, min(127, o[k])) + 128", "max(-128, min(127, ((o[k] & 1023) ^ 512) - 512)) + 128"),
-    "k4_descale_round": ("constexpr int half = 1 << (shift - 1);",
+SOUND = {"none", "k4_none", "k5_none"}
+# (the source, the sound text, the fault's) in kernels/csrc/
+JPEG_FAULTS = {
+    "k4_none": ("jpeg_idct.cu", None, None),
+    "k4_range_wrap": ("jpeg_idct.cu", "max(-128, min(127, o[k])) + 128",
+                      "max(-128, min(127, ((o[k] & 1023) ^ 512) - 512)) + 128"),
+    "k4_descale_round": ("jpeg_idct.cu", "constexpr int half = 1 << (shift - 1);",
                          "constexpr int half = (1 << (shift - 1)) - (shift == CONST_BITS + PASS1_BITS + 3 ? 1 : 0);"),
+    "k5_none": ("jpeg_huffman.cu", None, None),
+    # the DC predictor not reset at a restart marker: one scan along the whole image
+    "k5_dc_no_reset": ("jpeg_huffman.cu", "const long head = rst ? (mcu / rst) * rst * (yh * yv) : 0;",
+                       "const long head = 0;"),
+    # synchronization accepted where the exits' bit offsets agree, whatever their block and zigzag index
+    "k5_sync_bits_only": ("jpeg_huffman.cu", "changed |= y != x;", "changed |= (y >> 16) != (x >> 16);"),
 }
-_K4_SHIM = """
+_SHIMS = {
+    "jpeg_idct.cu": """
 #include "nntc_kernels.h"
-extern "C" int k4(const int16_t* c, const int32_t* bs, const int32_t* q, const int32_t* m, uint8_t* o, long nc,
-                  long nb, int n, int pad, cudaStream_t s) {
-    return static_cast<int>(nntc_jpeg_idct_pack(c, bs, q, m, o, nc, nb, n, pad, s));
+extern "C" int kernel(const int16_t* s, const uint8_t* l, const int32_t* q, const int32_t* m, uint8_t* o, long nb,
+                      int mc, int n, int pad, cudaStream_t st) {
+    return static_cast<int>(nntc_jpeg_idct_pack(s, l, q, m, o, nb, mc, n, pad, st));
 }
-"""
+""",
+    "jpeg_huffman.cu": """
+#include "nntc_kernels.h"
+extern "C" int kernel(const uint8_t* sc, const int32_t* iv, const int32_t* tb, const int32_t* m, int16_t* s,
+                      uint8_t* l, int32_t* status, int32_t* stats, long long* scratch, int n, int bits, long subs,
+                      long nint, cudaStream_t st) {
+    return static_cast<int>(nntc_jpeg_huffman_decode(sc, iv, tb, m, s, l, status, stats, scratch, n, bits, subs, nint,
+                                                     st));
+}
+""",
+}
 
 
 def record_check(cond, msg):
@@ -118,56 +143,77 @@ def plant(fault):
     raise ValueError(fault)
 
 
-class _FaultedK4:
-    """`kernels/ext.extension()` with K4 from `k4` (the C entry of an nvcc build)."""
+class _Faulted:
+    """`kernels/ext.extension()` with K4 or K5 from `kernel` (the C entry of
+    an nvcc build of `source`)."""
 
-    def __init__(self, real, k4):
-        self.real, self.k4 = real, k4
+    def __init__(self, real, source, kernel):
+        self.real, self.source, self.kernel = real, source, kernel
 
     def __getattr__(self, name):
         return getattr(self.real, name)
 
-    def jpeg_idct_pack(self, coeffs, block_start, qtables, meta, out, pad):
+    def _run(self, *args):
+        rc = self.kernel(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.source} launch failed: cudaError {rc}")
+
+    def jpeg_idct_pack(self, slots, lens, qtables, meta, out, pad):
         import torch
 
-        stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-        rc = self.k4(coeffs.data_ptr(), block_start.data_ptr(), qtables.data_ptr(), meta.data_ptr(), out.data_ptr(),
-                     coeffs.shape[0], block_start.shape[0] - 1, meta.shape[0], int(pad), stream)
-        if rc != 0:
-            raise RuntimeError(f"K4 launch failed: cudaError {rc}")
+        if self.source != "jpeg_idct.cu":
+            return self.real.jpeg_idct_pack(slots, lens, qtables, meta, out, pad)
+        stream = torch.cuda.current_stream(slots.device).cuda_stream
+        self._run(slots.data_ptr(), lens.data_ptr(), qtables.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                  slots.shape[0], meta.shape[1], meta.shape[0], int(pad), stream)
+
+    def jpeg_huffman_decode(self, scan, intervals, tables, meta, slots, lens, status, stats, scratch, bits, subs, nint):
+        import torch
+
+        if self.source != "jpeg_huffman.cu":
+            return self.real.jpeg_huffman_decode(scan, intervals, tables, meta, slots, lens, status, stats, scratch,
+                                                 bits, subs, nint)
+        stream = torch.cuda.current_stream(scan.device).cuda_stream
+        self._run(scan.data_ptr(), intervals.data_ptr(), tables.data_ptr(), meta.data_ptr(), slots.data_ptr(),
+                  lens.data_ptr(), status.data_ptr(), stats.data_ptr(), scratch.data_ptr(), meta.shape[0], int(bits),
+                  int(subs), int(nint), stream)
 
 
-def build_k4(fault, workdir):
-    """`jpeg_idct.cu` with `fault` patched in, built by nvcc into `workdir`."""
+def build_fault(fault, workdir):
+    """The fault's source with the fault patched in, built by nvcc with a
+    plain C entry into `workdir`; returns (source, the entry)."""
     from neuralnet_tracker_traincode_torch.kernels import ext
 
+    source, old, new = JPEG_FAULTS[fault]
     src = os.path.join(os.path.dirname(ext.__file__), "csrc")
-    for name in ("jpeg_idct.cu", "nntc_kernels.h"):
+    for name in (source, "nntc_kernels.h"):
         shutil.copy(os.path.join(src, name), workdir)
-    cu = os.path.join(workdir, "jpeg_idct.cu")
+    cu = os.path.join(workdir, source)
     text = open(cu).read()
-    if K4_FAULTS[fault] is not None:
-        old, new = K4_FAULTS[fault]
-        assert text.count(old) == 1, f"{fault}: the sound text is not in jpeg_idct.cu once"
+    if old is not None:
+        assert text.count(old) == 1, f"{fault}: the sound text is not in {source} once"
         text = text.replace(old, new)
     with open(cu, "w") as f:
         f.write(text)
     with open(os.path.join(workdir, "shim.cu"), "w") as f:
-        f.write(_K4_SHIM)
-    lib = os.path.join(workdir, "libk4.so")
+        f.write(_SHIMS[source])
+    lib = os.path.join(workdir, "libfault.so")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     cmd = [nvcc, *ext.CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-I", workdir, cu,
            os.path.join(workdir, "shim.cu"), "-o", lib]
     subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
-    k4 = ctypes.CDLL(lib).k4
+    kernel = ctypes.CDLL(lib).kernel
     p = ctypes.c_void_p
-    k4.argtypes = [p, p, p, p, p, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int, p]
-    k4.restype = ctypes.c_int
-    return k4
+    if source == "jpeg_idct.cu":
+        kernel.argtypes = [p, p, p, p, p, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    else:
+        kernel.argtypes = [p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_long, p]
+    kernel.restype = ctypes.c_int
+    return source, kernel
 
 
-def k4_faults(faults, smi):
-    """Phase 18 (a) once per K4 fault; {fault: checks failed}."""
+def jpeg_faults(faults, smi):
+    """Phase 18 (a) once per K4 or K5 fault; {fault: checks failed}."""
     import cv2
     import numpy as np
     import torch
@@ -181,23 +227,27 @@ def k4_faults(faults, smi):
     buffers = [frames.buffer(i) for i in range(len(frames))]
     noise = jpeg_frames(C.B, C.LOADER_SRC, C.JPEG_SEED, dev, "noise")
     dense = [noise.buffer(i) for i in range(len(noise))]
+    colour = C.colour_frames(np, C.B, C.JPEG_SEED + 1)
     cases = [b for _, b in C.jpeg_cases(np, cv2)]
     real = ext.extension()
     failed = {}
     for fault in faults:
         print(f"===== fault {fault}", flush=True)
         RECORDED.clear()
-        workdir = tempfile.mkdtemp(prefix=f"k4_{fault}_")
+        workdir = tempfile.mkdtemp(prefix=f"{fault}_")
         t0 = time.time()
         try:
-            ext._ext = _FaultedK4(real, build_k4(fault, workdir))
+            ext._ext = _Faulted(real, *build_fault(fault, workdir))
             print(f"fault {fault}: built in {time.time() - t0:.1f} s", flush=True)
-            C.k4_against_cv2_and_plain(torch, np, cv2, buffers, C.LOADER_SRC, dev, f"{C.B} of phase 12a's frames")
-            C.k4_against_cv2_and_plain(torch, np, cv2, dense, C.LOADER_SRC, dev, f"{C.B} noise frames")
-            C.k4_against_cv2_and_plain(torch, np, cv2, cases, 320, dev, "the seeded set")
-        except Exception as e:  # a fault may break the launch itself: that counts as caught
-            RECORDED.append(f"raised {type(e).__name__}: {e}")
-            print(f"fault {fault}: raised {type(e).__name__}: {e}", flush=True)
+            for bufs, pad, what, plain_k5 in ((buffers, C.LOADER_SRC, f"{C.B} of phase 12a's frames", True),
+                                              (dense, C.LOADER_SRC, f"{C.B} noise frames", False),
+                                              (colour, C.LOADER_SRC, f"{C.B} colour 4:2:0 frames", False),
+                                              (cases, 320, "the seeded set", True)):
+                try:
+                    C.decode_against_plain_and_cv2(torch, np, cv2, bufs, pad, dev, what, plain_k5)
+                except Exception as e:  # a fault may make the decode raise: that counts as caught
+                    RECORDED.append(f"raised {type(e).__name__} on {what}: {e}")
+                    print(f"fault {fault}: raised {type(e).__name__} on {what}: {str(e)[:300]}", flush=True)
         finally:
             ext._ext = real
             shutil.rmtree(workdir, ignore_errors=True)
@@ -226,8 +276,8 @@ def main() -> int:
     t0 = time.time()
     ext.extension()
     print("built", time.time() - t0)
-    failed = k4_faults([f for f in sys.argv[1:] if f in K4_FAULTS], smi)
-    dp = [f for f in sys.argv[1:] if f not in K4_FAULTS]
+    failed = jpeg_faults([f for f in sys.argv[1:] if f in JPEG_FAULTS], smi)
+    dp = [f for f in sys.argv[1:] if f not in JPEG_FAULTS]
     if not dp:
         print(smi)
         print(json.dumps({"checks_failed": failed}))

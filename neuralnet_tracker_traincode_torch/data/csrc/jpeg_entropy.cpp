@@ -1,8 +1,11 @@
-// Host half of the port's JPEG decode: baseline Huffman (entropy) decoding
-// into quantized DCT coefficients, the counterpart of the libjpeg decode in
-// native/nntc_loader.cpp. The other half, dequantization, libjpeg's integer
-// inverse DCT, the range limit and the zero-padded batch layout, runs on the
-// card (kernels/csrc/jpeg_idct.cu, K4).
+// Host half of the port's JPEG decode, the counterpart of the libjpeg decode
+// in native/nntc_loader.cpp. Two entry points share one marker parser:
+//   - nntc_jpeg_scan_batch (the loader's path): parse the markers, build the
+//     Huffman decode tables, and unstuff the scan that holds Y, cut at its
+//     restart markers; no bit-level work. The card decodes the scan
+//     (kernels/csrc/jpeg_huffman.cu, K5) and runs the IDCT (jpeg_idct.cu, K4).
+//   - nntc_jpeg_entropy_batch: the whole baseline Huffman decode on the host
+//     into quantized DCT coefficients (K5's oracle in the tests).
 //
 // Standalone: no libjpeg and no jpeglib.h (the card's machine has neither).
 // Built with `g++ -O3 -shared -fPIC` at first use (data/native_loader.py)
@@ -51,6 +54,12 @@ constexpr int kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18,
                              58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
 constexpr int kLookBits = 9;
+// nntc_jpeg_scan_batch's per-image columns (kernels/jpeg_huffman.py: META_*)
+constexpr int kMetaCols = 34;
+// the scan stage's faults deferred to the card's decode (column 15: code | marker << 8 | RST due << 16), and the
+// marker code that stands for the file's end (kernels/jpeg_huffman.py: ERR_*, END_OF_FILE)
+constexpr int kMarkerNotRst = 7, kFileEndsBeforeRst = 8, kFileEndsAfterScan = 9, kEndOfFile = 0xFF;
+constexpr int kMaxMcuBlocks = 10;
 constexpr int kFastBits = 10;  // AC codes whose code and magnitude bits fit are decoded in one lookup
 
 struct DecodeError {
@@ -275,7 +284,41 @@ struct Output {
     std::vector<int16_t>* slots = nullptr;
     std::vector<uint8_t>* lens = nullptr;
     int32_t* qtable = nullptr;  // 64 entries, natural order
+    struct Scan* scan = nullptr;  // the scan stage: unstuff the Y scan instead of decoding it
 };
+
+// What the scan stage keeps of one image: the Y scan's unstuffed bytes go to
+// `out` (room for the file's length); the rest is for nntc_jpeg_scan_batch.
+struct Scan {
+    uint8_t* out = nullptr;
+    size_t used = 0;
+    std::vector<int32_t> intervals;  // (start byte, end byte, the marker that ends the data) per restart interval
+    int32_t meta[kMetaCols] = {};    // the columns the host fills (see nntc_jpeg_scan_batch)
+    std::string tables[2][4];        // the raw tables the Y scan uses (empty: not used)
+};
+
+// Copy the entropy-coded bytes from buf[pos] on into out[n] on, unstuffing
+// 0xFF00 and dropping the fill bytes before a marker, up to the next marker;
+// returns its code (pos just past it) or -1 where the buffer ends first.
+// With out == nullptr the bytes are only skipped.
+int unstuff(const uint8_t* buf, size_t len, size_t& pos, uint8_t* out, size_t& n) {
+    for (;;) {
+        const uint8_t* p = buf + pos;
+        const void* ff = std::memchr(p, 0xFF, len - pos);
+        const size_t run = ff ? static_cast<size_t>(static_cast<const uint8_t*>(ff) - p) : len - pos;
+        if (out != nullptr) std::memcpy(out + n, p, run);
+        n += run;
+        pos += run;
+        if (ff == nullptr) return -1;
+        ++pos;
+        while (pos < len && buf[pos] == 0xFF) ++pos;
+        if (pos >= len) return -1;
+        const uint8_t d = buf[pos++];
+        if (d != 0) return d;
+        if (out != nullptr) out[n] = 0xFF;
+        ++n;
+    }
+}
 
 uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
 
@@ -287,6 +330,8 @@ struct Decoder {
     uint16_t qt[4][64];
     bool qt_defined[4] = {false, false, false, false};
     HuffTable dc[4], ac[4];
+    // each table as its DHT segment gives it (16 counts, then the symbols), for the scan stage
+    std::string raw[2][4];
     int restart_interval = 0;
     bool jfif = false, adobe = false;
     int adobe_transform = -1;
@@ -354,6 +399,7 @@ struct Decoder {
             for (int i = 0; i < 16; ++i) total += p[1 + i];
             if (total > 256 || n < static_cast<size_t>(17 + total)) fail("bad DHT: %d symbols", total);
             build_table(tc ? ac[th] : dc[th], p + 1, p + 17, total);
+            raw[tc][th].assign(reinterpret_cast<const char*>(p + 1), 16 + total);
             p += 17 + total;
             n -= 17 + total;
         }
@@ -438,8 +484,10 @@ struct Decoder {
             const int tq = frame.comps[0].tq;
             if (!qt_defined[tq]) fail("the Y component's quantization table %d is not defined", tq);
             for (int k = 0; k < 64; ++k) out.qtable[k] = qt[tq][k];  // latched, as libjpeg does
-            out.slots->resize(static_cast<size_t>(grid_w()) * grid_h() * 64);
-            out.lens->assign(static_cast<size_t>(grid_w()) * grid_h(), 0);
+            if (out.slots != nullptr) {
+                out.slots->resize(static_cast<size_t>(grid_w()) * grid_h() * 64);
+                out.lens->assign(static_cast<size_t>(grid_w()) * grid_h(), 0);
+            }
         }
 
         // the MCU layout: one block a MCU for one component, else the sampling factors
@@ -455,6 +503,21 @@ struct Decoder {
             mcus_y = (frame.height + 8 * frame.vmax - 1) / (8 * frame.vmax);
         }
         const int gw = grid_w(), gh = grid_h();
+        if (out.scan != nullptr) {
+            if (has_y) {
+                keep_scan(*out.scan, sc, ns, mcus_x, mcus_y);
+                y_done = true;
+            } else {  // another component's scan: skipped to its terminating marker (past its restart markers)
+                size_t skipped = 0;
+                int mk;
+                do {
+                    mk = unstuff(buf, len, pos, nullptr, skipped);
+                } while (mk >= 0xD0 && mk <= 0xD7);
+                if (mk < 0) fail("truncated scan data: the file ends inside a scan");
+                pending_marker = mk;
+            }
+            return;
+        }
         BitReader br{buf, len, pos};
         int pred[4] = {0, 0, 0, 0};
         int16_t* slots = has_y ? out.slots->data() : nullptr;
@@ -493,6 +556,70 @@ struct Decoder {
         pos = br.pos;  // just past the marker code
         pending_marker = mk;
         if (has_y) y_done = true;
+    }
+
+    // The scan stage's part of the Y scan: its MCU layout, tables and unstuffed
+    // bytes, cut at its restart markers (their sequence checked as the decode
+    // checks it); the card decodes it.
+    void keep_scan(Scan& sc_out, const std::vector<int>& sc, int ns, int mcus_x, int mcus_y) {
+        int32_t* m = sc_out.meta;
+        int nb = 0;
+        for (int ci : sc) {
+            const Component& c = frame.comps[ci];
+            const int bh = ns == 1 ? 1 : c.h, bv = ns == 1 ? 1 : c.v;
+            for (int v = 0; v < bv; ++v) {
+                for (int h = 0; h < bh; ++h) {
+                    if (nb == kMaxMcuBlocks) fail("SOS: an MCU of more than %d blocks", kMaxMcuBlocks);
+                    const int yq = ci == 0 ? v * bh + h : -1;
+                    m[24 + nb++] = c.dc_tbl | (c.ac_tbl << 4) | ((yq + 1) << 8);
+                }
+            }
+            sc_out.tables[0][c.dc_tbl] = raw[0][c.dc_tbl];
+            sc_out.tables[1][c.ac_tbl] = raw[1][c.ac_tbl];
+        }
+        const Component& y = frame.comps[0];
+        m[0] = frame.height;
+        m[1] = frame.width;
+        m[2] = grid_w();
+        m[4] = grid_h();
+        m[5] = mcus_x;
+        m[6] = mcus_y;
+        m[7] = restart_interval;
+        m[8] = nb;
+        m[9] = ns == 1 ? 1 : y.h;
+        m[10] = ns == 1 ? 1 : y.v;
+        const long mcus = static_cast<long>(mcus_x) * mcus_y;
+        const long intervals = restart_interval ? (mcus + restart_interval - 1) / restart_interval : 1;
+        // A fault at an interval's end (the file ends there, or the marker is
+        // not the RSTn due) is the decode's only if the interval's data
+        // decodes: it is deferred to the card (column 15) and the parse ends.
+        int next_rst = 0;
+        long kept = 0;
+        for (long i = 0; i < intervals; ++i) {
+            const size_t start = sc_out.used;
+            const int mk = unstuff(buf, len, pos, sc_out.out, sc_out.used);
+            sc_out.intervals.push_back(static_cast<int32_t>(start));
+            sc_out.intervals.push_back(static_cast<int32_t>(sc_out.used));
+            sc_out.intervals.push_back(mk < 0 ? kEndOfFile : mk);
+            ++kept;
+            if (i + 1 < intervals) {
+                if (mk != 0xD0 + next_rst) {
+                    m[15] = mk < 0 ? kFileEndsBeforeRst | (next_rst << 16)
+                                   : kMarkerNotRst | (mk << 8) | (next_rst << 16);
+                    parse_done = true;
+                    break;
+                }
+                next_rst = (next_rst + 1) & 7;
+            } else if (mk < 0) {
+                m[15] = kFileEndsAfterScan;
+                parse_done = true;
+            } else {
+                pending_marker = mk;  // a stray RSTn here is ignored as the decode ignores it
+            }
+        }
+        m[12] = static_cast<int32_t>(kept);
+        if (sc_out.used * 8 >= (size_t{1} << 31)) fail("a scan of more than 256 MB");
+        m[14] = static_cast<int32_t>(sc_out.used * 8);
     }
 
     // One block's coefficients, in zigzag order, into `zz` (zero between the
@@ -563,9 +690,12 @@ struct Decoder {
         while (!frame.seen) dispatch(next(), nullptr);
     }
 
+    bool parse_done = false;  // the scan stage met a fault that the card's decode reports
+
     void decode(Output& out) {
         probe();
         for (;;) {
+            if (parse_done) return;
             const int m = next();
             if (m == 0xD9) break;  // EOI
             dispatch(m, &out);
@@ -727,6 +857,33 @@ int run_batch(int n, int nthreads, char* err, int errlen, const std::function<vo
     return failed;
 }
 
+// A decode table for the card, kTableWords int32 (kernels/jpeg_huffman.py:
+// TABLE_*): 512 lookahead entries by the next 9 bits, (length << 8) | symbol
+// or 0; maxcode by length 0-17; valoffset by length 0-17; the 256 symbols.
+constexpr int kTableWords = 512 + 18 + 18 + 256;
+
+void append_decode_table(std::vector<int32_t>& out, const std::string& raw) {
+    HuffTable t;
+    const auto* p = reinterpret_cast<const uint8_t*>(raw.data());
+    build_table(t, p, p + 16, static_cast<int>(raw.size()) - 16);
+    const size_t at = out.size();
+    out.resize(at + kTableWords, 0);
+    int32_t* w = out.data() + at;
+    for (int i = 0; i < 512; ++i) w[i] = t.look[i];
+    for (int l = 0; l < 18; ++l) {
+        w[512 + l] = l >= 1 ? t.maxcode[l] : -1;
+        w[530 + l] = l >= 1 && l <= 16 ? t.valoffset[l] : 0;
+    }
+    const int nvals = static_cast<int>(raw.size()) - 16;
+    for (int i = 0; i < 256; ++i) w[548 + i] = i < nvals ? t.vals[i] : 0;
+}
+
+struct ScanBatch {
+    std::vector<Scan> scans;
+    std::vector<int32_t> tables;
+    int64_t num_intervals = 0;
+};
+
 }  // namespace
 
 extern "C" {
@@ -793,5 +950,97 @@ int nntc_jpeg_entropy_batch(const uint8_t* blob, const size_t* offsets, const si
     *total = at;
     return -1;
 }
+
+// The scan stage (the loader's path): parse each of n JPEGs, unstuff the
+// scan that holds Y into scan[scan_offsets[i] ..] (room up to
+// scan_offsets[i + 1], the rest of it zeroed), write Y's quantization table
+// to qtables[64 i ...] and the image's columns to meta[34 i ...]:
+//   0 height, 1 width, 2 ceil(w/8), 4 ceil(h/8), 5, 6 the MCUs across and
+//   down, 7 the restart interval (MCUs, 0: none), 8 blocks an MCU, 9, 10 Y's
+//   blocks across and down an MCU, 11 the first restart interval (below),
+//   12 the intervals, 14 the scan's bits, 15 a fault met at an interval's end
+//   that the decode reports if the interval decodes (code | marker << 8 |
+//   the RSTn due << 16, 0: none), 16-19 the batch's table of each DC
+//   table id 0-3 and 20-23 of each AC table id (-1: not used), 24-33 each
+//   block of an MCU: DC table id | AC table id << 4 | (Y's block in the MCU
+//   + 1, or 0) << 8. Columns 3, 13 and 15 are left for the caller.
+// Returns -1 with *handle holding the intervals and the batch's distinct
+// tables (totals[0], totals[1] of them) for nntc_jpeg_scan_collect, or the
+// first image that failed (message in err; no handle).
+int nntc_jpeg_scan_batch(const uint8_t* blob, const size_t* offsets, const size_t* lengths, int n, uint8_t* scan,
+                         const size_t* scan_offsets, int32_t* meta, int32_t* qtables, int nthreads, char* err,
+                         int errlen, int64_t* totals, void** handle) {
+    auto* batch = new ScanBatch();
+    batch->scans.resize(static_cast<size_t>(n));
+    const int failed = run_batch(n, nthreads, err, errlen, [&](int i) {
+        Scan& sc = batch->scans[static_cast<size_t>(i)];
+        sc.out = scan + scan_offsets[i];
+        Decoder d(blob + offsets[i], lengths[i]);
+        Output out;
+        out.scan = &sc;
+        out.qtable = qtables + 64 * static_cast<size_t>(i);
+        d.decode(out);
+        std::memset(sc.out + sc.used, 0, scan_offsets[i + 1] - scan_offsets[i] - sc.used);
+        std::memcpy(meta + kMetaCols * static_cast<size_t>(i), sc.meta, sizeof(sc.meta));
+    });
+    if (failed >= 0) {
+        delete batch;
+        return failed;
+    }
+    std::map<std::string, int> seen;
+    int64_t first = 0;
+    for (int i = 0; i < n; ++i) {
+        Scan& sc = batch->scans[static_cast<size_t>(i)];
+        int32_t* m = meta + kMetaCols * static_cast<size_t>(i);
+        m[11] = static_cast<int32_t>(first);
+        first += m[12];
+        for (int tc = 0; tc < 2; ++tc) {
+            for (int th = 0; th < 4; ++th) {
+                const std::string& t = sc.tables[tc][th];
+                int id = -1;
+                if (!t.empty()) {
+                    const std::string key = std::string(1, static_cast<char>(tc)) + t;
+                    auto it = seen.find(key);
+                    if (it == seen.end()) {
+                        it = seen.emplace(key, static_cast<int>(seen.size())).first;
+                        append_decode_table(batch->tables, t);
+                    }
+                    id = it->second;
+                }
+                m[16 + 4 * tc + th] = id;
+            }
+        }
+    }
+    batch->num_intervals = first;
+    totals[0] = first;
+    totals[1] = static_cast<int64_t>(seen.size());
+    *handle = batch;
+    return -1;
+}
+
+// The intervals of nntc_jpeg_scan_batch's images, image by image, each as
+// (first bit, end bit, the marker that ends its data (0xFF: the file's end),
+// image) with the bits
+// counted from the start of `scan` (scan_offsets as given there), and the
+// distinct tables, kTableWords int32 each (kernels/jpeg_huffman.py says
+// how); frees the handle.
+void nntc_jpeg_scan_collect(void* handle, const size_t* scan_offsets, int32_t* intervals, int32_t* tables) {
+    auto* batch = static_cast<ScanBatch*>(handle);
+    size_t at = 0;
+    for (size_t i = 0; i < batch->scans.size(); ++i) {
+        const std::vector<int32_t>& iv = batch->scans[i].intervals;
+        const int64_t base = static_cast<int64_t>(scan_offsets[i]) * 8;
+        for (size_t k = 0; k < iv.size(); k += 3) {
+            intervals[at++] = static_cast<int32_t>(base + 8 * static_cast<int64_t>(iv[k]));
+            intervals[at++] = static_cast<int32_t>(base + 8 * static_cast<int64_t>(iv[k + 1]));
+            intervals[at++] = iv[k + 2];
+            intervals[at++] = static_cast<int32_t>(i);
+        }
+    }
+    std::memcpy(tables, batch->tables.data(), batch->tables.size() * sizeof(int32_t));
+    delete batch;
+}
+
+void nntc_jpeg_scan_free(void* handle) { delete static_cast<ScanBatch*>(handle); }
 
 }  // extern "C"

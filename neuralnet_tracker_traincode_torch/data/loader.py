@@ -11,10 +11,11 @@ sample is a single-frame `Batch` of either package (`data/batch.py:frame`
 makes the port's), or a sequence (`meta.seq`) whose frames share one
 `param_index`. Undecoded JPEGs (`data/hdf5.py:RawJpegBuffer`) are decoded
 on `decode_threads` threads: by cv2 (`jpeg_decode="host"`), or, with
-`jpeg_decode="device"` and every image of the batch undecoded, only
-entropy-decoded (`data/native_loader.py`), so that "image" holds a
-`JpegCoefficients` payload that the upload decodes on the card with K4
-(`kernels/jpeg.py`) into the same padded batch, bit for bit.
+`jpeg_decode="device"` and every image of the batch undecoded, only parsed
+(`data/native_loader.py:scan_batch`: markers, tables, the Y scan unstuffed),
+so that "image" holds a `JpegScans` payload that the upload decodes on the
+card, K5 (`kernels/jpeg_huffman.py`) then K4 (`kernels/jpeg.py`), into the
+same padded batch, bit for bit.
 
 `plan_batches` cuts a sampler's index stream (`data/sampling.py`) into
 batch plans of `batchsize` frames, carrying a sequence that does not fit
@@ -54,13 +55,14 @@ import torch
 from neuralnet_tracker_traincode_torch.data.fields import POSE_FIELD_CATEGORIES
 from neuralnet_tracker_traincode_torch.data.hdf5 import RawJpegBuffer
 from neuralnet_tracker_traincode_torch.data.native_loader import (
-    JpegCoefficients,
+    JpegScans,
     decode_mode,
-    entropy_decode,
     get_lib,
     payload_bytes_bound,
+    scan_batch,
 )
 from neuralnet_tracker_traincode_torch.device import DeviceLike, resolve_device
+from neuralnet_tracker_traincode_torch.kernels.jpeg_huffman import raise_for_status
 from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel, local_rows
 from neuralnet_tracker_traincode_torch.utils import ceil_to_multiple
 
@@ -114,9 +116,9 @@ def pack_fused_batch(
     numpy arrays. An image larger than `pad_size` grows this batch's padding
     to the next multiple of 64. Undecoded JPEGs are decoded on
     `decode_threads` threads (default: one); with `jpeg_decode="device"` a
-    batch of undecoded JPEGs only, entropy-decoded, is a `JpegCoefficients`
-    payload under "image" (ValueError naming the frame for a file the
-    entropy decoder refuses)."""
+    batch of undecoded JPEGs only, parsed, is a `JpegScans` payload under
+    "image" (ValueError naming the frame for a file the parser refuses; the
+    payload names its frames for the faults the card's decode finds)."""
     frames, frame_tags, frame_weights, param_index = [], [], [], []
     for si, s in enumerate(samples):
         start = len(frames)
@@ -137,7 +139,7 @@ def pack_fused_batch(
     if decode_mode(jpeg_decode) == "device" and all(isinstance(im, RawJpegBuffer) for im in raw):
         names = [f"frame {i} of the batch" + (f" (index {int(f['index'])})" if "index" in f else "")
                  for i, f in enumerate(frames)]
-        images = entropy_decode([im.buffer for im in raw], pad_size, threads, names)
+        images = scan_batch([im.buffer for im in raw], pad_size, threads, names)
     if images is None:
         first = _materialize(raw[0])
         images = np.zeros((B, pad_size, pad_size, first.shape[-1]), np.uint8)
@@ -293,7 +295,7 @@ def _agreed_padding(batches: Iterator[Dict[str, Any]], parallel: DataParallel) -
         for batch in batches:
             img = batch["image"]
             (pad,) = parallel.host_all_reduce([img.shape[1]], "max", torch.int64)
-            if isinstance(img, JpegCoefficients):
+            if isinstance(img, JpegScans):
                 batch = dict(batch, image=img.with_pad(pad))
             elif pad > img.shape[1]:
                 grown = np.zeros((img.shape[0], pad, pad) + img.shape[3:], img.dtype)
@@ -306,7 +308,7 @@ def _agreed_padding(batches: Iterator[Dict[str, Any]], parallel: DataParallel) -
 
 def _image_arrays(image) -> List[np.ndarray]:
     """The arrays that carry a batch's "image": the plane, or a payload's."""
-    return [np.asarray(a) for a in image.arrays] if isinstance(image, JpegCoefficients) else [image]
+    return [np.asarray(a) for a in image.arrays] if isinstance(image, JpegScans) else [image]
 
 
 def _shm_layout(arrays: Sequence[np.ndarray]) -> List[tuple]:
@@ -327,13 +329,14 @@ def _shm_bytes(layout: Sequence[tuple]) -> int:
 
 def shm_slot_bytes(batchsize: int, pad_size: int, jpeg_decode: str = "host") -> int:
     """A ring slot: the stamp's 64 bytes and the planned batch's image plane
-    at one uint8 channel or, decoding on the card, its JPEG payload at its
-    largest (`payload_bytes_bound`, each of its four arrays on a 64-byte
-    boundary). A batch that does not fit (its padding grew) goes through
-    the queue whole."""
+    at one uint8 channel or, decoding on the card, the room
+    `payload_bytes_bound` keeps for its JPEG scans (each of the payload's
+    five arrays on a 64-byte boundary). A batch that does not fit (its
+    padding grew, or its scans take more than SCAN_BYTES_PER_PIXEL bytes a
+    pixel) is not cut: it goes through the queue whole."""
     plane = batchsize * pad_size * pad_size
     if jpeg_decode == "device":
-        plane = max(plane, payload_bytes_bound(batchsize, pad_size) + 4 * _SHM_ALIGN)
+        plane = max(plane, payload_bytes_bound(batchsize, pad_size) + 5 * _SHM_ALIGN)
     return _SHM_ALIGN + plane
 
 
@@ -353,9 +356,9 @@ def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, p
 
     With `shm_name`, the image plane of each batch (or its JPEG payload's
     arrays) goes into the next slot of that shared-memory ring and the
-    message carries (slot, seq, the arrays' layout, the payload's padding or
-    None, the labels); a batch whose padding outgrew its slot goes through
-    the queue whole. The ring has qsize + 3 slots: at most qsize batches wait
+    message carries (slot, seq, the arrays' layout, the payload's padding,
+    names and counts or None, the labels); a batch that outgrew its slot
+    goes through the queue whole. The ring has qsize + 3 slots: at most qsize batches wait
     in the queue and one in a blocked put beyond the one the consumer copies
     out, so a slot is never rewritten before it is read. The slot's stamp is
     written before the image, so a lap would show on either side of the
@@ -409,8 +412,8 @@ def _process_worker_main(ds, in_q, out_q, batchsize, pad_size, decode_threads, p
                 np.ndarray((), np.int64, buffer=shm.buf, offset=offset)[...] = seq
                 for a, (off, shape, dtype) in zip(arrays, layout):
                     np.ndarray(shape, dtype, buffer=shm.buf, offset=offset + _SHM_ALIGN + off)[...] = a
-                pad = img.pad if isinstance(img, JpegCoefficients) else None
-                item = ("shm", slot, seq, layout, pad, {k: v for k, v in batch.items() if k != "image"})
+                info = (img.pad, img.names, img.counts) if isinstance(img, JpegScans) else None
+                item = ("shm", slot, seq, layout, info, {k: v for k, v in batch.items() if k != "image"})
             else:
                 item = batch
             seq += 1
@@ -448,9 +451,9 @@ class FusedBatchLoader:
 
     `jpeg_decode` ("host" or "device", `pack_fused_batch`) is resolved once
     (`$NNTC_NO_NATIVE` turns "device" into "host") and printed; in "device"
-    mode the entropy decoder is built here, before any worker starts, and
+    mode the host's parser is built here, before any worker starts, and
     the batches hold JPEG payloads that `device_prefetch` and
-    `device_prefetch_stacked` decode on the card (K4). A batch with a frame
+    `device_prefetch_stacked` decode on the card (K5, K4). A batch with a frame
     that is not an undecoded JPEG (another dataset mixed in) is decoded on
     the host all the same, as the JAX loader does; `host_decoded_batches`
     counts such batches, and the first one is printed.
@@ -476,7 +479,7 @@ class FusedBatchLoader:
         self.jpeg_decode = decode_mode(jpeg_decode)
         if self.jpeg_decode == "device":
             get_lib()  # a build failure raises here, not in a worker
-            print("loader: JPEG decode on the card (host entropy decode, then K4)")
+            print("loader: JPEG decode on the card (host parse, then K5 and K4)")
         else:
             print("loader: JPEG decode by cv2 on the host"
                   + (" ($NNTC_NO_NATIVE is set)" if jpeg_decode == "device" else ""))
@@ -526,7 +529,7 @@ class FusedBatchLoader:
         decoded images in "device" mode; the first is printed."""
         try:
             for batch in batches:
-                if not isinstance(batch["image"], JpegCoefficients):
+                if not isinstance(batch["image"], JpegScans):
                     self.host_decoded_batches += 1
                     if self.host_decoded_batches == 1:
                         print("loader: a batch holds frames that are not undecoded JPEGs, so it is decoded on the "
@@ -704,7 +707,7 @@ class FusedBatchLoader:
         def unpack(w, item):
             if not (isinstance(item, tuple) and len(item) == 6 and item[0] == "shm"):
                 return item
-            _, slot, seq, layout, pad, batch = item
+            _, slot, seq, layout, info, batch = item
             offset = slot * (shms[w].size // shm_slots)
             stamp = np.ndarray((), np.int64, buffer=shms[w].buf, offset=offset)
             if int(stamp) != seq:
@@ -714,7 +717,7 @@ class FusedBatchLoader:
             for off, shape, dtype in layout:
                 arrays.append(_host_array(shape, dtype))
                 arrays[-1][...] = np.ndarray(shape, np.dtype(dtype), buffer=shms[w].buf, offset=offset + _SHM_ALIGN + off)
-            batch["image"] = arrays[0] if pad is None else JpegCoefficients(*arrays, pad)
+            batch["image"] = arrays[0] if info is None else JpegScans(*arrays, *info)
             if int(stamp) != seq:
                 raise RuntimeError(f"shm ring lapped during the copy: worker {w} slot {slot} now holds seq "
                                    f"{int(stamp)}, expected {seq}")
@@ -786,20 +789,24 @@ class StackedBatch(dict):
         self.host = host
 
 
-def _to_device(value, dev: torch.device) -> torch.Tensor:
+def _to_device(value, dev: torch.device, checks: list) -> torch.Tensor:
     """A pinned field on `dev`, copied `non_blocking` on the current stream; a
-    JPEG payload uploaded and decoded by K4 on that stream; a list of K
-    planes or payloads (a stacked "image") into one (K, ...) tensor."""
-    if isinstance(value, JpegCoefficients):
-        return value.to(dev, non_blocking=True).decode()
+    JPEG payload uploaded and decoded by K5 and K4 on that stream (its
+    status and names appended to `checks`); a list of K planes or payloads
+    (a stacked "image") into one (K, ...) tensor."""
+    if isinstance(value, JpegScans):
+        images, status = value.to(dev, non_blocking=True).decode_async()
+        checks.append((status, value.names))
+        return images
     if isinstance(value, list):
         out = torch.empty((len(value),) + tuple(value[0].shape), dtype=torch.uint8, device=dev)
         for k, v in enumerate(value):
             if tuple(v.shape) != tuple(value[0].shape):
                 raise ValueError(f"batch {k} of a group has images of shape {tuple(v.shape)}, the first "
                                  f"{tuple(value[0].shape)}")
-            if isinstance(v, JpegCoefficients):
-                v.to(dev, non_blocking=True).decode(out=out[k])
+            if isinstance(v, JpegScans):
+                _, status = v.to(dev, non_blocking=True).decode_async(out=out[k])
+                checks.append((status, v.names))
             else:
                 out[k].copy_(v, non_blocking=True)
         return out
@@ -809,39 +816,53 @@ def _to_device(value, dev: torch.device) -> torch.Tensor:
 def _upload_ahead(pinned_items: Iterator[Dict[str, Any]], dev: torch.device, size: int, keep_host: bool):
     """The dicts of pinned host tensors of `pinned_items` on the card, each
     uploaded `non_blocking` on a side stream `size` items ahead of the
-    consumer, JPEG payloads decoded there by K4 after their upload; the
-    consuming stream waits on the side stream's event, recorded after the
-    last copy and launch, and each tensor is marked as used by it
+    consumer, JPEG payloads decoded there by K5 and K4 after their upload;
+    the consuming stream waits on the side stream's event, recorded after
+    the last copy and launch, and each tensor is marked as used by it
     (`record_stream`), so that the caching allocator does not hand its
-    memory out while the consumer still reads it."""
+    memory out while the consumer still reads it. K5's status words are
+    copied into pinned memory before the event; the host reads them once
+    the event has completed, as an item is handed on (the next item's upload
+    already queued behind it), and raises naming the image on a fault (a
+    decoded batch is never handed on with a fault)."""
     stream = torch.cuda.Stream(dev)
 
     def upload(pinned):
+        checks = []
         with torch.cuda.stream(stream):
-            out = {k: _to_device(v, dev) for k, v in pinned.items()}
+            out = {k: _to_device(v, dev, checks) for k, v in pinned.items()}
+            statuses = []
+            for status, names in checks:
+                host = torch.empty(status.shape, dtype=status.dtype, pin_memory=True)
+                host.copy_(status, non_blocking=True)
+                statuses.append((host, names))
             done = torch.cuda.Event()
             done.record(stream)
         if keep_host:
             out = StackedBatch(out, {k: v for k, v in pinned.items() if isinstance(v, torch.Tensor)})
-        return out, done
+        return out, done, statuses
 
     buf = collections.deque(upload(p) for p in itertools.islice(pinned_items, size))
     while buf:
-        out, done = buf.popleft()
+        out, done, statuses = buf.popleft()
+        nxt = next(pinned_items, None)  # queued before the host waits on this item, so the side stream keeps busy
+        if nxt is not None:
+            buf.append(upload(nxt))
+        if statuses:
+            done.synchronize()
+            for status, names in statuses:
+                raise_for_status(status, names)
         consumer = torch.cuda.current_stream(dev)
         consumer.wait_event(done)
         for t in out.values():
             t.record_stream(consumer)
-        nxt = next(pinned_items, None)
-        if nxt is not None:
-            buf.append(upload(nxt))
         yield out
 
 
 def _pinned(src):
     """`src` in pinned host memory: as it is where it lies there already
     (the shared-memory ring's copies), else copied."""
-    if isinstance(src, JpegCoefficients):
+    if isinstance(src, JpegScans):
         return src.pinned()
     src = torch.as_tensor(src)
     if src.is_pinned():
@@ -853,8 +874,9 @@ def _pinned(src):
 
 def _on_cpu_device(value, dev: torch.device) -> torch.Tensor:
     """A host field as a tensor on `dev` (not a card); a JPEG payload decoded
-    there by K4's plain version."""
-    if isinstance(value, JpegCoefficients):
+    there by K5's and K4's plain versions (a fault raises, naming the
+    image)."""
+    if isinstance(value, JpegScans):
         return value.to(dev).decode()
     return torch.as_tensor(value).to(dev)
 
@@ -867,7 +889,7 @@ def device_prefetch(iterator: Iterable[Dict[str, Any]], device: DeviceLike = Non
     On a card each host batch is copied into pinned memory when it arrives
     (the loader may then reuse its buffers) and uploaded as `_upload_ahead`
     says. On the CPU it is a plain conversion to tensors. A JPEG payload
-    under "image" becomes the padded uint8 batch (K4; its plain version on
+    under "image" becomes the padded uint8 batch (K5 and K4; their plain versions on
     the CPU)."""
     dev = resolve_device(device)
     it = iter(iterator)
@@ -910,7 +932,7 @@ def device_prefetch_stacked(iterator: Iterable[Dict[str, Any]], device: DeviceLi
     group is a `StackedBatch` that keeps its pinned host tensors; the images
     are uploaded batch by batch from their own pinned memory into row k of
     the group's (K, B, pad, pad, 1) image tensor, and a JPEG payload is
-    decoded there by K4."""
+    decoded there by K5 and K4."""
     dev = resolve_device(device)
     k = int(steps_per_dispatch)
     it = iter(iterator)

@@ -78,21 +78,49 @@ void gaussian_noise_from_bits(torch::Tensor x, torch::Tensor bits1, torch::Tenso
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void jpeg_idct_pack(torch::Tensor coeffs, torch::Tensor block_start, torch::Tensor qtables, torch::Tensor meta,
+void jpeg_idct_pack(torch::Tensor slots, torch::Tensor lens, torch::Tensor qtables, torch::Tensor meta,
                     torch::Tensor out, int64_t pad) {
-    check(coeffs, torch::kInt16, "coeffs");
-    check(block_start, torch::kInt32, "block_start");
+    check(slots, torch::kInt16, "slots");
+    check(lens, torch::kUInt8, "lens");
     check(qtables, torch::kInt32, "qtables");
     check(meta, torch::kInt32, "meta");
     check(out, torch::kUInt8, "out");
-    TORCH_CHECK(coeffs.dim() == 1 && block_start.dim() == 1 && block_start.size(0) >= 1 && meta.dim() == 2 &&
-                meta.size(1) == 4 && qtables.dim() == 2 && qtables.size(0) == meta.size(0) && qtables.size(1) == 64);
+    TORCH_CHECK(slots.dim() == 2 && slots.size(1) == 64 && lens.dim() == 1 && lens.size(0) == slots.size(0) &&
+                meta.dim() == 2 && meta.size(1) >= 4 && qtables.dim() == 2 && qtables.size(0) == meta.size(0) &&
+                qtables.size(1) == 64);
     TORCH_CHECK(out.numel() == meta.size(0) * pad * pad, "out must hold N x pad x pad bytes");
-    const c10::cuda::CUDAGuard guard(coeffs.device());
-    C10_CUDA_CHECK(nntc_jpeg_idct_pack(coeffs.data_ptr<int16_t>(), block_start.data_ptr<int32_t>(),
+    const c10::cuda::CUDAGuard guard(slots.device());
+    C10_CUDA_CHECK(nntc_jpeg_idct_pack(slots.data_ptr<int16_t>(), lens.data_ptr<uint8_t>(),
                                        qtables.data_ptr<int32_t>(), meta.data_ptr<int32_t>(), out.data_ptr<uint8_t>(),
-                                       (long)coeffs.size(0), (long)block_start.size(0) - 1, (int)meta.size(0),
-                                       (int)pad, at::cuda::getCurrentCUDAStream()));
+                                       (long)slots.size(0), (int)meta.size(1), (int)meta.size(0), (int)pad,
+                                       at::cuda::getCurrentCUDAStream()));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void jpeg_huffman_decode(torch::Tensor scan, torch::Tensor intervals, torch::Tensor tables, torch::Tensor meta,
+                         torch::Tensor slots, torch::Tensor lens, torch::Tensor status, torch::Tensor stats,
+                         torch::Tensor scratch, int64_t subsequence_bits, int64_t subs, int64_t intervals_total) {
+    check(scan, torch::kUInt8, "scan");
+    check(intervals, torch::kInt32, "intervals");
+    check(tables, torch::kInt32, "tables");
+    check(meta, torch::kInt32, "meta");
+    check(slots, torch::kInt16, "slots");
+    check(lens, torch::kUInt8, "lens");
+    check(status, torch::kInt32, "status");
+    check(stats, torch::kInt32, "stats");
+    check(scratch, torch::kInt64, "scratch");
+    const int64_t N = meta.size(0);
+    TORCH_CHECK(scan.dim() == 1 && intervals.dim() == 2 && intervals.size(1) == 4 && tables.dim() == 2 &&
+                tables.size(1) == 804 && meta.dim() == 2 && meta.size(1) == 34 && slots.dim() == 2 &&
+                slots.size(1) == 64 && lens.numel() == slots.size(0) && status.numel() == 4 * N &&
+                stats.numel() == 3 * N);
+    TORCH_CHECK(scratch.numel() >= 5 * subs + intervals_total + N, "scratch too small");
+    const c10::cuda::CUDAGuard guard(scan.device());
+    C10_CUDA_CHECK(nntc_jpeg_huffman_decode(
+        scan.data_ptr<uint8_t>(), intervals.data_ptr<int32_t>(), tables.data_ptr<int32_t>(), meta.data_ptr<int32_t>(),
+        slots.data_ptr<int16_t>(), lens.data_ptr<uint8_t>(), status.data_ptr<int32_t>(), stats.data_ptr<int32_t>(),
+        reinterpret_cast<long long*>(scratch.data_ptr<int64_t>()), (int)N, (int)subsequence_bits, (long)subs,
+        (long)intervals_total, at::cuda::getCurrentCUDAStream()));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -104,4 +132,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("gaussian_noise", &gaussian_noise, "K3: Philox-seeded gaussian noise, clip, + offset");
     m.def("gaussian_noise_from_bits", &gaussian_noise_from_bits, "K3: gaussian noise from injected bits");
     m.def("jpeg_idct_pack", &jpeg_idct_pack, "K4: JPEG dequantize, ISLOW IDCT, range limit, zero-padded batch");
+    m.def("jpeg_huffman_decode", &jpeg_huffman_decode, "K5: JPEG Huffman decode of the Y scans into K4's slots");
 }

@@ -1,59 +1,72 @@
-// K4: the JPEG decode's device half, by hand for Hopper (sm_90a).
+// K4: the JPEG decode's IDCT half, by hand for Hopper (sm_90a).
 //
 // Replaces: no Pallas kernel. Its counterpart in the JAX package is the host
 // decode of neuralnet_tracker_traincode_tpu/data/native_loader.py:
 // pack_jpeg_batch_gray (native/nntc_loader.cpp:nntc_pack_batch_gray, libjpeg
 // to JCS_GRAYSCALE straight into the zero-padded batch). Here the host only
-// entropy-decodes (data/csrc/jpeg_entropy.cpp); this kernel does the rest.
+// parses, K5 (jpeg_huffman.cu) decodes the scans, and this kernel does the
+// rest.
 //
-// What it computes, for image n of the payload (meta[n] = height, width,
+// What it computes, for image n (meta[n * meta_cols + 0..3] = height, width,
 // block-grid width gw = ceil(w/8), first block) and each 8x8 tile (ty, tx) of
-// its pad x pad slot: where the tile lies in the ceil(h/8) x gw block grid,
-// the block's pixels (dequantize, libjpeg-turbo's ISLOW IDCT, + 128, range
-// limit), zeroed outside (h, w); elsewhere zeros. A block is its run of
-// coefficients in zigzag order up to its last nonzero one,
-// coeffs[block_start[b] .. block_start[b + 1]), the rest zero. The arithmetic is what
+// its pad x pad slot of out (N, pad, pad) uint8: where the tile lies in the
+// ceil(h/8) x gw block grid, the block's pixels (dequantize, libjpeg-turbo's
+// ISLOW IDCT, + 128, range limit), zeroed outside (h, w); elsewhere zeros.
+// Block b is slots[b][0 .. lens[b]) in zigzag order (K5's slots: what lies
+// past the length is not read), the rest zero. The arithmetic is what
 // libjpeg-turbo's x86 SIMD ISLOW (jidctint-sse2/avx2) computes, as cv2 and the
 // JAX package's libjpeg run it (kernels/jpeg.py says where that departs from
 // jidctint.c's 64-bit C: 16-bit dequantization and input sums, a saturating
 // column pass but for the DC-only shortcut, a saturating range limit). All of
-// it fits 32-bit integers: products of 16-bit values by 15-bit constants,
-// sums below 2^31. No floating point.
+// it fits 32-bit integers. No floating point.
 //
-// What bounds it on the H100: memory. It writes 1 byte a pixel of the slot
-// and reads each block's run and start: at 64 x 448^2, 12.8 MB written and,
-// for phase 12a's frames (mostly flat, a run of about one coefficient a
-// block), 1.7 MB read, 0.0043 ms at 3.35 TB/s; with every coefficient set
-// (noise) 26.5 MB more, 0.0117 ms. The integer work that a payload needs
-// (chip_smoke.py:k4_work: a DC-only block is one value, a full block two
-// passes) is 0.015 G operations on phase 12a's frames and 0.30 G on noise,
-// 0.0005 and 0.0090 ms at 33.5 TOP/s. What the design does about it:
-//   - a CTA of 256 threads takes 32 consecutive tiles of one image's slot
-//     (grid: ceil(tiles / 32) x N); thread t handles row / column t >> 5 of
-//     tile t & 31;
-//   - each thread zeroes its row of the block in shared memory, then loads
-//     zigzag entries 8r .. 8r + 7 of its block's run where the run has them
-//     and scatters them, dequantized (int32), to their natural places, at a
-//     stride of 65 words a block so that the column pass (a warp: one column
-//     of 32 blocks) and the row pass (one row of 32 blocks) read without bank
-//     conflicts;
-//   - the column pass works in place in shared memory, the row pass in
-//     registers; each thread writes its row's 8 pixels as one 8-byte store,
-//     so a warp writes 256 consecutive bytes of an output row where its 32
-//     tiles share a tile row;
-//   - tiles outside the block grid load nothing and write zeros: the padding
-//     costs only its write.
-// A simple design: no TMA, no overlap of loads with the passes.
+// Its bound on the H100 is memory: it writes 1 byte a pixel of the slot
+// (12.8 MB at 64 x 448^2) and reads each block's 32-byte sectors up to its
+// length (one for a flat block, four for a dense one) and its length byte
+// (chip_smoke.py:k4_work counts them, and the integer work a payload needs).
+// It runs at about 4x that bound: the passes' integer and shared-memory work
+// a block, not HBM, sets its time. Persistent designs with CTA-wide items
+// and barriers were slower; this one is on par with the earlier one-CTA-a-
+// tile-run design on flat frames and slower on dense ones
+// (jpeg_idct_tiles.cu, chip_smoke_jpeg_designs.py, PERF.md). The design:
+//   - persistent CTAs, four per SM, of 8 warps; each warp walks its own work
+//     items, an item 8 blocks (64 pixels) of an 8-row strip of one image's
+//     slot, the grid's warps taking an item each in turn (a warp along whole
+//     strips left warps idle and was slower, PERF.md), and no CTA-wide
+//     barrier stalls a warp: the warps of an SM hide each other's latency;
+//   - each item's slots are staged into the warp's shared memory by 16-byte
+//     cp.async copies of only the chunks up to each block's length (four
+//     lanes a block, two chunks each), with the image's quantization table,
+//     double-buffered: the next item's copies are in flight while this
+//     item's passes run, and the lengths of the item after it are loaded
+//     meanwhile (a length decides its block's copies, so it is loaded one
+//     item ahead of them);
+//   - the work follows the data: a block whose slot is its DC alone (most
+//     of a flat frame) is one value for its 64 pixels, computed once, with
+//     no scatter and no passes; other blocks are dequantized a 16-byte chunk
+//     a lane to natural order (65 words a block against bank conflicts),
+//     the column pass in place, the row pass in registers into the item's
+//     8 x 64 pixels;
+//   - each of the item's 8 output rows, the padding's zeros included, is
+//     written as 16-byte stores along the row (byte stores where pad is not a
+//     multiple of 16); tiles outside the block grid load nothing.
+
+#include <cuda_pipeline.h>
 
 #include "nntc_kernels.h"
 
 namespace {
 
-constexpr int kTiles = 32;           // tiles (8x8 blocks) a CTA
-constexpr int kThreads = kTiles * 8;  // one thread a row (column) of each tile
-constexpr int kStride = 65;          // shared words a block: 64 + 1 against bank conflicts
+constexpr int kWarps = 8;  // warps a CTA, each walking its own items
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCtasPerSm = 4;
+constexpr int kItemBlocks = 8;              // blocks (8-pixel columns) an item
+constexpr int kItemBytes = kItemBlocks * 8;  // 64 pixels
+constexpr int kStride = 65;                 // shared words a block: 64 + 1 against bank conflicts
+static_assert(32 == 4 * kItemBlocks, "four lanes stage a block's chunks");
 
 constexpr int CONST_BITS = 13, PASS1_BITS = 2;
+constexpr int ROW_SHIFT = CONST_BITS + PASS1_BITS + 3;  // the row pass's DESCALE
 __constant__ uint8_t kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
                                     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
                                     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
@@ -95,110 +108,224 @@ __device__ __forceinline__ void islow_pass(const int (&in)[8], int (&out)[8]) {
     out[4] = (t13 - t0 + half) >> shift;
 }
 
-__global__ void __launch_bounds__(kThreads) jpeg_idct_pack_kernel(const int16_t* __restrict__ coeffs,
-                                                                  const int32_t* __restrict__ block_start,
-                                                                  const int32_t* __restrict__ qtables,
-                                                                  const int32_t* __restrict__ meta,
-                                                                  uint8_t* __restrict__ out, long num_coeffs,
-                                                                  long num_blocks, int pad, int tiles_x,
-                                                                  int tiles) {
-    __shared__ int blk[kTiles * kStride];
-    __shared__ int has_ac[kTiles];
+// The pixel (range-limited, + 128) of every place of a block whose slot is
+// its DC `c` alone, dequantized by `q0`: the column pass's shortcut gives
+// its first column low16(dc * 4) and the others zero, so each row pass sees
+// (x, 0, ..., 0) and yields (x * 2^13 + half) >> ROW_SHIFT at all 8 places.
+__device__ __forceinline__ int dc_only_pixel(int c, int q0) {
+    const int x = low16(low16(c * q0) * (1 << PASS1_BITS));
+    return max(-128, min(127, (x * (1 << CONST_BITS) + (1 << (ROW_SHIFT - 1))) >> ROW_SHIFT)) + 128;
+}
 
-    const int n = blockIdx.y;
-    const int b = threadIdx.x & (kTiles - 1);  // the tile of this CTA
-    const int r = threadIdx.x >> 5;            // row (load, row pass) or column (column pass)
-    const int tile = blockIdx.x * kTiles + b;
-    const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
-    const int h = __ldg(meta + 4 * n), w = __ldg(meta + 4 * n + 1);
-    const int gw = __ldg(meta + 4 * n + 2);
-    const long first = __ldg(meta + 4 * n + 3);
-    const long block = first + static_cast<long>(ty) * gw + tx;
-    bool has_block = tile < tiles && ty < (h + 7) / 8 && tx < gw && block >= 0 && block < num_blocks;
-    int start = 0, len = 0;
-    if (has_block) {
-        start = __ldg(block_start + block);
-        len = __ldg(block_start + block + 1) - start;
-        has_block = start >= 0 && len >= 1 && len <= 64 && start + len <= num_coeffs;
+struct Item {
+    int n, by, seg, blocks;  // image, block row, segment; blocks of the grid in it (0: zeros)
+    int h, w;                // the image's height and width
+    long first;              // its first block in the slots
+};
+
+__device__ __forceinline__ Item item_of(int item, const int32_t* __restrict__ meta, int meta_cols, int strips,
+                                        int segs) {
+    Item it;
+    it.seg = item % segs;
+    const int rest = item / segs;
+    it.by = rest % strips;
+    it.n = rest / strips;
+    const int32_t* m = meta + static_cast<long>(it.n) * meta_cols;
+    it.h = __ldg(m);
+    it.w = __ldg(m + 1);
+    const int gw = __ldg(m + 2);
+    const int bx0 = it.seg * kItemBlocks;
+    it.blocks = it.by < (it.h + 7) / 8 && bx0 < gw ? min(kItemBlocks, gw - bx0) : 0;
+    it.first = __ldg(m + 3) + static_cast<long>(it.by) * gw + bx0;
+    return it;
+}
+
+// The length (1-64; 0: no block) of block lane / 4 of `it`, loaded one item
+// ahead of its copies.
+__device__ __forceinline__ int item_len(const Item& it, bool valid, int lane, const uint8_t* __restrict__ lens,
+                                        long num_blocks) {
+    const int i = lane >> 2;
+    if (!valid || i >= it.blocks) return 0;
+    const long b = it.first + i;
+    return b < num_blocks ? max(1, min(64, static_cast<int>(__ldg(lens + b)))) : 0;
+}
+
+// A warp's shared memory: two items' staging, one item's blocks and pixels.
+struct WarpShared {
+    int4 stage[2][kItemBlocks * 8];  // each block's 64 coefficients, as 8 chunks of 16 bytes
+    int32_t q[2][64];                // the item's quantization table
+    int blk[kItemBlocks * kStride];  // dequantized, natural order, then the column pass's output
+    __align__(16) uint8_t px[8][kItemBytes];
+    int dcv[kItemBlocks];  // a DC-only block's pixel
+    int has_ac[kItemBlocks];
+    uint8_t slen[2][kItemBlocks];
+};
+
+// Put `it`'s slot chunks up to each block's length in flight into the
+// warp's buffer `b` (16-byte cp.async; lane l: block l / 4, chunks 2 (l % 4)
+// and the next), its image's quantization table, the lengths into `slen`;
+// one commit a lane.
+__device__ __forceinline__ void stage_item(WarpShared& ws, int b, const Item& it, bool valid, int len, int lane,
+                                           const int16_t* __restrict__ slots, const int32_t* __restrict__ qtables) {
+    const int i = lane >> 2, c0 = (lane & 3) * 2;
+    if ((lane & 3) == 0) ws.slen[b][i] = static_cast<uint8_t>(len);
+    const int4* src = reinterpret_cast<const int4*>(slots + (it.first + i) * 64);
+    for (int c = c0; c < c0 + 2 && c * 8 < len; ++c) __pipeline_memcpy_async(&ws.stage[b][i * 8 + c], &src[c], 16);
+    if (valid && it.blocks) {
+        __pipeline_memcpy_async(&ws.q[b][lane], qtables + it.n * 64 + lane, 4);
+        __pipeline_memcpy_async(&ws.q[b][lane + 32], qtables + it.n * 64 + lane + 32, 4);
     }
-    int* s = blk + b * kStride;
+    __pipeline_commit();
+}
 
+__global__ void __launch_bounds__(kThreads, kCtasPerSm) jpeg_idct_pack_kernel(
+    const int16_t* __restrict__ slots, const uint8_t* __restrict__ lens, const int32_t* __restrict__ qtables,
+    const int32_t* __restrict__ meta, uint8_t* __restrict__ out, long num_blocks, int meta_cols, int pad,
+    int strips, int segs, int items) {
+    __shared__ WarpShared shared[kWarps];
+    __shared__ uint8_t zz[64];
+
+    const int lane = threadIdx.x & 31;
+    WarpShared& ws = shared[threadIdx.x >> 5];
+    if (threadIdx.x < 64) zz[threadIdx.x] = kZigzag[threadIdx.x];
+    __syncthreads();  // the one CTA-wide barrier
+    const int stride = gridDim.x * kWarps;
+    int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    int buf = 0;
+    Item it = item_of(item < items ? item : 0, meta, meta_cols, strips, segs);
+    stage_item(ws, 0, it, item < items, item_len(it, item < items, lane, lens, num_blocks), lane, slots, qtables);
+    int next = item + stride;
+    Item nx = item_of(next < items ? next : 0, meta, meta_cols, strips, segs);
+    int nx_len = item_len(nx, next < items, lane, lens, num_blocks);
+    while (item < items) {
+        stage_item(ws, buf ^ 1, nx, next < items, nx_len, lane, slots, qtables);
+        const int after = next + stride;  // its lengths in flight while this item runs
+        const Item af = item_of(after < items ? after : 0, meta, meta_cols, strips, segs);
+        const int af_len = item_len(af, after < items, lane, lens, num_blocks);
+        if (lane < kItemBlocks) ws.has_ac[lane] = 0;
+        __pipeline_wait_prior(1);  // this item's chunks (each lane waits for its own copies)
+        __syncwarp();
+
+        // dequantize: task (block i, group g) takes zigzag entries 8g .. 8g + 7 (one 16-byte chunk), zero
+        // past the length; a block of its DC alone: its one pixel value
+        const uint8_t* ln = ws.slen[buf];
+        const int32_t* q = ws.q[buf];
+        for (int task = lane; task < it.blocks * 8; task += 32) {
+            const int i = task >> 3, g = task & 7;
+            const int len = ln[i];
+            if (len <= 1) {
+                if (len == 1 && g == 0)
+                    ws.dcv[i] = dc_only_pixel(reinterpret_cast<const int16_t*>(&ws.stage[buf][i * 8])[0], q[0]);
+                continue;
+            }
+            const int4 chunk = g * 8 < len ? ws.stage[buf][i * 8 + g] : make_int4(0, 0, 0, 0);
+            const uint32_t wd[4] = {static_cast<uint32_t>(chunk.x), static_cast<uint32_t>(chunk.y),
+                                    static_cast<uint32_t>(chunk.z), static_cast<uint32_t>(chunk.w)};
+            int* s = ws.blk + i * kStride;
+            bool ac = false;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s[r * 8 + k] = 0;
-    if (r == 0) has_ac[b] = 0;
-    __syncthreads();
-    if (has_block) {  // zigzag entries 8r .. 8r + 7 of the run, dequantized, to their natural places
-        const int32_t* q = qtables + n * 64;
-        bool ac = false;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            const int j = r * 8 + k;
-            if (j < len) {
-                const int c = __ldg(coeffs + start + j);
-                const int p = kZigzag[j];
-                s[p] = low16(c * __ldg(q + p));
+            for (int j = 0; j < 8; ++j) {
+                const int z = g * 8 + j;
+                const int c = z < len ? static_cast<int16_t>(wd[j >> 1] >> (16 * (j & 1))) : 0;
+                const int p = zz[z];
+                s[p] = low16(c * q[p]);
                 ac |= p >= 8 && c != 0;
             }
+            if (ac) ws.has_ac[i] = 1;
         }
-        if (ac) has_ac[b] = 1;
-    }
-    __syncthreads();
+        __syncwarp();
 
-    // column pass, in place: thread (b, r) takes column r
-    if (has_block) {
-        int in[8], o[8];
-        if (has_ac[b]) {
+        // column pass, in place: task (column c, block i), the blocks with terms past their DC
+        for (int task = lane; task < kItemBlocks * 8; task += 32) {
+            const int i = task & (kItemBlocks - 1), c = task / kItemBlocks;
+            if (i >= it.blocks || ln[i] <= 1) continue;
+            int* s = ws.blk + i * kStride;
+            if (ws.has_ac[i]) {
+                int in[8], o[8];
 #pragma unroll
-            for (int k = 0; k < 8; ++k) in[k] = s[k * 8 + r];
-            islow_pass<CONST_BITS - PASS1_BITS>(in, o);
+                for (int k = 0; k < 8; ++k) in[k] = s[k * 8 + c];
+                islow_pass<CONST_BITS - PASS1_BITS>(in, o);
 #pragma unroll
-            for (int k = 0; k < 8; ++k) s[k * 8 + r] = sat16(o[k]);
-        } else {  // rows 1-7 all zero: the column is its DC times 4, low 16 bits
-            const int dc = low16(s[r] * (1 << PASS1_BITS));
+                for (int k = 0; k < 8; ++k) s[k * 8 + c] = sat16(o[k]);
+            } else {  // rows 1-7 all zero: the column is its DC times 4, low 16 bits
+                const int dc = low16(s[c] * (1 << PASS1_BITS));
 #pragma unroll
-            for (int k = 0; k < 8; ++k) s[k * 8 + r] = dc;
+                for (int k = 0; k < 8; ++k) s[k * 8 + c] = dc;
+            }
         }
-    }
-    __syncthreads();
+        __syncwarp();
 
-    // row pass: thread (b, r) takes row r, and writes it
-    const int y = ty * 8 + r;
-    if (tile >= tiles || y >= pad) return;
-    uint32_t px[2] = {0u, 0u};  // the row's 8 pixels, little-endian
-    if (has_block) {
-        int in[8], o[8];
+        // row pass: task (row r, 8-pixel column i of the item) writes its 8 pixels
+        for (int task = lane; task < kItemBlocks * 8; task += 32) {
+            const int i = task & (kItemBlocks - 1), r = task / kItemBlocks;
+            const int y = it.by * 8 + r, x0 = (it.seg * kItemBlocks + i) * 8;
+            const int len = i < it.blocks ? ln[i] : 0;
+            uint32_t lo = 0u, hi = 0u;
+            if (len == 1) {
+                const uint32_t v = static_cast<uint32_t>(ws.dcv[i]);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) in[k] = s[r * 8 + k];
-        islow_pass<CONST_BITS + PASS1_BITS + 3>(in, o);
+                for (int k = 0; k < 8; ++k) {
+                    const uint32_t p = y < it.h && x0 + k < it.w ? v : 0u;
+                    if (k < 4) lo |= p << (8 * k); else hi |= p << (8 * (k - 4));
+                }
+            } else if (len) {
+                int in[8], o[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            const bool inside = y < h && tx * 8 + k < w;
-            const uint32_t v = inside ? static_cast<uint32_t>(max(-128, min(127, o[k])) + 128) : 0u;
-            px[k >> 2] |= v << (8 * (k & 3));
+                for (int k = 0; k < 8; ++k) in[k] = ws.blk[i * kStride + r * 8 + k];
+                islow_pass<ROW_SHIFT>(in, o);
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                    const bool inside = y < it.h && x0 + k < it.w;
+                    const uint32_t v = inside ? static_cast<uint32_t>(max(-128, min(127, o[k])) + 128) : 0u;
+                    if (k < 4) lo |= v << (8 * k); else hi |= v << (8 * (k - 4));
+                }
+            }
+            *reinterpret_cast<uint2*>(&ws.px[r][i * 8]) = make_uint2(lo, hi);
         }
-    }
-    uint8_t* row = out + (static_cast<long>(n) * pad + y) * pad + tx * 8;
-    if ((pad & 7) == 0) {
-        *reinterpret_cast<uint2*>(row) = make_uint2(px[0], px[1]);
-    } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            if (tx * 8 + k < pad) row[k] = static_cast<uint8_t>(px[k >> 2] >> (8 * (k & 3)));
+        __syncwarp();
+
+        // the item's 8 rows along its width, the padding included (the next item's row pass writes px only
+        // after two more of the warp's barriers)
+        const int x_begin = it.seg * kItemBytes, width = min(kItemBytes, pad - x_begin);
+        const int rows = min(8, pad - it.by * 8);
+        uint8_t* dst = out + (static_cast<long>(it.n) * pad + it.by * 8) * pad + x_begin;
+        if ((pad & 15) == 0) {
+            const int r = lane >> 2, v = lane & 3;
+            if (r < rows && v * 16 < width)
+                *reinterpret_cast<int4*>(dst + static_cast<long>(r) * pad + v * 16) =
+                    *reinterpret_cast<const int4*>(&ws.px[r][v * 16]);
+        } else {
+            for (int task = lane; task < rows * width; task += 32) {
+                const int r = task / width, x = task - r * width;
+                dst[static_cast<long>(r) * pad + x] = ws.px[r][x];
+            }
         }
+        item = next;
+        it = nx;
+        next = after;
+        nx = af;
+        nx_len = af_len;
+        buf ^= 1;
     }
+    __pipeline_wait_prior(0);
 }
 
 }  // namespace
 
-cudaError_t nntc_jpeg_idct_pack(const int16_t* coeffs, const int32_t* block_start, const int32_t* qtables,
-                                const int32_t* meta, uint8_t* out, long num_coeffs, long num_blocks, int N, int pad,
+cudaError_t nntc_jpeg_idct_pack(const int16_t* slots, const uint8_t* lens, const int32_t* qtables,
+                                const int32_t* meta, uint8_t* out, long num_blocks, int meta_cols, int N, int pad,
                                 cudaStream_t stream) {
-    const int tiles_x = (pad + 7) / 8;
-    const int tiles = tiles_x * tiles_x;
     if (N <= 0 || pad <= 0) return cudaSuccess;
-    if (N > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((tiles + kTiles - 1) / kTiles, N);
-    jpeg_idct_pack_kernel<<<grid, kThreads, 0, stream>>>(coeffs, block_start, qtables, meta, out, num_coeffs,
-                                                         num_blocks, pad, tiles_x, tiles);
+    if (meta_cols < 4 || reinterpret_cast<uintptr_t>(slots) % 16) return cudaErrorInvalidValue;
+    const int strips = (pad + 7) / 8;
+    const int segs = (strips + kItemBlocks - 1) / kItemBlocks;
+    const long items = static_cast<long>(N) * strips * segs;
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long grid = min((items + kWarps - 1) / kWarps, static_cast<long>(kCtasPerSm) * max(sms, 1));
+    if (items + 2 * grid * kWarps > 0x7fffffffL) return cudaErrorInvalidValue;
+    jpeg_idct_pack_kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+        slots, lens, qtables, meta, out, num_blocks, meta_cols, pad, strips, segs, static_cast<int>(items));
     return cudaGetLastError();
 }

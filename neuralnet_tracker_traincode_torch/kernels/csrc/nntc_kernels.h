@@ -37,14 +37,26 @@ cudaError_t nntc_gaussian_noise_from_bits(const float* x, const int32_t* bits1, 
                                           const float* sigma, float* out, int B, int P,
                                           cudaStream_t stream);
 
-// K4: the JPEG decode's device half. For image n of N (meta (N, 4) int32:
-// height, width, block-grid width ceil(w/8), first block) and every 8x8 tile
-// of its pad x pad slot of out (N, pad, pad) uint8: the block's pixels
-// (dequantized by qtables (N, 64) int32, libjpeg-turbo's ISLOW IDCT, + 128,
-// range limit) inside (h, w), zeros elsewhere. Block b is its coefficients in
-// zigzag order up to its last nonzero one, coeffs[block_start[b] ..
-// block_start[b + 1]) (num_coeffs int16; block_start num_blocks + 1 int32).
-// Returns cudaErrorInvalidValue for more than 65,535 images.
-cudaError_t nntc_jpeg_idct_pack(const int16_t* coeffs, const int32_t* block_start, const int32_t* qtables,
-                                const int32_t* meta, uint8_t* out, long num_coeffs, long num_blocks, int N, int pad,
+// K4: the JPEG decode's IDCT half. For image n of N (meta (N, meta_cols)
+// int32, columns 0-3: height, width, block-grid width ceil(w/8), first
+// block) and every 8x8 tile of its pad x pad slot of out (N, pad, pad) uint8:
+// the block's pixels (dequantized by qtables (N, 64) int32, libjpeg-turbo's
+// ISLOW IDCT, + 128, range limit) inside (h, w), zeros elsewhere. Block b is
+// slots[b][0 .. lens[b]) in zigzag order (slots (num_blocks, 64) int16,
+// 16-byte aligned; lens clamped to 1-64), the rest zero. Returns
+// cudaErrorInvalidValue for fewer than 4 meta columns or unaligned slots.
+cudaError_t nntc_jpeg_idct_pack(const int16_t* slots, const uint8_t* lens, const int32_t* qtables,
+                                const int32_t* meta, uint8_t* out, long num_blocks, int meta_cols, int N, int pad,
                                 cudaStream_t stream);
+
+// K5: the Huffman decode of N images' Y scans (kernels/jpeg_huffman.py says
+// what the arrays hold): scan (bytes, 4-byte aligned), intervals (NI, 4),
+// tables (T, 804), meta (N, 34) int32 in; slots (num_blocks, 64) int16, lens
+// (num_blocks,) uint8, status (N, 4) and stats (N, 5) int32 out; scratch
+// int64: 5 * subs + intervals_total + N + the Y blocks' count, subs the
+// subsequences' bound at subsequence_bits (a multiple of 32). One CTA per
+// image. Returns cudaErrorInvalidValue for an unaligned scan or S < 32.
+cudaError_t nntc_jpeg_huffman_decode(const uint8_t* scan, const int32_t* intervals, const int32_t* tables,
+                                     const int32_t* meta, int16_t* slots, uint8_t* lens, int32_t* status,
+                                     int32_t* stats, long long* scratch, int N, int subsequence_bits, long subs,
+                                     long intervals_total, cudaStream_t stream);

@@ -31,16 +31,18 @@ such files.
 tensor and raises on anything else but a CPU tensor, for which it runs
 `idct_pack_plain`, the same function in plain PyTorch integer ops.
 
-The payload (`data/native_loader.py:JpegCoefficients`): `coeffs` (NC,)
-int16, each block's coefficients in zigzag order up to its last nonzero one
-(at least the DC), the blocks one after another; `block_start` (NB + 1,)
-int32, where each block's run starts; `qtables` (N, 64) int32, each image's
-table in natural order; `meta` (N, 4) int32, each image's height, width,
-block-grid width ceil(w / 8) and first block (its ceil(w/8) x ceil(h/8)
-blocks follow in raster order).
+Its input is K5's output (`kernels/jpeg_huffman.py`): `slots` (NB, 64)
+int16, each Y block's coefficients in zigzag order up to its last nonzero
+one (what lies past `lens[b]` is not read and may be anything); `lens`
+(NB,) uint8, each block's count, 1 to 64; `qtables` (N, 64) int32, each
+image's table in natural order; `meta` (N, M) int32, M >= 4, whose first
+four columns are each image's height, width, block-grid width ceil(w / 8)
+and first block (its ceil(w/8) x ceil(h/8) blocks follow in raster order).
+`runs_to_slots` lays the host entropy decoder's runs
+(`data/native_loader.py:JpegCoefficients`) out so.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -114,6 +116,33 @@ def idct_blocks_plain(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tenso
     return (out.clamp(-128, 127) + 128).to(torch.uint8)
 
 
+def runs_to_slots(coeffs: torch.Tensor, block_start: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host entropy decoder's runs (block b is coeffs[block_start[b] ..
+    block_start[b + 1]), zigzag order) as (slots (NB, 64) int16, lens (NB,)
+    uint8), the entries past each run zero; on the runs' device, without a
+    read-back."""
+    starts = block_start.to(torch.int64)
+    lens = starts[1:] - starts[:-1]
+    nb = lens.shape[0]
+    total = coeffs.shape[0]
+    block = torch.repeat_interleave(torch.arange(nb, device=coeffs.device), lens, output_size=total)
+    z = torch.arange(total, device=coeffs.device) - torch.repeat_interleave(starts[:-1] - starts[0], lens,
+                                                                             output_size=total)
+    slots = torch.zeros((nb, 64), dtype=torch.int16, device=coeffs.device)
+    slots.view(-1)[block * 64 + z] = coeffs[:total]
+    return slots, lens.to(torch.uint8)
+
+
+def slot_blocks(slots: torch.Tensor, lens: torch.Tensor, first: int, count: int) -> torch.Tensor:
+    """Blocks `first` .. `first + count` of K5's slots as (count, 64) int64
+    coefficients in natural order (each past its length zero)."""
+    z = slots[first:first + count].to(torch.int64)
+    z = torch.where(torch.arange(64, device=slots.device) < lens[first:first + count, None].to(torch.int64), z, 0)
+    dense = torch.zeros_like(z)
+    dense[:, torch.as_tensor(ZIGZAG, device=slots.device)] = z
+    return dense
+
+
 def _output(meta: torch.Tensor, pad: int, out: Optional[torch.Tensor], device) -> torch.Tensor:
     shape = (meta.shape[0], pad, pad, 1)
     if out is None:
@@ -124,60 +153,61 @@ def _output(meta: torch.Tensor, pad: int, out: Optional[torch.Tensor], device) -
     return out
 
 
-def _check_shapes(coeffs, block_start, qtables, meta):
-    if coeffs.dim() != 1 or block_start.dim() != 1 or meta.dim() != 2 or meta.shape[1] != 4 \
-            or tuple(qtables.shape) != (meta.shape[0], 64):
-        raise ValueError(f"bad payload shapes: coeffs {tuple(coeffs.shape)}, block_start "
-                         f"{tuple(block_start.shape)}, qtables {tuple(qtables.shape)}, meta {tuple(meta.shape)}")
+def _check_shapes(slots, lens, qtables, meta):
+    if slots.dim() != 2 or slots.shape[1] != 64 or tuple(lens.shape) != (slots.shape[0],) or meta.dim() != 2 \
+            or meta.shape[1] < 4 or tuple(qtables.shape) != (meta.shape[0], 64):
+        raise ValueError(f"bad payload shapes: slots {tuple(slots.shape)}, lens {tuple(lens.shape)}, qtables "
+                         f"{tuple(qtables.shape)}, meta {tuple(meta.shape)}")
 
 
-def _check_payload(coeffs: torch.Tensor, block_start: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor,
-                  pad: int):
-    """Raise unless the payload's dims fit `pad` and its blocks lie in
-    `block_start` and `coeffs` (read on the host)."""
-    _check_shapes(coeffs, block_start, qtables, meta)
+def _check_payload(slots: torch.Tensor, lens: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor, pad: int):
+    """Raise unless the payload's dims fit `pad`, its block grids lie in
+    `slots` and its lengths are 1 to 64 (read on the host)."""
+    _check_shapes(slots, lens, qtables, meta)
     m = meta.detach().cpu().to(torch.int64)
     if m.shape[0] == 0:
         return
-    h, w, gw, first = m.unbind(1)
+    h, w, gw, first = m[:, :4].unbind(1)
     if bool((h < 1).any() | (w < 1).any() | (h > pad).any() | (w > pad).any()):
         raise ValueError(f"an image of the payload is empty or exceeds the padding {pad}")
-    bs = block_start.detach().cpu().to(torch.int64)
-    if bool((gw != (w + 7) // 8).any() | (first < 0).any() | (first + gw * ((h + 7) // 8) >= bs.shape[0]).any()) \
-            or bool((bs[1:] < bs[:-1]).any()) or int(bs[0]) < 0 or int(bs[-1]) > coeffs.shape[0]:
-        raise ValueError("the payload's block grids do not lie in its coefficients")
+    if bool((gw != (w + 7) // 8).any() | (first < 0).any() | (first + gw * ((h + 7) // 8) > slots.shape[0]).any()):
+        raise ValueError("the payload's block grids do not lie in its slots")
+    ln = lens.detach().cpu()
+    if ln.numel() and bool((ln < 1).any() | (ln > 64).any()):
+        raise ValueError("a block of the payload holds no coefficient or more than 64")
 
 
-def idct_pack_plain(coeffs: torch.Tensor, block_start: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor,
+def idct_pack_plain(slots: torch.Tensor, lens: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor,
                     pad: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4 in plain PyTorch: the (N, pad, pad, 1) uint8 batch, each image top
     left in its zero-padded slot."""
-    _check_payload(coeffs, block_start, qtables, meta, pad)
-    out = _output(meta, pad, out, coeffs.device)
+    _check_payload(slots, lens, qtables, meta, pad)
+    out = _output(meta, pad, out, slots.device)
     out.zero_()
-    for n, (h, w, gw, first) in enumerate(meta.detach().cpu().tolist()):
+    for n, (h, w, gw, first) in enumerate(meta[:, :4].detach().cpu().tolist()):
         gh = (h + 7) // 8
-        px = idct_blocks_plain(dense_blocks(coeffs, block_start, first, gw * gh), qtables[n:n + 1])
+        px = idct_blocks_plain(slot_blocks(slots, lens, first, gw * gh), qtables[n:n + 1])
         px = px.reshape(gh, gw, 8, 8).permute(0, 2, 1, 3).reshape(gh * 8, gw * 8)
         out[n, :h, :w, 0] = px[:h, :w]
     return out
 
 
-def idct_pack(coeffs: torch.Tensor, block_start: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor, pad: int,
+def idct_pack(slots: torch.Tensor, lens: torch.Tensor, qtables: torch.Tensor, meta: torch.Tensor, pad: int,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4 for CUDA tensors (into `out` where given, e.g. row k of a stacked
     (K, B, pad, pad, 1) batch), the plain version for CPU tensors. On the
-    card the kernel reads no block outside `block_start` and `coeffs`."""
-    if coeffs.device.type == "cpu":
-        return idct_pack_plain(coeffs, block_start, qtables, meta, pad, out)
-    ext.require_cuda_tensor(coeffs, "coeffs", torch.int16, 1)
-    ext.require_cuda_tensor(block_start, "block_start", torch.int32, 1)
+    card the kernel reads no slot outside `slots` (lengths are clamped to
+    1-64 there)."""
+    if slots.device.type == "cpu":
+        return idct_pack_plain(slots, lens, qtables, meta, pad, out)
+    ext.require_cuda_tensor(slots, "slots", torch.int16, 2)
+    ext.require_cuda_tensor(lens, "lens", torch.uint8, 1)
     ext.require_cuda_tensor(qtables, "qtables", torch.int32, 2)
     ext.require_cuda_tensor(meta, "meta", torch.int32, 2)
-    _check_shapes(coeffs, block_start, qtables, meta)
-    out = _output(meta, pad, out, coeffs.device)
+    _check_shapes(slots, lens, qtables, meta)
+    out = _output(meta, pad, out, slots.device)
     ext.require_cuda_tensor(out, "out", torch.uint8, 4)
     if meta.shape[0]:
-        ext.extension().jpeg_idct_pack(coeffs, block_start, qtables, meta, out, int(pad))
+        ext.extension().jpeg_idct_pack(slots, lens, qtables, meta, out, int(pad))
         ext.LAUNCHES["jpeg_idct"] += 1
     return out

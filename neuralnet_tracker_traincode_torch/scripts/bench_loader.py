@@ -3,13 +3,17 @@ package's `scripts/bench_loader.py`, with its flags and stages):
 
   h5 read      raw varsize-JPEG buffer reads from the file
   decode       cv2's grayscale decode on the host, beside the port's split
-               decode: the host entropy decode (`data/native_loader.py`),
-               each on one thread, then K4 on `--device` over the images
-               (`kernels/jpeg.py`; its plain version with `--device cpu`)
+               decode: the host's scan stage (`data/native_loader.py:
+               scan_batch`: markers, tables, the Y scan unstuffed) and the
+               old host entropy decode (`entropy_decode`), each on one
+               thread, then K5 and K4 on `--device` over the images
+               (`kernels/jpeg_huffman.py`, `kernels/jpeg.py`; their plain
+               versions with `--device cpu`)
   pack         `FusedBatchLoader` end to end through `device_prefetch`;
                with `--raw` (undecoded JPEGs, decoded a batch at a time) in
                both modes, cv2 on the host (`jpeg_decode="host"`) and the
-               split decode (`"device"`), else the dataset decodes each
+               split decode (`"device"`: the host parses, the card decodes),
+               else the dataset decodes each
                image as it is read
   train        (`--train`, with `--memory`) the pose training CLI's path at
                K = 8 steps a CUDA graph replay over the loader in both
@@ -21,10 +25,13 @@ package's `scripts/bench_loader.py`, with its flags and stages):
     python -m neuralnet_tracker_traincode_torch.scripts.bench_loader [--ds F.h5] [-n 512] [--raw] [--workers 4]
     python -m neuralnet_tracker_traincode_torch.scripts.bench_loader --memory noise [--size 448] [--ab] [--train]
 
-With `--memory markers|noise` the frames are made in memory and need no
-h5py (the card's machine has none): `-n` frames at `--size`^2, JPEG
+With `--memory markers|noise|colour` the frames are made in memory and need
+no h5py (the card's machine has none): `-n` frames at `--size`^2, JPEG
 quality 95, served undecoded; `markers` are `data/synthetic.py`'s marker
-frames (mostly flat 8x8 blocks), `noise` uniform noise (every block dense).
+frames (mostly flat 8x8 blocks), `noise` uniform noise (every block dense),
+`colour` the marker frames tinted by smooth colour fields with sensor-like
+noise (sigma 6), encoded in colour with cv2's default 4:2:0 sampling, the
+layout of the datasets that `scripts/dsprocess_*.py` write.
 `--ab` runs the pack (and train) stage in both modes in turns, device,
 host, host, device. Without `--ds` or `--memory` it writes a synthetic file
 of 256 x 256 noise JPEGs into a temporary directory. `decode_stage`,
@@ -84,8 +91,9 @@ class JpegFrames:
 def jpeg_frames(n: int, size: int, seed: int, device, content: str = "markers", quality: int = 95) -> JpegFrames:
     """`n` labelled frames at `size`^2 from `seed` (`data/synthetic.py`'s
     labels), encoded on the host by the port's `imencode` at the JAX
-    writer's quality: the marker images rendered on `device` ("markers"), or
-    uniform noise from the seed ("noise")."""
+    writer's quality: the marker images rendered on `device` ("markers"),
+    uniform noise from the seed ("noise"), or the marker images tinted in
+    colour with noise, encoded 4:2:0 ("colour")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from neuralnet_tracker_traincode_torch.data.fields import Tag
@@ -97,8 +105,16 @@ def jpeg_frames(n: int, size: int, seed: int, device, content: str = "markers", 
         images = render_marker_images(pt3d, coords, size).cpu().numpy()
     elif content == "noise":
         images = np.random.default_rng(seed).integers(0, 256, (n, size, size), dtype=np.uint8)
+    elif content == "colour":
+        rng = np.random.default_rng(seed)
+        base = render_marker_images(pt3d, coords, size).cpu().numpy().astype(np.float32)[..., None]
+        yy, xx = np.mgrid[:size, :size].astype(np.float32) / size
+        phase = rng.uniform(0, 2 * np.pi, (n, 1, 1, 3)).astype(np.float32)
+        tint = np.sin(np.stack([3 * xx, 2 * yy, 2 * (xx + yy)], -1)[None] + phase)
+        noise = rng.normal(0, 6, (n, size, size, 3)).astype(np.float32)
+        images = np.clip(0.7 * base + 60 * tint + 40 + noise, 0, 255).astype(np.uint8)
     else:
-        raise ValueError(f"content is 'markers' or 'noise', not {content!r}")
+        raise ValueError(f"content is 'markers', 'noise' or 'colour', not {content!r}")
     with ThreadPoolExecutor(8) as pool:  # cv2 releases the GIL while it encodes
         buffers = list(pool.map(lambda im: imencode(im, quality=quality), images))
     labels = {k: a.cpu().numpy() for k, a in
@@ -118,31 +134,39 @@ def card(device) -> str:
 
 def decode_stage(buffers: Sequence[np.ndarray], pad: int, device) -> Dict[str, float]:
     """images/s of cv2's decode (one thread, image by image, as the host
-    decode runs) and of the host entropy decode (one thread, all images in
-    one call, as a worker decodes a batch), and of K4 over all of them as
-    one batch on `device` (the upload excluded)."""
+    decode runs), of the host's scan stage and of the old host entropy
+    decode (one thread each, a call a batch of 64, as a worker takes a
+    batch), and of K5 and K4 a batch at a time on `device` (the upload
+    excluded, the status read back)."""
     import cv2
     import torch
 
     from neuralnet_tracker_traincode_torch.data import native_loader
 
+    batches = [buffers[i:i + 64] for i in range(0, len(buffers), 64)]
     t0 = time.perf_counter()
     for b in buffers:
         cv2.imdecode(b, cv2.IMREAD_GRAYSCALE)
     cv2_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    native_loader.entropy_decode(buffers, pad, nthreads=1)
+    for bs in batches:
+        native_loader.scan_batch(bs, pad, nthreads=1)
+    scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for bs in batches:
+        native_loader.entropy_decode(bs, pad, nthreads=1)
     entropy_s = time.perf_counter() - t0
-    payload = native_loader.entropy_decode(buffers, pad).to(device)
-    out = payload.decode()  # the first call builds the kernels on a card
-    sync = torch.cuda.synchronize if out.is_cuda else (lambda: None)
+    payloads = [native_loader.scan_batch(bs, pad).to(device) for bs in batches]
+    outs = [p.decode() for p in payloads]  # the first call builds the kernels on a card
+    sync = torch.cuda.synchronize if outs[0].is_cuda else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    payload.decode(out=out)
+    for p, out in zip(payloads, outs):
+        p.decode(out=out)
     sync()
-    k4_s = time.perf_counter() - t0
+    card_s = time.perf_counter() - t0
     n = len(buffers)
-    return {"cv2": n / cv2_s, "entropy": n / entropy_s, "k4": n / k4_s}
+    return {"cv2": n / cv2_s, "scan": n / scan_s, "entropy": n / entropy_s, "card": n / card_s}
 
 
 def loader_stage(concat, tag, batchsize: int, pad: int, steps: int, device, jpeg_decode: str, **loader_kwargs
@@ -304,7 +328,7 @@ def _write_synthetic(fn: str, n: int):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ds", type=str, default=None, help=".h5 file (default: a generated synthetic one)")
-    parser.add_argument("--memory", default=None, choices=("markers", "noise"),
+    parser.add_argument("--memory", default=None, choices=("markers", "noise", "colour"),
                         help="frames made in memory instead of a file (no h5py), served undecoded")
     parser.add_argument("--size", type=int, default=448, help="the in-memory frames' side")
     parser.add_argument("-n", type=int, default=512, help="samples per stage (with --memory: the frames made)")
@@ -319,7 +343,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the pack (and train) stage in both decodes in turns: device, host, host, device")
     parser.add_argument("--train", action="store_true", default=False,
                         help="with --memory: the training CLI's path at K = 8 over the loader, both decodes")
-    parser.add_argument("--device", default="cuda", help="where K4 and the batches go (default: the card)")
+    parser.add_argument("--device", default="cuda", help="where K5, K4 and the batches go (default: the card)")
     return parser
 
 
@@ -369,8 +393,9 @@ def main(argv=None) -> int:
 
         if buffers and buffers[0].ndim == 1:
             r = decode_stage(buffers, pad, dev)
-            print(f"decode:   {r['cv2']:8.0f} samples/s (cv2, one thread); host entropy decode {r['entropy']:.0f} "
-                  f"samples/s (one thread); K4 {r['k4']:.0f} samples/s on {where}")
+            print(f"decode:   {r['cv2']:8.0f} samples/s (cv2, one thread); host scan stage {r['scan']:.0f} samples/s "
+                  f"(one thread); old host entropy decode {r['entropy']:.0f} samples/s (one thread); K5 and K4 "
+                  f"{r['card']:.0f} samples/s on {where}")
         else:
             print("decode:   images stored raw; skipped")
 
@@ -383,7 +408,8 @@ def main(argv=None) -> int:
             transport = ""
             if r["worker_type"] == "process":
                 transport = ", shm ring" if args.shared_memory else ", pickled queue"
-            what = ("raw-jpeg batch decode, " + ("cv2 on the host" if mode == "host" else "entropy on the host, K4")
+            what = ("raw-jpeg batch decode, "
+                    + ("cv2 on the host" if mode == "host" else "parse on the host, K5 and K4")
                     if raw else "per-sample decode")
             print(f"pack:     {r['images_per_s']:8.0f} samples/s (FusedBatchLoader end-to-end through device_prefetch "
                   f"to {where}, batch {args.batchsize}, pad {pad}, {what}, {r['workers']} {r['worker_type']} "

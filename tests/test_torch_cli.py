@@ -383,7 +383,8 @@ def test_pseudolabel_cli_matches_jax(full_onnx, datadir, tmp_path):
 def test_bench_loader_runs_every_stage_on_the_cpu(capsys):
     assert bench_loader_cli.main(["-n", "64", "--batchsize", "16", "--raw", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    for line in ("h5 read:", "decode:", "host entropy decode", "K4", "cv2 on the host", "entropy on the host, K4"):
+    for line in ("h5 read:", "decode:", "host scan stage", "host entropy decode", "K5 and K4", "cv2 on the host",
+                 "parse on the host, K5 and K4"):
         assert line in out, line
     assert out.count("pack:") == 2
 
@@ -395,14 +396,14 @@ def test_bench_loader_in_memory_frames_take_both_decodes_in_turns(capsys):
     assert "h5 read:" not in out and "made:     32 noise frames at 64^2" in out and "host entropy decode" in out
     modes = [line.split("raw-jpeg batch decode, ")[1].split(",")[0] for line in out.splitlines()
              if line.startswith("pack:")]
-    assert modes == ["entropy on the host", "cv2 on the host", "cv2 on the host", "entropy on the host"]
+    assert modes == ["parse on the host", "cv2 on the host", "cv2 on the host", "parse on the host"]
     with pytest.raises(SystemExit):
         bench_loader_cli.main(["--train", "--device", "cpu"])
 
 
 def test_bench_loader_training_stage_runs_a_group_on_the_cpu():
     """The training stage at K = 2 for one group over one process worker
-    decoding with the plain K4: its first group equals the host decode's
+    decoding with the plain K5 and K4: its first group equals the host decode's
     first two batches of the same sampler, no kernel is launched."""
     import torch
 

@@ -1,6 +1,8 @@
-"""The port's JPEG decode (`data/native_loader.py`: the host entropy decoder
-`data/csrc/jpeg_entropy.cpp`, then K4's plain version `kernels/jpeg.py:
-idct_pack_plain`) against libjpeg twice: `cv2.imdecode(..., 0)` and the JAX
+"""The port's JPEG decode (`data/native_loader.py`: the host's parse
+`scan_batch`, then K5's and K4's plain versions, `kernels/jpeg_huffman.py`
+and `kernels/jpeg.py`, through `decode_jpeg_gray` / `pack_jpeg_batch_gray`;
+and the host entropy decoder `entropy_decode`, K5's oracle, then K4's plain
+version) against libjpeg twice: `cv2.imdecode(..., 0)` and the JAX
 package's `native_loader.decode_jpeg_gray` / `pack_jpeg_batch_gray`, on the
 same buffers.
 
@@ -307,7 +309,8 @@ def test_the_payload_selects_and_repads_images():
 
 def test_idct_pack_runs_the_plain_version_on_the_cpu_and_raises_elsewhere():
     payload = NL.entropy_decode([CASES["noise_q10"], CASES["size_1x1"]], 304)
-    args = [torch.as_tensor(a) for a in payload.arrays]
+    slots, lens = K4.runs_to_slots(torch.as_tensor(payload.coeffs), torch.as_tensor(payload.block_start))
+    args = [slots, lens, torch.as_tensor(payload.qtables), torch.as_tensor(payload.meta)]
     out = torch.full((2, 304, 304, 1), 7, dtype=torch.uint8)
     assert K4.idct_pack(*args, 304, out=out) is out
     assert torch.equal(out, K4.idct_pack_plain(*args, 304))

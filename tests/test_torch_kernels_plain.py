@@ -36,6 +36,7 @@ from neuralnet_tracker_traincode_torch.augmentation import warp_fast as TW
 from neuralnet_tracker_traincode_torch.kernels import equalize as K2
 from neuralnet_tracker_traincode_torch.kernels import ext
 from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
+from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
 from neuralnet_tracker_traincode_torch.kernels import noise as K3
 from neuralnet_tracker_traincode_torch.kernels import warp as K1
 from tests.torch_port_helpers import t
@@ -392,8 +393,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     K2.equalize(t(x), t(gate))
     K3.add_gaussian_noise(t(x), torch.arange(10, dtype=torch.int32), torch.full((10,), 0.1))
     # K4 on one flat 8 x 8 block: its DC alone
-    K4.idct_pack(torch.tensor([5], dtype=torch.int16), torch.tensor([0, 1], dtype=torch.int32),
+    K4.idct_pack(torch.tensor([[5] + [0] * 63], dtype=torch.int16), torch.tensor([1], dtype=torch.uint8),
                  torch.ones((1, 64), dtype=torch.int32), torch.tensor([[8, 8, 1, 0]], dtype=torch.int32), 8)
+    # K5 on one small JPEG's scan
+    from neuralnet_tracker_traincode_torch.data.native_loader import scan_batch
+    from neuralnet_tracker_traincode_torch.data.preprocessing import imencode
+
+    payload = scan_batch([imencode(np.random.default_rng(0).integers(0, 256, (16, 24), dtype=np.uint8))], 24)
+    K5.huffman_decode(*(torch.as_tensor(a) for a in payload.arrays[:4]), *payload.counts[:2], payload.counts[3],
+                      payload.counts[2])
     assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits",
-                                 "jpeg_idct"}
+                                 "jpeg_idct", "jpeg_huffman"}
     assert all(v == 0 for v in ext.LAUNCHES.values())
