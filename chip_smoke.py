@@ -245,21 +245,29 @@ Phases (any failure ends the run with a non-zero exit code):
  18. the JPEG decode on the card (`data/native_loader.py:scan_batch`: the
     host parses, builds the tables and unstuffs the Y scan; K5,
     `kernels/csrc/jpeg_huffman.cu`: the Huffman decode by synchronized
-    subsequences; K4, `kernels/csrc/jpeg_idct.cu`: dequantization, libjpeg's
-    ISLOW IDCT, the range limit, the zero-padded batch). (a) K5 against its
-    plain version (run on the card) and the host entropy decoder, and K4 on
-    K5's slots against its plain version and `cv2.imdecode(...,
-    IMREAD_GRAYSCALE)`, bit-equal, on 64 of phase 12a's 448^2 q95 frames, 64
+    subsequences, a CTA a sequence of them, chained across an image's
+    sequences; K4, `kernels/csrc/jpeg_idct.cu`: dequantization, libjpeg's
+    ISLOW IDCT, the range limit, the zero-padded batch). Before phase 2, K5's
+    `-Xptxas -v` lines (from the extension's build log) and its decode's
+    CTAs an SM (from the extension) are printed. (a) K5 against its plain
+    version (run on the card: slots, lengths, status, stats) and the host
+    entropy decoder, and K4 on K5's slots against its plain version and
+    `cv2.imdecode(..., IMREAD_GRAYSCALE)`, bit-equal, on 64 of phase 12a's
+    448^2 q95 frames, 64
     noise frames at 448^2 q95 (every block dense), 64 colour 4:2:0 q95
-    frames at 448^2 and a seeded set (noise at q 1, 50 and 100; 1 x 1, 7 x 9
+    frames at 448^2, 63 of phase 12a's frames with one noise frame (each
+    image at its own layout) and a seeded set (noise at q 1, 50 and 100; 1 x 1, 7 x 9
     and 123 x 301; colour 4:2:0 and 4:4:4; a restart interval; two files
     whose quantization tables were raised to 255 after encoding, one of
-    flat blocks); each kernel's `ms`, `ms_stream` on the three frame sets
-    and plain version on phase 12a's, beside its bound (`k4_work`: the
-    sectors and bytes and the integer operations that the slots need;
-    `k5_timing`: the bytes and the codewords), K5's passes to synchronize
-    and the subsequences that did not synchronize within one and within two,
-    and the host's cv2 decode, scan stage and old entropy decode in
+    flat blocks); 9 corrupt files of the seeded set between two sound ones
+    (`corrupt_cases`) raise the host decoder's message naming the frame,
+    K5's status and stats equal to its plain version's; each kernel's `ms`,
+    `ms_stream` on the three frame sets (K5 also on the mixed one) and plain
+    version on phase 12a's,
+    beside its bound (`k4_work`: the sectors and bytes and the integer
+    operations that the slots need; `k5_timing`: the bytes and the
+    codewords), K5's grid, CTAs an SM, passes and subsequences, and the
+    host's cv2 decode, scan stage and old entropy decode in
     images/s on one core on each set (`scripts/bench_loader.py:
     decode_stage`). (b) Phase 12a's frames through
     `FusedBatchLoader(jpeg_decode="device")` (4 process workers, shared
@@ -1442,6 +1450,14 @@ def jpeg_frames(torch, np, n, seed, dev):
     from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames as frames
 
     return frames(n, LOADER_SRC, seed, dev)
+
+
+def phase12a_buffers(torch, np, dev, n=B):
+    """The first `n` of phase 12a's training frames (`jpeg_frames` of
+    RUN_TRAIN from seed 3: phase 18's flat set), as JPEG buffers, rendered
+    anew."""
+    frames = jpeg_frames(torch, np, RUN_TRAIN, 3, dev)
+    return [frames.buffer(i) for i in range(n)]
 
 
 def loader_phase(torch, np, dev, smi):
@@ -3040,39 +3056,42 @@ def jpeg_cases(np, cv2):
     return cases
 
 
-def decode_against_plain_and_cv2(torch, np, cv2, buffers, pad, dev, what, plain_k5=True):
+def decode_against_plain_and_cv2(torch, np, cv2, buffers, pad, dev, what, plain_k5=True, bits=None):
     """The decode on the card over `buffers` into slots of `pad`: the host's
-    parse (`scan_batch`), K5 against the host entropy decoder (slots up to
-    each block's length, the lengths, a clean status) and, with `plain_k5`,
-    against its plain version (run on the card, at the same subsequence
-    size: also the status and the stats), then K4 on K5's slots against its
-    plain version and cv2, bit for bit. Returns the payload on the card,
-    K5's slots and lengths, its stats, the plain version's stats and time
-    on the card (host clock, synchronized; one run) or None, and max
-    |kernel - plain| of K5 (0 where the plain K5 did not run) and of K4."""
+    parse (`scan_batch`), K5 at subsequences of `bits` (default: each
+    image's own, `image_layout`) against the host entropy decoder (slots up to each block's
+    length, the lengths, a clean status) and, with `plain_k5`, against its
+    plain version (run on the card, at the same subsequence size: also the
+    status and the stats), then K4 on K5's slots against its plain version
+    and cv2, bit for bit (`JpegScans.decode`, at the images' own layout). Returns the payload on the card,
+    `bits`, K5's slots and lengths, its stats, the plain
+    version's time on the card (host clock, synchronized; one run) or None,
+    and max |kernel - plain| of K5 (0 where the plain K5 did not run) and of
+    K4."""
     from neuralnet_tracker_traincode_torch.data import native_loader as NL
     from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
     from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
 
     payload = NL.scan_batch(buffers, pad).to(dev)
-    blocks, ys, bits, nint = payload.counts
+    blocks, ys, nbits, nint = payload.counts
+    S = bits
     scan, intervals, tables, meta, qtables = payload.arrays
-    slots, lens, status, stats = K5.huffman_decode(scan, intervals, tables, meta, blocks, ys, nint, bits)
+    slots, lens, status, stats = K5.huffman_decode(scan, intervals, tables, meta, blocks, ys, nint, nbits, S)
     ref = NL.entropy_decode(buffers, pad)
     hs, hl = K4.runs_to_slots(torch.as_tensor(ref.coeffs).to(dev), torch.as_tensor(ref.block_start).to(dev))
     torch.cuda.synchronize()
     k5 = torch.where(torch.arange(64, device=dev) < lens[:, None].long(), slots, 0)
     check(torch.equal(lens, hl) and torch.equal(k5, hs) and not bool(status.any()),
           f"K5 differs from the host entropy decoder on {what}")
-    pstats, plain_ms, err5 = None, None, 0.0
+    plain_ms, err5 = None, 0.0
     if plain_k5:
         t0 = time.perf_counter()
-        ps, pl, pst, pstats = K5.huffman_decode_plain(scan, intervals, tables, meta, blocks, ys)
+        ps, pl, pst, pstats = K5.huffman_decode_plain(scan, intervals, tables, meta, blocks, ys, S)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err5 = float((k5.int() - ps.int()).abs().max()) if blocks else 0.0
         check(torch.equal(lens, pl) and torch.equal(k5, ps), f"K5 differs from its plain version on {what}: max {err5}")
-        check(torch.equal(status, pst) and torch.equal(stats, pstats[:, :K5.STATS]),
+        check(torch.equal(status, pst) and torch.equal(stats, pstats),
               f"K5's status or stats differ from its plain version's on {what}")
     got = payload.decode()  # K5 and K4 through the payload, as the loader runs them
     plain = K4.idct_pack_plain(k5, lens, qtables, meta, pad)
@@ -3085,8 +3104,74 @@ def decode_against_plain_and_cv2(torch, np, cv2, buffers, pad, dev, what, plain_
     check(torch.equal(got, plain), f"K4 differs from its plain version on {what}: max {err4}")
     differ = [i for i in range(len(buffers)) if not np.array_equal(got[i].cpu().numpy(), want[i])]
     check(not differ, f"K5 and K4 differ from cv2 on {what}: images {differ}")
-    return dict(payload=payload, slots=slots, lens=lens, stats=stats.cpu(), err5=err5, err4=err4, plain_ms=plain_ms,
-                plain_stats=None if pstats is None else pstats.cpu())
+    return dict(payload=payload, bits=S, slots=slots, lens=lens, stats=stats.cpu(), err5=err5, err4=err4,
+                plain_ms=plain_ms)
+
+
+def corrupt_cases(cases):
+    """Files of the seeded set (`jpeg_cases`) whose scan data the host decoder
+    finds corrupt: (name, bytes). Each spans many of K5's sequences, and its
+    decode meets faults in several of them after the first."""
+    out = []
+    for case in ("noise q50", "colour 4:2:0", "restart interval 3"):
+        b = dict(cases)[case]
+        sos = b.index(b"\xff\xda")
+        s = sos + 2 + ((b[sos + 2] << 8) | b[sos + 3])
+        out.append((f"{case}: ends early (EOI)", b[: s + (len(b) - s) // 2] + b"\xff\xd9"))
+        out.append((f"{case}: ones", b[: s + 200] + b"\xff\x00" * 8 + b[s + 216:]))
+    b = dict(cases)["restart interval 3"]
+    i = b.index(b"\xff\xd2")
+    out.append(("restart interval 3: an interval short of data", b[: i - 20] + b[i:]))
+    s = b.index(b"\xff\xda") + 2 + ((b[b.index(b"\xff\xda") + 2] << 8) | b[b.index(b"\xff\xda") + 3])
+    far = s + 3 * (len(b) - s) // 4
+    out.append(("restart interval 3: ones in two intervals far apart",  # faults in several of K5's CTAs
+                b[: s + 200] + b"\xff\x00" * 8 + b[s + 216: far] + b"\xff\x00" * 8 + b[far + 16:]))
+    out.append(("restart interval 3: RST5 where RST2 is due", b.replace(b"\xff\xd2", b"\xff\xd5", 1)))
+    return out
+
+
+# the subsequence size at which phase 18 holds K5 to its plain version on the seeded set and the corrupt files:
+# at their batches' own (64-256 bits, sequences of 32) a dense file's head re-decodes chain its sequences one
+# after another, which the lockstep plain version takes minutes over
+CHECK_BITS = 1024
+
+
+def corrupt_against_host(torch, cases, dev):
+    """The corrupt files in one batch behind a sound one: each image's
+    status on the card raises the host entropy decoder's message naming the
+    frame (the host decoder run on the sound file and that one alone), the
+    sound image's status is clean, and K5's status (the first fault in scan
+    order: its kind, symbol or marker and block) and stats at CHECK_BITS
+    equal its plain version's. Returns the count."""
+    from neuralnet_tracker_traincode_torch.data import native_loader as NL
+    from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
+
+    good = dict(cases)["123x301"]
+    bad = corrupt_cases(cases)
+    names = ["frame 0"] + [f"frame {i + 1} ({name})" for i, (name, _) in enumerate(bad)]
+    payload = NL.scan_batch([good] + [b for _, b in bad], 320, names=names).to(dev)
+    _, status = payload.decode_async()  # K5 and K4 at the batch's subsequences, as the loader runs them
+    status = status.cpu()
+    check(not bool(status[0].any()), f"the sound file beside the corrupt ones: status {status[0].tolist()}")
+    for i, (name, buf) in enumerate(bad, 1):
+        try:
+            NL.entropy_decode([good, buf], 320)
+            host = "no error"
+        except ValueError as e:
+            host = str(e).replace("image 1 of 2", names[i])
+        try:
+            K5.raise_for_status(status[i:i + 1], names[i:i + 1])
+            card = "no error"
+        except ValueError as e:
+            card = str(e)
+        check(card == host, f"corrupt {name}: the card raised {card!r}, the host {host!r}")
+    blocks, ys, bits, nint = payload.counts
+    scan, intervals, tables, meta, _ = payload.arrays
+    _, _, status, stats = K5.huffman_decode(scan, intervals, tables, meta, blocks, ys, nint, bits, CHECK_BITS)
+    _, _, pst, pstats = K5.huffman_decode_plain(scan, intervals, tables, meta, blocks, ys, CHECK_BITS)
+    check(torch.equal(status, pst) and torch.equal(stats, pstats),
+          f"corrupt files: K5's status {status.tolist()} or stats differ from its plain version's {pst.tolist()}")
+    return len(bad)
 
 
 def k4_work(K4, slots, lens, out):
@@ -3143,7 +3228,7 @@ def k4_line(t, what, smi):
 K5_OPS_PER_CODEWORD = 20
 
 
-def k5_timing(torch, r, dev):
+def k5_timing(torch, r, dev, launch=None):
     """K5 over a payload on the card (`r`, from `decode_against_plain_and_cv2`):
     `ms`, `ms_stream` and the bound: the bytes (the 32-bit words of the
     scans that the restart intervals span, the intervals, tables and dims
@@ -3151,7 +3236,9 @@ def k5_timing(torch, r, dev):
     and stats written once; not the headers, tables and tail of each file
     that the scan buffer also reserves room for) and K5_OPS_PER_CODEWORD
     integer operations for each codeword the sequential decode takes (the
-    stats' count)."""
+    stats' count). `launch(scan, intervals, tables, meta)` times another
+    form of K5 on the same payload (default: the extension's); the grid and
+    sequences are the shipped form's."""
     from neuralnet_tracker_traincode_torch.kernels import ext
     from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
 
@@ -3159,46 +3246,65 @@ def k5_timing(torch, r, dev):
     scan, intervals, tables, meta, _ = payload.arrays
     blocks, ys, bits, nint = payload.counts
     N = meta.shape[0]
-    S = K5.auto_subsequence_bits(bits, N)
-    subs = K5.scratch_words(N, nint, bits, S)
-    slots = torch.empty((blocks, 64), dtype=torch.int16, device=dev)
-    lens = torch.empty(blocks, dtype=torch.uint8, device=dev)
-    status = torch.empty((N, 4), dtype=torch.int32, device=dev)
-    stats = torch.empty((N, K5.STATS), dtype=torch.int32, device=dev)
-    scratch = torch.empty(5 * subs + nint + N + ys + 2, dtype=torch.int64, device=dev)
+    S = r["bits"]
+    subs = K5.subsequences_bound(N, nint, bits, S)
+    if launch is None:
+        slots = torch.empty((blocks, 64), dtype=torch.int16, device=dev)
+        lens = torch.empty(blocks, dtype=torch.uint8, device=dev)
+        status = torch.empty((N, 4), dtype=torch.int32, device=dev)
+        stats = torch.empty((N, K5.STATS), dtype=torch.int32, device=dev)
+        scratch = torch.empty(K5.scratch_words(N, tables.shape[0], nint, ys, subs), dtype=torch.int64, device=dev)
+        seq = K5.sequence_bits(bits, N)
+
+        def launch(sc, iv, tb, m):
+            ext.extension().jpeg_huffman_decode(sc, iv, tb, m, slots, lens, status, stats, scratch, seq, S or 0, bits,
+                                                subs, nint)
+
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-
-    def launch(sc, iv, tb, m):
-        ext.extension().jpeg_huffman_decode(sc, iv, tb, m, slots, lens, status, stats, scratch, S, subs, nint)
-
     args = (scan, intervals, tables, meta)
     codewords = int(r["stats"][:, 2].sum())
     iv = intervals.long()
     scan_bytes = int(((iv[:, 1] + 31) // 32 - iv[:, 0] // 32).clamp(min=0).sum()) * 4
     nbytes = (scan_bytes + sum(t.numel() * t.element_size() for t in args[1:]) + int(r["lens"].long().sum()) * 2
               + blocks + N * 4 * (4 + K5.STATS))
+    _, T = K5.image_layout(meta.cpu(), bits, S)
+    sequences = int(((r["stats"][:, 1].long() + T - 1) // T).sum())
+    ctas = int(ext.extension().jpeg_huffman_ctas_per_sm())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(ms=time_ms(torch, lambda: launch(*args), flush),
                 ms_stream=stream_ms(torch, launch, rotating(torch, *args)),
-                bound=bound_ms(nbytes, i32_ops=K5_OPS_PER_CODEWORD * codewords), bytes=nbytes, codewords=codewords)
+                bound=bound_ms(nbytes, i32_ops=K5_OPS_PER_CODEWORD * codewords), bytes=nbytes, codewords=codewords,
+                grid=min(K5.sequences_bound(N, subs), sms * ctas), ctas_per_sm=ctas, sms=sms, sequences=sequences)
+
+
+def layout_text(r):
+    """The images' layouts (S bits x T subsequences a sequence) and how many
+    images take each."""
+    from neuralnet_tracker_traincode_torch.kernels import jpeg_huffman as K5
+
+    payload = r["payload"]
+    S, T = K5.image_layout(payload.meta.cpu(), payload.counts[2], r["bits"])
+    pairs = [(int(a), int(b)) for a, b in zip(S.tolist(), T.tolist())]
+    return ", ".join(f"{a} bits x {b} ({pairs.count((a, b))} of {len(pairs)} images)"
+                     for a, b in sorted(set(pairs), key=pairs.index))
 
 
 def sync_line(r):
-    """K5's passes to synchronize (the kernel's stats) and, where the plain
-    version ran, its diagnostics of the guess."""
+    """K5's passes to synchronize and its subsequences (the kernel's stats)."""
     passes, subs = r["stats"].long()[:, 0], r["stats"].long()[:, 1]
-    line = (f"passes to synchronize median {int(passes.median())}, max {int(passes.max())}; {int(subs.sum())} "
-            f"subsequences of {r['bits']} bits")
-    if r["plain_stats"] is not None:
-        missed, missed_next = r["plain_stats"].long()[:, 3], r["plain_stats"].long()[:, 4]
-        line += (f", of which {int(missed.sum())} did not reach the sequential decode's state from the guess by "
-                 f"their end and {int(missed_next.sum())} not by their successor's end either (the plain version)")
-    return line
+    return (f"passes (the most of a sequence + the head re-decodes) median {int(passes.median())}, max "
+            f"{int(passes.max())}; {int(subs.sum())} subsequences, S x T {layout_text(r)}")
 
 
 def k5_line(t, r, what, smi):
-    return (f"K5 on {what}: {t['ms']:.4f} ms ({t['ms_stream']:.4f} ms_stream) a batch of {B}, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}: {t['bytes'] / 1e6:.2f} MB, {t['codewords']} codewords); "
-            f"{sync_line(r)} on {smi}")
+    return (f"K5 on {what}: {t['ms']:.4f} ms ({t['ms_stream']:.4f} ms_stream) a batch of {len(r['payload'])}, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}: {t['bytes'] / 1e6:.2f} MB, {t['codewords']} codewords); "
+            f"grid {t['grid']} CTAs of 128 threads ({t['ctas_per_sm']} an SM at most on {t['sms']} SMs) taking "
+            f"{t['sequences']} sequences; {sync_line(r)} on {smi}")
+
+
+# K5's kernels, whose -Xptxas -v lines the extension's build log keeps
+K5_KERNELS = ("jpeg_huffman_prep", "jpeg_huffman_decode_kernel", "jpeg_huffman_finish")
 
 
 def colour_frames(np, n, seed):
@@ -3215,7 +3321,8 @@ def colour_frames(np, n, seed):
 def jpeg_phase(torch, np, dev, smi, frames):
     """Phase 18: the JPEG decode on the card (the host's parse, K5, K4) for
     the training loader, on phase 12a's frames, and K5, K4 and the host's
-    stages on dense frames (noise) and colour 4:2:0 frames."""
+    stages on dense frames (noise) and colour 4:2:0 frames; K5 also on a
+    batch of 63 of phase 12a's frames and one noise frame."""
     import cv2
 
     from neuralnet_tracker_traincode_torch.kernels import jpeg as K4
@@ -3236,26 +3343,28 @@ def jpeg_phase(torch, np, dev, smi, frames):
     colour = colour_frames(np, B, JPEG_SEED + 1)
     lap("frames")
 
-    # (a) K5 against the host decoder, K4 against its plain version and cv2, bit for bit; K5 also against its
-    # plain version on the main path's frames and the seeded set (on the dense and colour sets the lockstep plain
-    # version would take most of the phase; the host decoder is an exact oracle independent of both)
+    # (a) K5 against the host decoder and its plain version (slots, lengths, status, stats), K4 against its plain
+    # version and cv2, bit for bit, on the four sets; the corrupt files raise the host decoder's message
     cases = jpeg_cases(np, cv2)
-    sets = [("flat", f"{B} of phase 12a's frames", buffers[:B], pad, True),
-            ("dense", f"{B} noise frames", dense, pad, False),
-            ("colour", f"{B} colour 4:2:0 q95 frames", colour, pad, False),
-            ("cases", "the seeded set", [b for _, b in cases], 320, True)]
-    res = {}
-    for key, what, bufs, p, plain_k5 in sets:
-        res[key] = decode_against_plain_and_cv2(torch, np, cv2, bufs, p, dev, what, plain_k5)
-        res[key]["bits"] = K5.auto_subsequence_bits(res[key]["payload"].counts[2], len(bufs))
+    sets = [("flat", f"{B} of phase 12a's frames", buffers[:B], pad, None),
+            ("dense", f"{B} noise frames", dense, pad, None),
+            ("colour", f"{B} colour 4:2:0 q95 frames", colour, pad, None),
+            ("mixed", f"{B - 1} of phase 12a's frames and a noise frame", buffers[:B - 1] + dense[:1], pad, None),
+            ("cases", "the seeded set", [b for _, b in cases], 320, CHECK_BITS)]
+    res = {key: decode_against_plain_and_cv2(torch, np, cv2, bufs, p, dev, what, bits=b)
+           for key, what, bufs, p, b in sets}
+    corrupt = corrupt_against_host(torch, cases, dev)
     lap("(a)")
     err4 = max(r["err4"] for r in res.values())
     err5 = max(r["err5"] for r in res.values())
-    print(f"jpeg (a): K5 bit-equal to the host entropy decoder, K4 bit-equal to its plain version and to "
-          f"cv2.imdecode(..., IMREAD_GRAYSCALE), on {B} of phase 12a's {pad}^2 q95 frames, {B} noise frames at "
-          f"{pad}^2 q95, {B} colour 4:2:0 q95 frames at {pad}^2 and the seeded set "
-          f"({', '.join(n for n, _ in cases)}); K5 bit-equal to its plain version on phase 12a's frames and the "
-          f"seeded set on {smi}")
+    print(f"jpeg (a): K5 bit-equal to its plain version (slots, lengths, status, stats) and to the host entropy "
+          f"decoder, K4 bit-equal to its plain version and to cv2.imdecode(..., IMREAD_GRAYSCALE), on {B} of phase "
+          f"12a's {pad}^2 q95 frames, {B} noise frames at {pad}^2 q95, {B} colour 4:2:0 q95 frames at {pad}^2, {B - 1} "
+          f"of phase 12a's frames with a noise frame (the images' own layouts) and the seeded set "
+          f"({', '.join(n for n, _ in cases)}; K5 and its plain version at {CHECK_BITS} bits, cv2 at the images' "
+          f"own); {corrupt} corrupt files raise the host decoder's message naming "
+          f"the frame, K5's status and stats equal to its plain version's; the plain K5 on the card "
+          + ", ".join(f"{key} {r['plain_ms'] / 1e3:.2f} s" for key, r in res.items()) + f" on {smi}")
 
     # each kernel at the main path's shape (phase 12a's frames, mostly flat), on dense and on colour frames
     flat = res["flat"]
@@ -3268,9 +3377,10 @@ def jpeg_phase(torch, np, dev, smi, frames):
     k5_row = dict(name="jpeg_huffman", source="neuralnet_tracker_traincode_torch/kernels/csrc/jpeg_huffman.cu",
                   replaces="neuralnet_tracker_traincode_tpu/data/native_loader.py:93", max_abs_err=err5,
                   library_ms=None, plain_ms=flat["plain_ms"])
-    for row, timing, line in ((k4_row, lambda r: k4_timing(torch, r, pad, dev), lambda t, r, w: k4_line(t, w, smi)),
-                              (k5_row, lambda r: k5_timing(torch, r, dev), lambda t, r, w: k5_line(t, r, w, smi))):
-        for key, what, _, _, _ in sets[:3]:
+    for row, timing, line, timed in (
+            (k4_row, lambda r: k4_timing(torch, r, pad, dev), lambda t, r, w: k4_line(t, w, smi), sets[:3]),
+            (k5_row, lambda r: k5_timing(torch, r, dev), lambda t, r, w: k5_line(t, r, w, smi), sets[:4])):
+        for key, what, *_ in timed:
             t = timing(res[key])
             if key == "flat":
                 row.update((k, t[k]) for k in ("ms", "ms_stream", "bound"))
@@ -3361,6 +3471,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ext.extension()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s into {ext.BUILD_DIR}")
+    print("K5 ptxas (-Xptxas -v, the build's log): " + (" | ".join(ext.ptxas_summary(K5_KERNELS))
+                                                         or "none: the build was up to date")
+          + f"; CTAs of K5's decode (128 threads) an SM at most: {ext.extension().jpeg_huffman_ctas_per_sm()}")
     rows = kernel_phase(torch, np, dev)
     reference_phase(torch, np, dev)
     launches, step = training_phase(torch, np, dev, f"{name} ({smi})")

@@ -1,14 +1,15 @@
 """Phase 15 of `chip_smoke.py` (data-parallel training) with faults planted
 in memory, one after another, its checks recorded instead of failing: the
 readings of the sound run and of each fault, between which `chip_smoke.py`'s
-`DP_*` limits are fixed; and phase 18 (a) (K5 against the host decoder and,
-on phase 12a's frames and the seeded set, its plain version; K4 against its
-plain version and cv2; bit for bit) with
-faults planted in K4's arithmetic and in K5's algorithm. Needs the card;
+`DP_*` limits are fixed; and phase 18 (a) (K5 against the host decoder and
+its plain version; K4 against its plain version and cv2; bit for bit; the corrupt files against the host
+decoder's messages and K5's plain version's status) with faults planted in
+K4's arithmetic and in K5's algorithm. Needs the card;
 from the repo's root:
 
     python3 chip_smoke_faults.py none bn_xmu_dropped bn_dx_sign bn_count_doubled bn_unsynced grads_summed
-    python3 chip_smoke_faults.py k4_none k4_range_wrap k4_descale_round k5_none k5_dc_no_reset k5_sync_bits_only
+    python3 chip_smoke_faults.py k4_none k4_range_wrap k4_descale_round k5_none k5_dc_no_reset k5_sync_bits_only \
+        k5_unwaited_flag k5_fault_per_cta k5_batch_layout
 
 The faults: `bn_xmu_dropped`, `bn_dx_sign` and `bn_count_doubled` patch
 `torch.batch_norm_backward_elemt` (the synchronized BatchNorm's input
@@ -23,15 +24,21 @@ The JPEG faults are copies of `kernels/csrc/jpeg_idct.cu` (K4) or
 `nvcc` with a plain C entry (`k4_none`, `k5_none` unpatched, through the
 same route): `k5_dc_no_reset` runs the DC scan along the whole image
 instead of restarting it at each restart marker; `k5_sync_bits_only`
-ends the synchronization passes when the exits' bit offsets stop changing,
-whatever their block and zigzag index; `k4_range_wrap` limits the
+ends a sequence's passes when its exits' bit offsets stop changing,
+whatever their block and zigzag index; `k5_unwaited_flag` reads the
+predecessor sequence's exit without waiting for its flag;
+`k5_batch_layout` lays every image out as the batch's mean image (the
+mixed batch's noise frame then takes the flat frames' short sequences);
+`k5_fault_per_cta` keeps the first fault per CTA, the image's word taking
+the last CTA's instead of the least; `k4_range_wrap` limits the
 row pass's value as jidctint.c's table does, read as a signed 10-bit number
 (`& RANGE_MASK`), in place of the saturation that libjpeg-turbo's SIMD code
 (and cv2) apply; `k4_descale_round` rounds the row pass's DESCALE with
 2^17 - 1 in place of 2^17. While one is planted, `kernels/ext.extension()`
 gives that build's kernel; phase 18 (a) then runs on 64 of phase 12a's
-frames (rendered here), its 64 noise frames, its 64 colour 4:2:0 frames and
-its seeded set.
+frames (rendered here), its 64 noise frames, its 64 colour 4:2:0 frames,
+its mixed batch (63 of the first with one of the second), its seeded set
+and its corrupt files.
 
 Exits 1 unless each sound run (`none`, `k4_none`, `k5_none`) passes every check and
 every other fault but `grads_summed` fails one: Adam and the global-norm
@@ -66,8 +73,18 @@ JPEG_FAULTS = {
     # the DC predictor not reset at a restart marker: one scan along the whole image
     "k5_dc_no_reset": ("jpeg_huffman.cu", "const long head = rst ? (mcu / rst) * rst * (yh * yv) : 0;",
                        "const long head = 0;"),
-    # synchronization accepted where the exits' bit offsets agree, whatever their block and zigzag index
-    "k5_sync_bits_only": ("jpeg_huffman.cu", "changed |= y != x;", "changed |= (y >> 16) != (x >> 16);"),
+    # a sequence's passes end when its exits' bit offsets stop changing, whatever their block and zigzag index
+    "k5_sync_bits_only": ("jpeg_huffman.cu", "changed = y != ex;", "changed = (y >> 16) != (ex >> 16);"),
+    # a CTA reads its predecessor's exit without waiting for the flag that publishes it
+    "k5_unwaited_flag": ("jpeg_huffman.cu", "while (flag_of(chain, s) < level) __nanosleep(100);",
+                         "(void)flag_of(chain, s);"),
+    # every image laid out as the batch's mean image, whatever its own scan (the plain version lays out each its own)
+    "k5_batch_layout": ("jpeg_huffman.cu",
+                        "if (k >= -1 ? (bits_total << (k + 1)) <= num : bits_total <= (num << (-(k + 1)))) e = k;",
+                        "if (k <= 0) e = k;"),
+    # the first fault kept per CTA: the image's word takes the last CTA's, not the least
+    "k5_fault_per_cta": ("jpeg_huffman.cu", "if (sh.fault != kNoFault) atomicMin(sc.fault + n, sh.fault);",
+                         "if (sh.fault != kNoFault) atomicExch(sc.fault + n, sh.fault);"),
 }
 _SHIMS = {
     "jpeg_idct.cu": """
@@ -80,10 +97,10 @@ extern "C" int kernel(const int16_t* s, const uint8_t* l, const int32_t* q, cons
     "jpeg_huffman.cu": """
 #include "nntc_kernels.h"
 extern "C" int kernel(const uint8_t* sc, const int32_t* iv, const int32_t* tb, const int32_t* m, int16_t* s,
-                      uint8_t* l, int32_t* status, int32_t* stats, long long* scratch, int n, int bits, long subs,
-                      long nint, cudaStream_t st) {
-    return static_cast<int>(nntc_jpeg_huffman_decode(sc, iv, tb, m, s, l, status, stats, scratch, n, bits, subs, nint,
-                                                     st));
+                      uint8_t* l, int32_t* status, int32_t* stats, long long* scratch, int n, int nt, int seq,
+                      int bits, long bits_total, long subs, long nint, cudaStream_t st) {
+    return static_cast<int>(nntc_jpeg_huffman_decode(sc, iv, tb, m, s, l, status, stats, scratch, n, nt, seq, bits,
+                                                     bits_total, subs, nint, st));
 }
 """,
 }
@@ -167,16 +184,17 @@ class _Faulted:
         self._run(slots.data_ptr(), lens.data_ptr(), qtables.data_ptr(), meta.data_ptr(), out.data_ptr(),
                   slots.shape[0], meta.shape[1], meta.shape[0], int(pad), stream)
 
-    def jpeg_huffman_decode(self, scan, intervals, tables, meta, slots, lens, status, stats, scratch, bits, subs, nint):
+    def jpeg_huffman_decode(self, scan, intervals, tables, meta, slots, lens, status, stats, scratch, seq, bits,
+                            bits_total, subs, nint):
         import torch
 
         if self.source != "jpeg_huffman.cu":
             return self.real.jpeg_huffman_decode(scan, intervals, tables, meta, slots, lens, status, stats, scratch,
-                                                 bits, subs, nint)
+                                                 seq, bits, bits_total, subs, nint)
         stream = torch.cuda.current_stream(scan.device).cuda_stream
         self._run(scan.data_ptr(), intervals.data_ptr(), tables.data_ptr(), meta.data_ptr(), slots.data_ptr(),
-                  lens.data_ptr(), status.data_ptr(), stats.data_ptr(), scratch.data_ptr(), meta.shape[0], int(bits),
-                  int(subs), int(nint), stream)
+                  lens.data_ptr(), status.data_ptr(), stats.data_ptr(), scratch.data_ptr(), meta.shape[0],
+                  tables.shape[0], int(seq), int(bits), int(bits_total), int(subs), int(nint), stream)
 
 
 def build_fault(fault, workdir):
@@ -207,7 +225,7 @@ def build_fault(fault, workdir):
     if source == "jpeg_idct.cu":
         kernel.argtypes = [p, p, p, p, p, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     else:
-        kernel.argtypes = [p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_long, p]
+        kernel.argtypes = [p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_long] * 3 + [p]
     kernel.restype = ctypes.c_int
     return source, kernel
 
@@ -223,12 +241,12 @@ def jpeg_faults(faults, smi):
 
     dev = torch.device("cuda")
     C.check = record_check
-    frames = C.jpeg_frames(torch, np, C.B, 3, dev)
-    buffers = [frames.buffer(i) for i in range(len(frames))]
+    buffers = C.phase12a_buffers(torch, np, dev)
     noise = jpeg_frames(C.B, C.LOADER_SRC, C.JPEG_SEED, dev, "noise")
     dense = [noise.buffer(i) for i in range(len(noise))]
     colour = C.colour_frames(np, C.B, C.JPEG_SEED + 1)
-    cases = [b for _, b in C.jpeg_cases(np, cv2)]
+    seeded = C.jpeg_cases(np, cv2)
+    cases = [b for _, b in seeded]
     real = ext.extension()
     failed = {}
     for fault in faults:
@@ -239,15 +257,23 @@ def jpeg_faults(faults, smi):
         try:
             ext._ext = _Faulted(real, *build_fault(fault, workdir))
             print(f"fault {fault}: built in {time.time() - t0:.1f} s", flush=True)
-            for bufs, pad, what, plain_k5 in ((buffers, C.LOADER_SRC, f"{C.B} of phase 12a's frames", True),
-                                              (dense, C.LOADER_SRC, f"{C.B} noise frames", False),
-                                              (colour, C.LOADER_SRC, f"{C.B} colour 4:2:0 frames", False),
-                                              (cases, 320, "the seeded set", True)):
+            for bufs, pad, what in ((buffers, C.LOADER_SRC, f"{C.B} of phase 12a's frames"),
+                                    (dense, C.LOADER_SRC, f"{C.B} noise frames"),
+                                    (colour, C.LOADER_SRC, f"{C.B} colour 4:2:0 frames"),
+                                    (buffers[:C.B - 1] + dense[:1], C.LOADER_SRC,
+                                     f"{C.B - 1} of phase 12a's frames and a noise frame"),
+                                    (cases, 320, "the seeded set")):
                 try:
-                    C.decode_against_plain_and_cv2(torch, np, cv2, bufs, pad, dev, what, plain_k5)
+                    C.decode_against_plain_and_cv2(torch, np, cv2, bufs, pad, dev, what,
+                                                   bits=C.CHECK_BITS if bufs is cases else None)
                 except Exception as e:  # a fault may make the decode raise: that counts as caught
                     RECORDED.append(f"raised {type(e).__name__} on {what}: {e}")
                     print(f"fault {fault}: raised {type(e).__name__} on {what}: {str(e)[:300]}", flush=True)
+            try:
+                C.corrupt_against_host(torch, seeded, dev)
+            except Exception as e:
+                RECORDED.append(f"raised {type(e).__name__} on the corrupt files: {e}")
+                print(f"fault {fault}: raised {type(e).__name__} on the corrupt files: {str(e)[:300]}", flush=True)
         finally:
             ext._ext = real
             shutil.rmtree(workdir, ignore_errors=True)

@@ -293,8 +293,8 @@ class JpegScans:
                      subsequence_bits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the (N, pad, pad, 1) uint8 batch, K5's status (N, 4) int32), on
         the arrays' device: K5 then K4 on a card, their plain versions on the
-        CPU (K5's subsequences of `subsequence_bits`, by default
-        `auto_subsequence_bits` of the batch). On a card nothing is read
+        CPU (K5's subsequences of `subsequence_bits`, by default each
+        image's own: `image_layout`). On a card nothing is read
         back: a fault in a scan shows only in the status (`raise_for_status`),
         and the images are then not to be used; on the CPU the status is
         raised on at once."""

@@ -99,7 +99,8 @@ void jpeg_idct_pack(torch::Tensor slots, torch::Tensor lens, torch::Tensor qtabl
 
 void jpeg_huffman_decode(torch::Tensor scan, torch::Tensor intervals, torch::Tensor tables, torch::Tensor meta,
                          torch::Tensor slots, torch::Tensor lens, torch::Tensor status, torch::Tensor stats,
-                         torch::Tensor scratch, int64_t subsequence_bits, int64_t subs, int64_t intervals_total) {
+                         torch::Tensor scratch, int64_t sequence_bits, int64_t subsequence_bits, int64_t bits_total,
+                         int64_t subs, int64_t intervals_total) {
     check(scan, torch::kUInt8, "scan");
     check(intervals, torch::kInt32, "intervals");
     check(tables, torch::kInt32, "tables");
@@ -114,14 +115,23 @@ void jpeg_huffman_decode(torch::Tensor scan, torch::Tensor intervals, torch::Ten
                 tables.size(1) == 804 && meta.dim() == 2 && meta.size(1) == 34 && slots.dim() == 2 &&
                 slots.size(1) == 64 && lens.numel() == slots.size(0) && status.numel() == 4 * N &&
                 stats.numel() == 3 * N);
-    TORCH_CHECK(scratch.numel() >= 5 * subs + intervals_total + N, "scratch too small");
+    const int64_t T = tables.size(0), G = (subs + 31) / 32 + N;  // scratch_words
+    TORCH_CHECK(scratch.numel() >= 2 + 3 * G + 5 * N + 1024 * T + 2048 * N + (intervals_total + N + 1) / 2,
+                "scratch too small");
     const c10::cuda::CUDAGuard guard(scan.device());
     C10_CUDA_CHECK(nntc_jpeg_huffman_decode(
         scan.data_ptr<uint8_t>(), intervals.data_ptr<int32_t>(), tables.data_ptr<int32_t>(), meta.data_ptr<int32_t>(),
         slots.data_ptr<int16_t>(), lens.data_ptr<uint8_t>(), status.data_ptr<int32_t>(), stats.data_ptr<int32_t>(),
-        reinterpret_cast<long long*>(scratch.data_ptr<int64_t>()), (int)N, (int)subsequence_bits, (long)subs,
-        (long)intervals_total, at::cuda::getCurrentCUDAStream()));
+        reinterpret_cast<long long*>(scratch.data_ptr<int64_t>()), (int)N, (int)T, (int)sequence_bits,
+        (int)subsequence_bits, (long)bits_total, (long)subs, (long)intervals_total,
+        at::cuda::getCurrentCUDAStream()));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t jpeg_huffman_ctas_per_sm() {
+    const int n = nntc_jpeg_huffman_ctas_per_sm();
+    TORCH_CHECK(n > 0, "K5's occupancy query failed");
+    return n;
 }
 
 }  // namespace
@@ -133,4 +143,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("gaussian_noise_from_bits", &gaussian_noise_from_bits, "K3: gaussian noise from injected bits");
     m.def("jpeg_idct_pack", &jpeg_idct_pack, "K4: JPEG dequantize, ISLOW IDCT, range limit, zero-padded batch");
     m.def("jpeg_huffman_decode", &jpeg_huffman_decode, "K5: JPEG Huffman decode of the Y scans into K4's slots");
+    m.def("jpeg_huffman_ctas_per_sm", &jpeg_huffman_ctas_per_sm, "K5: its decode CTAs an SM at most");
 }

@@ -51,12 +51,22 @@ cudaError_t nntc_jpeg_idct_pack(const int16_t* slots, const uint8_t* lens, const
 
 // K5: the Huffman decode of N images' Y scans (kernels/jpeg_huffman.py says
 // what the arrays hold): scan (bytes, 4-byte aligned), intervals (NI, 4),
-// tables (T, 804), meta (N, 34) int32 in; slots (num_blocks, 64) int16, lens
-// (num_blocks,) uint8, status (N, 4) and stats (N, 5) int32 out; scratch
-// int64: 5 * subs + intervals_total + N + the Y blocks' count, subs the
-// subsequences' bound at subsequence_bits (a multiple of 32). One CTA per
-// image. Returns cudaErrorInvalidValue for an unaligned scan or S < 32.
+// tables (num_tables, 804), meta (N, 34) int32 in; slots (num_blocks, 64)
+// int16, lens (num_blocks,) uint8, status (N, 4) and stats (N, 3) int32 out;
+// scratch int64 as kernels/jpeg_huffman.py:scratch_words lays it out, subs
+// the subsequences' bound. Each image's layout follows its scan against the
+// batch's (bits_total over N, sequence_bits: kernels/jpeg_huffman.py:
+// image_layout), its subsequences of subsequence_bits (a multiple of 32)
+// where that is not 0. Three launches: the tables and each image's layout,
+// CTAs of 128 threads as many as the SMs hold taking the sequences by
+// ticket, a CTA an image for the DC values and the status. Returns
+// cudaErrorInvalidValue for an unaligned scan, S not a multiple of 32 or no
+// table.
 cudaError_t nntc_jpeg_huffman_decode(const uint8_t* scan, const int32_t* intervals, const int32_t* tables,
                                      const int32_t* meta, int16_t* slots, uint8_t* lens, int32_t* status,
-                                     int32_t* stats, long long* scratch, int N, int subsequence_bits, long subs,
-                                     long intervals_total, cudaStream_t stream);
+                                     int32_t* stats, long long* scratch, int N, int num_tables, int sequence_bits,
+                                     int subsequence_bits, long bits_total, long subs, long intervals_total,
+                                     cudaStream_t stream);
+
+// K5's decode CTAs (128 threads) an SM at most on the current device (-1 on an error).
+int nntc_jpeg_huffman_ctas_per_sm();

@@ -12,20 +12,29 @@ decoder (`nntc_jpeg_entropy_batch`) does, exactly:
     bits; the first starts at the interval's first bit in a known state.
     A state is (bit offset, block index within the MCU, zigzag index k): in
     an interleaved scan the MCU's blocks take other tables, so landing on a
-    codeword boundary is not enough. Each subsequence but an interval's last
-    is first decoded from a guess (block 0, k = 0) to the first codeword
-    boundary at or past its end, giving its exit state and the blocks begun
-    in it. Then passes: each subsequence whose entry state (its
-    predecessor's exit) differs from the one it was decoded from is decoded
-    again, each thread of the kernel along a contiguous range of them,
-    feeding each one's fresh exit to the next (so the synchronized front
-    moves a range a pass); the passes end when one changes no exit. The
-    fixed point is the sequential decode's, whatever the data; only the
-    number of passes depends on it (a Huffman code re-synchronizes after a
-    few codewords where EOBs reset the zigzag index; blocks dense to their
-    63rd coefficient take much longer).
+    codeword boundary is not enough. An image's subsequences are grouped
+    into sequences (one CTA of the kernel, a thread each); S and the
+    sequence's length are the image's own (`image_layout`: those of the
+    batch's mean scan for an image near it).
+    Each subsequence but an interval's last is first decoded from a guess
+    (block 0, k = 0) to the first codeword boundary at or past its end,
+    giving its exit state and the blocks begun in it. Then passes within
+    each sequence: each subsequence whose entry state (its predecessor's
+    exit of the last pass; the sequence's head keeps its guess) differs
+    from the one it was decoded from is decoded again; a sequence's passes
+    end when one changes none of its exits. Then the chain across an
+    image's sequences: a sequence re-decodes its head subsequences from its
+    predecessor's tentative exit (that sequence's last exit after its
+    passes) until an exit equals the one it holds, and again from the
+    predecessor's final exit where that differs from the tentative one; its
+    own final exit is then exact. The result is the sequential decode's,
+    whatever the data; only the work depends on it (a Huffman code
+    re-synchronizes after a few codewords where EOBs reset the zigzag
+    index; blocks dense to their 63rd coefficient take tens of thousands of
+    bits).
 (b) Counting. An exclusive scan of the blocks begun in each subsequence of
-    an interval gives each subsequence its first block.
+    an interval gives each subsequence its first block (on the card: within
+    the sequence, plus the count its predecessor publishes with its exit).
 (c) Decoding. Each subsequence is decoded again from its exact entry: the
     tail of a block begun before it is skipped, then every block begun in it
     is decoded to its end (an interval's last subsequence: up to the
@@ -51,10 +60,10 @@ ValueError, naming the image. Nothing is filled with zeros silently.
 `huffman_decode` launches the kernel (`kernels/csrc/jpeg_huffman.cu`) on a
 CUDA tensor and raises on anything else but a CPU tensor, for which it runs
 `huffman_decode_plain`: the same algorithm in lockstep PyTorch ops, one row
-per subsequence, one codeword a step, the same ranges, passes and counts.
-Both report per image the passes, the subsequences and the codewords
-decoded; the plain version adds two diagnostics of the synchronization
-that the kernel does not compute.
+per subsequence, one codeword a step, the same sequences, passes, head
+re-decodes and counts. Both report per image the passes (the most of any
+of its sequences, plus the head subsequences its sequences re-decoded), the
+subsequences and the codewords decoded in (c).
 
 The payload's arrays (`JpegScans`): `scan` uint8, the unstuffed scans
 (their bits MSB first; each interval's bits are [start, end) of
@@ -79,7 +88,7 @@ MAX_MCU_BLOCKS = 10
 # valoffset by code length 0-17, the 256 symbols
 TABLE_LOOK, TABLE_MAXCODE, TABLE_VALOFFSET, TABLE_VALS, TABLE_WORDS = 0, 512, 530, 548, 804
 LOOK_BITS = 9
-KERNEL_THREADS = 512  # the kernel's threads an image: each takes a contiguous range of the subsequences
+SEQUENCES_PER_IMAGE = 8  # the batch's layout: sequences of about an eighth of the mean image's scan
 ERR_NO_CODE, ERR_DC_CATEGORY, ERR_AC_RUN, ERR_ZERO_RUN, ERR_OVERRUN, ERR_BLOCK_COUNT = 1, 2, 3, 4, 5, 6
 # faults the parse meets at an interval's end (meta's M_DEFERRED: code | marker << 8 | the RSTn due << 16),
 # the decode's if that interval decodes; END_OF_FILE stands for the marker where the file ends
@@ -97,7 +106,8 @@ MESSAGES = {
     ERR_FILE_ENDS_AFTER_SCAN: "the file ends after a scan without an EOI marker",
 }
 ERR_STATE = -1  # an exit state at a fault
-STATS = 3  # the kernel's stats an image: passes, subsequences, codewords decoded
+STATS = 3  # the stats an image: passes, subsequences, codewords decoded
+FAST_BITS = 10  # the kernel's code entries by the next 10 bits, built once a batch for each table
 
 
 def raise_for_status(status, names: Optional[Sequence[str]] = None):
@@ -117,21 +127,96 @@ def raise_for_status(status, names: Optional[Sequence[str]] = None):
         raise ValueError(f"JPEG decode: {name}: {msg}")
 
 
+def sequence_bits(bits_total: int, images: int) -> int:
+    """The batch's sequence, in bits: about an eighth of the mean image's
+    scan, a power of two in 2,048-2^20."""
+    per = bits_total / max(1, images) / SEQUENCES_PER_IMAGE
+    return int(min(1 << 20, max(2048, 2 ** round(math.log2(max(per, 1.0))))))
+
+
+def threads_for(seq_bits):
+    """The subsequences of a sequence of `seq_bits` bits (the kernel runs a
+    sequence a CTA, a thread each): 128 where that leaves subsequences of 256
+    bits or more, else 32 (works on ints and tensors)."""
+    if isinstance(seq_bits, torch.Tensor):
+        return torch.where(seq_bits >= 128 * 256, 128, 32)
+    return 128 if seq_bits >= 128 * 256 else 32
+
+
+def sequence_threads(bits_total: int, images: int) -> int:
+    """The subsequences of a sequence for an image of the batch's mean scan
+    (flat frames, ~5 KB a scan: 32)."""
+    return threads_for(sequence_bits(bits_total, images))
+
+
 def auto_subsequence_bits(bits_total: int, images: int) -> int:
-    """S for a batch: about two subsequences a kernel thread at the batch's
-    mean scan size (bits / 1,024), to the nearest power of two in 256-1,024
-    bits: with a range of two or more a thread, a pass carries the
-    synchronized front along the range, while shorter subsequences leave
-    threads idle once a batch's scans are small (flat frames: 256 bits;
-    colour 4:2:0 q95 photos: 512; noise: 1,024)."""
-    target = max(1.0, bits_total / max(1, images) / (2 * KERNEL_THREADS))
-    return int(min(1024, max(256, 2 ** round(math.log2(target)))))
+    """S for an image of the batch's mean scan: its sequence
+    (`sequence_threads` subsequences) of about an eighth of the scan, S in
+    64-8,192 bits (flat frames at 448^2, ~5 KB a scan: 128 bits; colour
+    4:2:0 q95, ~64 KB: 512; noise, ~200 KB: 2,048). A guessed decode takes
+    up to a few thousand bits to fall into step on photos and flat frames,
+    tens of thousands on dense noise: the passes within a sequence and the
+    head re-decodes that chain the sequences cost about that many bits of
+    serial decode each, so the sequences are long and the subsequences as
+    short as the CTA's threads allow."""
+    return int(min(8192, max(64, sequence_bits(bits_total, images) // sequence_threads(bits_total, images))))
 
 
-def scratch_words(meta_rows: int, intervals_total: int, bits_total: int, subsequence_bits: int) -> int:
-    """The subsequences of a batch at most (the kernel's scratch is laid out
-    by this bound, image n's from sum over m < n of bits_m // S + intervals_m + 1)."""
-    return bits_total // subsequence_bits + intervals_total + meta_rows
+RATIO_STEPS = 8  # an image's sequence is the batch's times 2^e, |e| <= RATIO_STEPS
+
+
+def image_layout(meta: torch.Tensor, bits_total: Optional[int] = None, subsequence_bits: Optional[int] = None):
+    """Each image's S and sequence length T (int64 tensors on `meta`'s
+    device), as the kernel's first launch computes them: its sequence is the
+    batch's (`sequence_bits`) times 2^e, e the largest in +-RATIO_STEPS with
+    2^(e+1) * bits_total <= 3 * bits * N (e = 0 from 2/3 to 4/3 of the mean
+    scan: a batch of like images takes one layout), within 2^11-2^20; T
+    `threads_for` it; S the sequence / T within 64-8,192, or
+    `subsequence_bits` for every image. An image far larger than the rest
+    (a dense frame among flat ones) so takes sequences longer than its
+    synchronization distance rather than the batch's."""
+    m = meta.to(torch.int64)
+    N, bits = m.shape[0], m[:, M_BITS]
+    if bits_total is None:
+        bits_total = int(bits.sum())
+    seq_b = sequence_bits(bits_total, N)
+    num = 3 * bits * N
+    e = torch.full_like(bits, -RATIO_STEPS)
+    for k in range(-RATIO_STEPS + 1, RATIO_STEPS + 1):
+        ok = (bits_total << (k + 1)) <= num if k >= -1 else bits_total <= (num << -(k + 1))
+        e = torch.where(ok, k, e)
+    base = torch.full_like(e, seq_b)
+    seq = torch.where(e >= 0, base << e.clamp(min=0), base >> (-e).clamp(min=0)).clamp(2048, 1 << 20)
+    T = threads_for(seq)
+    S = (seq // T).clamp(64, 8192) if subsequence_bits is None else torch.full_like(seq, int(subsequence_bits))
+    return S, T
+
+
+def subsequences_bound(meta_rows: int, intervals_total: int, bits_total: int,
+                       subsequence_bits: Optional[int] = None) -> int:
+    """The subsequences of a batch at most (image n's at most bits_n // S_n
+    + intervals_n + 1, S_n 64 at least or `subsequence_bits`)."""
+    return bits_total // (subsequence_bits or 64) + intervals_total + meta_rows
+
+
+def sequences_bound(meta_rows: int, subs: int) -> int:
+    """The sequences of a batch at most (an image's subsequences, `subs` at
+    most in all, in runs of 32 or more)."""
+    return (subs + 31) // 32 + meta_rows
+
+
+def scratch_words(meta_rows: int, num_tables: int, intervals_total: int, num_y: int, subs: int) -> int:
+    """The kernel's int64 scratch (`csrc/jpeg_huffman.cu`: Scratch): the
+    ticket and counters (2 words), a chain record a sequence (3: the
+    tentative and the final exit state; the flag and the block count), 5
+    words an image (the first fault; passes and head re-decodes; codewords
+    and subsequences; S, T, its first interval instance and first sequence),
+    the code entries of each table (its DC and AC forms, 2 x 2^FAST_BITS
+    uint32), each image's DC entries (4 tables x 2^FAST_BITS uint32), each
+    interval instance's first subsequence (int32, an image's count after
+    its last) and each Y block's DC difference (uint32)."""
+    return (2 + 3 * sequences_bound(meta_rows, subs) + 5 * meta_rows + num_tables * (1 << FAST_BITS)
+            + meta_rows * 2 * (1 << FAST_BITS) + (intervals_total + meta_rows + 1) // 2 + (num_y + 1) // 2)
 
 
 # the most bits one block can take: a DC code and magnitude (16 + 15), 63 AC codes and magnitudes
@@ -192,14 +277,24 @@ class _Lockstep:
         ac = m[:, M_AC_TABLES:M_AC_TABLES + 4].gather(1, (blocks >> 4) & 15)
         self.tid = torch.stack([dc, ac], 2).reshape(-1).clamp(min=0) * 65536  # by (image, block, AC)
         self.yq = (blocks >> 8) - 1
+        # run_to's lookup by (table, DC or AC form, the next 16 bits): the bits of a codeword and its magnitude
+        # (0-5), k's advance (6-12), and from bit 16 the largest k after it that is no fault, + 1,024 (-1: no
+        # code matches, a DC category above 15; 64: an AC or zero run; none for an EOB)
+        ln, sy = lut >> 8, lut & 255
+        r, s4 = sy >> 4, sy & 15
+        dc_lim = torch.where((lut == 0) | (sy > 15), -1, 1000)
+        ac_lim = torch.where(lut == 0, -1, torch.where((s4 > 0) | (r == 15), 64, 1000))
+        dc = (ln + torch.where(sy <= 15, sy, 0)) | (1 << 6) | ((dc_lim + 1024) << 16)
+        ac = (ln + s4) | (torch.where(s4 > 0, r + 1, torch.where(r == 15, 16, 64)) << 6) | ((ac_lim + 1024) << 16)
+        self.walk_lut = torch.stack([dc, ac], 1).reshape(-1)
+        self.walk_tid = self.tid // 65536 * 2 * 65536 + torch.arange(self.tid.numel(), device=dev) % 2 * 65536
 
-    def step(self, p, j, k, img_blocks, nb, values: bool = True):
+    def step(self, p, j, k, img_blocks, nb):
         """Decode one codeword (and its magnitude) at bit p in state (j, k) of
         each row (`img_blocks`: image * MAX_MCU_BLOCKS; `nb`: blocks an MCU).
         Returns (p, j, k) after it, the fault code (0: none), the symbol, the
         value (DC difference or AC coefficient), the zigzag position of a
-        nonzero AC coefficient (64: none) and whether a block ended (without
-        `values`: None for the value and the position)."""
+        nonzero AC coefficient (64: none) and whether a block ended."""
         peek = (self.w40[p >> 3] >> (8 - (p & 7))) & 0xFFFFFFFF
         ac = (k > 0).to(torch.int64)
         e16 = self.lut[self.tid[(img_blocks + j) * 2 + ac] + (peek >> 16)]
@@ -209,40 +304,65 @@ class _Lockstep:
         nk = k + self.adv[ci]
         err = torch.where(e16 == 0, ERR_NO_CODE, torch.where((nk > 64) | (ac == 0), self.errc[ci], 0))
         end = nk >= 64
-        val = pos = None
-        if values:
-            v = ((peek << ln) & 0xFFFFFFFF) >> (32 - s)
-            val = torch.where(v < self.half[s], v - self.full[s], v)
-            pos = torch.where(s > 0, nk - 1, 64)
+        v = ((peek << ln) & 0xFFFFFFFF) >> (32 - s)
+        val = torch.where(v < self.half[s], v - self.full[s], v)
+        pos = torch.where(s > 0, nk - 1, 64)
         return p + ln + s, (j + end) % nb, torch.where(end, 0, nk), err, sym, val, pos, end
+
+    def advance(self, p, j, k, img_blocks, nb):
+        """`step` for `run_to`, by one lookup a codeword: (p, j, k) after one
+        codeword of each row, and whether it faults."""
+        e = self.walk_lut[self.walk_tid[(img_blocks + j) * 2 + (k > 0)] + ((self.w40[p >> 3] >> (24 - (p & 7))) & 0xFFFF)]
+        nk = k + ((e >> 6) & 127)
+        bad = nk > (e >> 16) - 1024
+        end = nk >= 64
+        return p + (e & 63), (j + end) % nb, torch.where(end, 0, nk), bad
+
+    def _steps(self, p, j, k, ib, nb, st, c, bad, n):
+        """`n` lockstep steps of the rows, in place: a row that has reached
+        its exit or a fault stands still."""
+        for _ in range(n):
+            live = (p < st) & ~bad
+            c += (k == 0) & live
+            np_, nj, nk, b = self.advance(p, j, k, ib, nb)
+            b &= live
+            ok = live & ~b
+            p.copy_(torch.where(ok, np_, p))
+            j.copy_(torch.where(ok, nj, j))
+            k.copy_(torch.where(ok, nk, k))
+            bad |= b
 
     def run_to(self, p, j, k, img_blocks, nb, stop):
         """Decode each row from (p, j, k) to its first codeword boundary at or
         past `stop`: its exit state (ERR_STATE at a fault) and the blocks
-        begun before `stop`. A row that has reached its exit stands still
-        until the rows are compacted (every 8 steps: no read-back a step)."""
-        dev = p.device
+        begun before `stop`. Steps go 8 at a time with no read-back between:
+        on a card as one CUDA graph of them, replayed (a step is ~30 small
+        ops, whose launches would set its time), elsewhere with the rows
+        that reached their exits compacted away."""
         state = (p << 16) | (j << 8) | k
-        count = torch.zeros(p.shape[0], dtype=torch.int64, device=dev)
+        count = torch.zeros_like(p)
         rows = torch.nonzero(p < stop).flatten()
-        cols = torch.stack([p, j, k, img_blocks, nb, stop, state], 1)[rows]
-        steps = 0
+        p, j, k, ib, nb, st = (x[rows] for x in (p, j, k, img_blocks, nb, stop))
+        c, bad = torch.zeros_like(p), torch.zeros_like(p, dtype=torch.bool)
+        if p.is_cuda and rows.numel():
+            self._steps(p, j, k, ib, nb, st, c, bad, 8)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._steps(p, j, k, ib, nb, st, c, bad, 8)
+            while bool(((p < st) & ~bad).any()):
+                graph.replay()
+            state[rows] = torch.where(bad, ERR_STATE, (p << 16) | (j << 8) | k)
+            count[rows] = c
+            return state, count
         while rows.numel():
-            p, j, k, ib, nb_, st, sv = cols.unbind(1)
-            live = p < st
-            count.index_add_(0, rows, ((k == 0) & live).to(torch.int64))
-            np_, nj, nk, err, *_ = self.step(p, j, k, ib, nb_, values=False)
-            bad = live & (err > 0)
-            ok = live & ~bad
-            cols = torch.stack([torch.where(bad, st, torch.where(ok, np_, p)), torch.where(ok, nj, j),
-                                torch.where(ok, nk, k), ib, nb_, st,
-                                torch.where(bad, ERR_STATE, torch.where(ok, (np_ << 16) | (nj << 8) | nk, sv))], 1)
-            steps += 1
-            if steps % 8 == 0:
-                keep = cols[:, 0] < cols[:, 5]
-                if not bool(keep.all()):
-                    state[rows[~keep]] = cols[~keep, 6]
-                    rows, cols = rows[keep], cols[keep]
+            self._steps(p, j, k, ib, nb, st, c, bad, 8)
+            keep = (p < st) & ~bad
+            if not bool(keep.all()):
+                done = ~keep
+                state[rows[done]] = torch.where(bad[done], ERR_STATE, (p[done] << 16) | (j[done] << 8) | k[done])
+                count[rows[done]] = c[done]
+                keep = torch.nonzero(keep).flatten()  # one sync, not one a tensor
+                rows, p, j, k, ib, nb, st, c, bad = (x[keep] for x in (rows, p, j, k, ib, nb, st, c, bad))
         return state, count
 
 
@@ -250,16 +370,14 @@ def huffman_decode_plain(scan: torch.Tensor, intervals: torch.Tensor, tables: to
                          num_blocks: int, num_y: int, subsequence_bits: Optional[int] = None):
     """K5 in plain PyTorch ops, on the arrays' device (the CPU, or the card to
     hold the kernel to it). Returns (slots (num_blocks, 64) int16, lens
-    (num_blocks,) uint8, status (N, 4) int32, stats (N, 5) int32: the
-    passes, the subsequences and the codewords decoded in (c), its blocks to
-    their ends, as the kernel reports them (`STATS`), then the subsequences
-    whose guessed decode did not reach the sequential decode's state by
-    their end and those of them whose successor's did not either)."""
-    if subsequence_bits is None:
-        subsequence_bits = auto_subsequence_bits(int(meta[:, M_BITS].sum()), meta.shape[0])
-    S = int(subsequence_bits)
-    if S < 32:
-        raise ValueError(f"subsequences of {S} bits: 32 at least")
+    (num_blocks,) uint8, status (N, 4) int32, stats (N, 3) int32: the
+    passes (the most of any of the image's sequences, plus the head
+    subsequences its sequences re-decoded), the subsequences and the
+    codewords decoded in (c), its blocks to their ends, as the kernel
+    reports them)."""
+    if subsequence_bits is not None and int(subsequence_bits) < 32:
+        raise ValueError(f"subsequences of {int(subsequence_bits)} bits: 32 at least")
+    S_n, T_n = image_layout(meta, None, subsequence_bits)
     dev = scan.device
     m = meta.to(torch.int64)
     N = m.shape[0]
@@ -276,69 +394,102 @@ def huffman_decode_plain(scan: torch.Tensor, intervals: torch.Tensor, tables: to
     mcus = m[inst_img, M_MCUS_X] * m[inst_img, M_MCUS_Y]
     first_mcu = inst_local * rst
     total = torch.where(rst > 0, torch.minimum(rst, mcus - first_mcu), mcus) * nb
+    S = S_n[inst_img]
     nsub = torch.clamp((e - a + S - 1) // S, min=1)
     # the subsequences
     row_inst = torch.repeat_interleave(torch.arange(nsub.numel(), device=dev), nsub)
     t = torch.arange(row_inst.numel(), device=dev) - torch.repeat_interleave(torch.cumsum(nsub, 0) - nsub, nsub)
     img, re = inst_img[row_inst], e[row_inst]
     ib, rnb = img * MAX_MCU_BLOCKS, nb[row_inst]
-    start = a[row_inst] + t * S
+    start = a[row_inst] + t * S[row_inst]
     last = t == nsub[row_inst] - 1
     first = t == 0
-    stop = torch.where(last, re, start + S)
+    stop = torch.where(last, re, start + S[row_inst])
     guess = start << 16
     R = row_inst.numel()
+    # the sequences: each image's subsequences cut into runs of its T, one CTA of the kernel each
+    rows_n = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(0, img, torch.ones_like(img))
+    row0_n = torch.cumsum(rows_n, 0) - rows_n
+    local = torch.arange(R, device=dev) - row0_n[img]
+    nseq_n = (rows_n + T_n - 1) // T_n
+    seq0_n = torch.cumsum(nseq_n, 0) - nseq_n
+    seq = seq0_n[img] + local // T_n[img]
+    Q = int(nseq_n.sum())
+    seq_img = torch.repeat_interleave(torch.arange(N, device=dev), nseq_n)
+    seq_q = torch.arange(Q, device=dev) - seq0_n[seq_img]
+    seq_head = row0_n[seq_img] + seq_q * T_n[seq_img]  # each sequence's first and last row
+    seq_end = torch.minimum(seq_head + T_n[seq_img], row0_n[seq_img] + rows_n[seq_img]) - 1
+    head = local % T_n[img] == 0
 
     def decode_rows(sel, entry):
         en = entry[sel]
         return ls.run_to(en >> 16, (en >> 8) & 255, en & 255, ib[sel], rnb[sel], stop[sel])
 
-    # (a) the guess, then passes until no exit changes. Each image's rows are cut into contiguous ranges as the
-    # kernel's KERNEL_THREADS threads take them; a pass takes the ranges' positions in order, a row's entry its
-    # predecessor's exit of this pass within a range and of the last pass across ranges
-    nonlast = torch.nonzero(~last).flatten()
+    # (a) within each sequence: the guess, then passes until none changes an exit; a row's entry is its
+    # predecessor's exit of the last pass, the sequence's head row its guess (an interval's first row: its state)
     ex = torch.full((R,), ERR_STATE, dtype=torch.int64, device=dev)
     count = torch.zeros(R, dtype=torch.int64, device=dev)
+    nonlast = torch.nonzero(~last).flatten()
     ex[nonlast], count[nonlast] = decode_rows(nonlast, guess)
-    guessed = ex.clone()
     ent = guess.clone()
-    rows_n = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(0, img, torch.ones_like(img))
-    per = (rows_n + KERNEL_THREADS - 1) // KERNEL_THREADS
-    qpos = (torch.arange(R, device=dev) - (torch.cumsum(rows_n, 0) - rows_n)[img]) % per[img].clamp(min=1)
-    last_changed = torch.ones(N, dtype=torch.int64, device=dev)
+    last_changed = torch.ones(Q, dtype=torch.int64, device=dev)
     passes = 1
     while True:
         passes += 1
+        prev = torch.cat([ex.new_full((1,), ERR_STATE), ex[:-1]])
+        entry = torch.where(first | head | (prev == ERR_STATE), guess, prev)
+        redo = torch.nonzero(~last & (entry != ent)).flatten()
         changed = torch.zeros(R, dtype=torch.bool, device=dev)
-        old = ex.clone()
-        for q in range(int(per.max()) if N else 0):
-            prev = torch.cat([ex.new_full((1,), ERR_STATE), (old if q == 0 else ex)[:-1]])
-            entry = torch.where(first | (prev == ERR_STATE), guess, prev)
-            redo = torch.nonzero(~last & (qpos == q) & (entry != ent)).flatten()
-            if redo.numel():
-                st, cnt = decode_rows(redo, entry)
-                changed[redo] = st != ex[redo]
-                ex[redo], count[redo], ent[redo] = st, cnt, entry[redo]
-        hit = torch.zeros(N, dtype=torch.bool, device=dev)
-        hit[img[changed]] = True
+        if redo.numel():
+            st, cnt = decode_rows(redo, entry)
+            changed[redo] = st != ex[redo]
+            ex[redo], count[redo], ent[redo] = st, cnt, entry[redo]
+        hit = torch.zeros(Q, dtype=torch.bool, device=dev)
+        hit[seq[changed]] = True
         last_changed = torch.where(hit, passes, last_changed)
         if not bool(changed.any()):
             break
-    # stats: the subsequences whose guess missed the exact exit, and of them those whose successor, decoded from
-    # that guess's exit, missed too
-    missed = ~last & (guessed != ex)
-    cand = torch.nonzero(missed[:-1] & ~last[1:]).flatten()
-    missed_next = torch.zeros(R, dtype=torch.bool, device=dev)
-    if cand.numel():
-        entry = guess.clone()
-        entry[cand + 1] = torch.where(guessed[cand] == ERR_STATE, guess[cand + 1], guessed[cand])
-        st, _ = decode_rows(cand + 1, entry)
-        missed_next[cand] = st != ex[cand + 1]
-    stats = torch.zeros((N, 5), dtype=torch.int64, device=dev)
-    stats[:, 0] = last_changed + 1
+    seq_passes = last_changed + 1
+
+    # across sequences, the chain: each sequence re-decodes its head rows from its predecessor's tentative exit
+    # (its last row's exit after the passes) until an exit equals the one it holds, then again from the
+    # predecessor's final exit where that differs from the tentative one; an image's first sequence, and one
+    # whose head row starts an interval, start in a known state
+    heads = torch.zeros(Q, dtype=torch.int64, device=dev)
+
+    def walk(sel, pred_exit):
+        r, en = seq_head[sel], pred_exit
+        en = torch.where(en == ERR_STATE, guess[r], en)
+        while sel.numel():
+            go = ~last[r] & (en != ent[r])
+            go = torch.nonzero(go).flatten()
+            sel, r, en = sel[go], r[go], en[go]
+            if not sel.numel():
+                break
+            ent[r] = en
+            x, c = decode_rows(r, ent)
+            heads.index_add_(0, sel, torch.ones_like(sel))
+            count[r] = c
+            go = x != ex[r]
+            ex[r] = x
+            go = torch.nonzero(go & (r < seq_end[sel])).flatten()
+            sel, r, x = sel[go], r[go] + 1, x[go]
+            en = torch.where(x == ERR_STATE, guess[r], x)
+
+    chained = torch.nonzero((seq_q > 0) & ~first[seq_head]).flatten()
+    tentative = ex[seq_end]
+    walk(chained, tentative[chained - 1])
+    final = ex[seq_end]
+    for q in range(1, int(nseq_n.max()) if N else 0):
+        sel = chained[seq_q[chained] == q]
+        sel = sel[final[sel - 1] != tentative[sel - 1]]
+        if sel.numel():
+            walk(sel, final[sel - 1])
+            final[sel] = ex[seq_end[sel]]
+    stats = torch.zeros((N, STATS), dtype=torch.int64, device=dev)
+    stats[:, 0].scatter_reduce_(0, seq_img, seq_passes, "amax")
+    stats[:, 0].index_add_(0, seq_img, heads)
     stats[:, 1] = rows_n
-    stats[:, 3].index_add_(0, img, missed.to(torch.int64))
-    stats[:, 4].index_add_(0, img, missed_next.to(torch.int64))
 
     # (b) each subsequence's first block: the blocks begun before it in its interval
     cnt = torch.where(last, 0, count)
@@ -374,11 +525,13 @@ def huffman_decode_plain(scan: torch.Tensor, intervals: torch.Tensor, tables: to
         tail = tail & ~end
         steps += 1
         if steps % 16 == 0:
-            if not bool(alive.any()):
+            n_alive = int(alive.sum())
+            if not n_alive:
                 break
-            if int(alive.sum()) * 2 < alive.numel():
+            if n_alive * 2 < alive.numel():
+                idx = torch.nonzero(alive).flatten()
                 p, j, k, bk, tail, alive, rows, ibl, nbr, er, sp, nlst, tot = (
-                    x[alive] for x in (p, j, k, bk, tail, alive, rows, ibl, nbr, er, sp, nlst, tot))
+                    x[idx] for x in (p, j, k, bk, tail, alive, rows, ibl, nbr, er, sp, nlst, tot))
     rec = torch.cat(records)
     rec = rec[rec[:, 8] == 1]  # steps of live rows
     r_row, r_b, r_j, r_k, r_val, r_pos, r_err, r_sym, _, r_end, r_over = rec.unbind(1)
@@ -459,37 +612,34 @@ def huffman_decode(scan: torch.Tensor, intervals: torch.Tensor, tables: torch.Te
                    num_blocks: int, num_y: int, intervals_total: int, bits_total: int,
                    subsequence_bits: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """K5 for CUDA tensors, the plain version for CPU tensors: (slots, lens,
-    status, stats) as `huffman_decode_plain` gives them, stats its first
-    `STATS` columns (on the card the slot entries past each block's length
-    are not written). Nothing is read back to the host: the status is
-    raised on by `raise_for_status`."""
+    status, stats) as `huffman_decode_plain` gives them (on the card the slot
+    entries past each block's length are not written). Each image's layout
+    follows its scan (`image_layout`), its subsequences of `subsequence_bits`
+    where given. Nothing is read back to the host: the status is raised on
+    by `raise_for_status`."""
     _check_shapes(scan, intervals, tables, meta)
-    if subsequence_bits is None:
-        subsequence_bits = auto_subsequence_bits(bits_total, meta.shape[0])
     if scan.device.type == "cpu":
-        slots, lens, status, stats = huffman_decode_plain(scan, intervals, tables, meta, num_blocks, num_y,
-                                                          subsequence_bits)
-        return slots, lens, status, stats[:, :STATS].contiguous()
+        return huffman_decode_plain(scan, intervals, tables, meta, num_blocks, num_y, subsequence_bits)
     ext.require_cuda_tensor(scan, "scan", torch.uint8, 1)
     ext.require_cuda_tensor(intervals, "intervals", torch.int32, 2)
     ext.require_cuda_tensor(tables, "tables", torch.int32, 2)
     ext.require_cuda_tensor(meta, "meta", torch.int32, 2)
     if scan.data_ptr() % 4 or scan.numel() % 4:
         raise ValueError("the scan buffer must be 4-byte aligned and a whole number of 32-bit words")
-    S = int(subsequence_bits)
-    if S < 32 or S % 32:
+    S = 0 if subsequence_bits is None else int(subsequence_bits)
+    if subsequence_bits is not None and (S < 32 or S % 32):
         raise ValueError(f"subsequences of {S} bits: a multiple of 32")
     N, dev = meta.shape[0], scan.device
     slots = torch.empty((num_blocks, 64), dtype=torch.int16, device=dev)
     lens = torch.empty(num_blocks, dtype=torch.uint8, device=dev)
     status = torch.empty((N, 4), dtype=torch.int32, device=dev)
     stats = torch.empty((N, STATS), dtype=torch.int32, device=dev)
-    subs = scratch_words(N, intervals_total, bits_total, S)
-    # per subsequence: 4 states (int64) and its count; per interval instance its first subsequence; per Y block
-    # its DC difference
-    scratch = torch.empty(5 * subs + intervals_total + N + num_y + 2, dtype=torch.int64, device=dev)
+    subs = subsequences_bound(N, intervals_total, bits_total, S or None)
+    scratch = torch.empty(scratch_words(N, tables.shape[0], intervals_total, num_y, subs), dtype=torch.int64,
+                          device=dev)
     if N:
-        ext.extension().jpeg_huffman_decode(scan, intervals, tables, meta, slots, lens, status, stats, scratch, S,
-                                            subs, int(intervals_total))
+        ext.extension().jpeg_huffman_decode(scan, intervals, tables, meta, slots, lens, status, stats, scratch,
+                                            sequence_bits(bits_total, N), S, int(bits_total), subs,
+                                            int(intervals_total))
         ext.LAUNCHES["jpeg_huffman"] += 1
     return slots, lens, status, stats

@@ -10,10 +10,12 @@ Tolerance: bit-equal. The payloads: noise at quality 1, 50 and 100, sizes
 after encoding, decoded into slots of 448 (a multiple of 8) and 453 (not),
 into a fresh tensor and into row k of a stacked (K, B, pad, pad, 1) one,
 and on flat blocks (slots of their DC alone) beside blocks with terms; K5
-at three subsequence sizes (slots compared up to each block's length, with
-the lengths, the status and the synchronization stats), and on scans that
-the host decoder refuses, also as the loader's upload decodes them; the
-extension refuses CPU tensors.
+at three subsequence sizes and on the loader's marker, colour 4:2:0 and
+noise frames at 448^2 (slots compared up to each block's length, with the
+lengths, the status and the stats), and on scans that the host decoder
+finds corrupt (the first fault in scan order across K5's sequences: the
+host decoder's message, K5's status equal to its plain version's), also as
+the loader's upload decodes them; the extension refuses CPU tensors.
 """
 
 import struct
@@ -135,7 +137,7 @@ def test_k5_is_bit_equal_to_its_plain_version_and_to_the_host_decoder(dev, bits)
     torch.cuda.synchronize()
     within = torch.arange(64) < pl[:, None].long()
     assert torch.equal(lens.cpu(), pl) and torch.equal(torch.where(within, slots.cpu(), 0), ps)
-    assert torch.equal(status.cpu(), pst) and not bool(pst.any()) and torch.equal(stats.cpu(), pstats[:, :K5.STATS])
+    assert torch.equal(status.cpu(), pst) and not bool(pst.any()) and torch.equal(stats.cpu(), pstats)
     want, want_lens = _slots(NL.entropy_decode([buffers[i] for i in list(range(len(buffers))) + [2, 0]], 448))
     assert torch.equal(pl, want_lens) and torch.equal(ps, want)
     got = payload.to(dev).decode(subsequence_bits=bits).cpu().numpy()
@@ -148,18 +150,77 @@ def _sos_end(b):
     return i + 2 + ((b[i + 2] << 8) | b[i + 3])
 
 
+@pytest.mark.parametrize("content", ["markers", "colour", "noise", "mixed"])
+def test_k5_is_bit_equal_to_its_plain_version_on_the_loaders_frames(dev, content):
+    """Phase 18's three kinds of frame at 448^2 (8 of each), and 7 marker
+    frames with a noise frame, at the images' own layouts: K5 bit-equal to
+    its plain version (slots up to each length, lengths, status, stats), to
+    the host decoder and, with K4, to cv2."""
+    cv2 = pytest.importorskip("cv2")
+    from neuralnet_tracker_traincode_torch.scripts.bench_loader import jpeg_frames
+
+    if content == "mixed":
+        frames = jpeg_frames(7, 448, 5, dev), jpeg_frames(1, 448, 5, dev, "noise")
+        buffers = [f.buffer(i) for f in frames for i in range(len(f))]
+    else:
+        frames = jpeg_frames(8, 448, 5, dev, content)
+        buffers = [frames.buffer(i) for i in range(len(frames))]
+    payload = NL.scan_batch(buffers, 448)
+    blocks, ys, nbits, nint = payload.counts
+    args = [torch.as_tensor(a) for a in payload.arrays[:4]]
+    slots, lens, status, stats = K5.huffman_decode(*(a.to(dev) for a in args), blocks, ys, nint, nbits)
+    ps, pl, pst, pstats = K5.huffman_decode_plain(*(a.to(dev) for a in args), blocks, ys)
+    torch.cuda.synchronize()
+    within = torch.arange(64, device=dev) < pl[:, None].long()
+    assert torch.equal(lens, pl) and torch.equal(torch.where(within, slots, 0), ps)
+    assert torch.equal(status, pst) and not bool(pst.any()) and torch.equal(stats, pstats)
+    want, want_lens = _slots(NL.entropy_decode(buffers, 448))
+    assert torch.equal(pl.cpu(), want_lens) and torch.equal(ps.cpu(), want)
+    got = payload.to(dev).decode().cpu().numpy()
+    for i, b in enumerate(buffers):
+        im = cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(got[i, :im.shape[0], :im.shape[1], 0], im)
+
+
+def _corrupt(buffers):
+    """Files the host decoder finds corrupt, each spanning many of K5's
+    sequences: (name, bytes)."""
+    out = []
+    for i in (1, 6, 7):  # noise q50; a 4:2:0 source with restart markers; colour 4:2:0
+        b = buffers[i]
+        s = _sos_end(b)
+        out.append((f"{i}: ends early", b[: s + (len(b) - s) // 2] + b"\xff\xd9"))
+        out.append((f"{i}: ones", b[: s + 300] + b"\xff\x00" * 6 + b[s + 312:]))
+    b = buffers[6]
+    j = b.index(b"\xff\xd1")
+    out.append(("6: an interval short of data", b[: j - 20] + b[j:]))
+    out.append(("6: RST5 where RST1 is due", b.replace(b"\xff\xd1", b"\xff\xd5", 1)))
+    s, far = _sos_end(b), len(b) * 3 // 4  # ones in two intervals far apart: faults in several of K5's CTAs
+    out.append(("6: ones twice", b[: s + 300] + b"\xff\x00" * 6 + b[s + 312: far] + b"\xff\x00" * 6 + b[far + 12:]))
+    return out
+
+
 def test_k5_raises_the_host_decoders_faults_naming_the_image(dev):
+    """The first fault in scan order, found across K5's sequences: the
+    host decoder's message naming the frame, and K5's status (the fault's
+    kind, symbol or marker and block) and stats equal to its plain
+    version's."""
     buffers, _ = _buffers()
-    good = buffers[1]
-    s = _sos_end(good)
-    bad = [good[: s + (len(good) - s) // 2] + b"\xff\xd9", good[: s + 300] + b"\xff\x00" * 6 + good[s + 312:]]
-    for b, match in zip(bad, ("runs into marker 0xD9", "no Huffman code matches")):
-        with pytest.raises(ValueError, match=match) as host:
-            NL.entropy_decode([good, b], 320)
-        payload = NL.scan_batch([good, b], 320, names=["frame 0", "frame 1 (index 9)"]).to(dev)
-        with pytest.raises(ValueError, match=match) as card:
-            payload.decode()
-        assert "frame 1 (index 9)" in str(card.value) and str(host.value).split(": ", 2)[2] in str(card.value)
+    good = buffers[0]
+    for name, b in _corrupt(buffers):
+        with pytest.raises(ValueError) as host:
+            NL.entropy_decode([good, b, good], 320)
+        payload = NL.scan_batch([good, b, good], 320, names=["frame 0", "frame 1 (index 9)", "frame 2"])
+        with pytest.raises(ValueError) as card:
+            payload.to(dev).decode()
+        assert str(card.value) == str(host.value).replace("image 1 of 3", "frame 1 (index 9)"), name
+        blocks, ys, nbits, nint = payload.counts
+        args = [torch.as_tensor(a) for a in payload.arrays[:4]]
+        _, _, status, stats = K5.huffman_decode(*(a.to(dev) for a in args), blocks, ys, nint, nbits, 64)
+        _, _, pst, pstats = K5.huffman_decode_plain(*args, blocks, ys, 64)
+        assert torch.equal(status.cpu(), pst) and torch.equal(stats.cpu(), pstats) and pst[1, 0] > 0, name
+        _, T = K5.image_layout(args[3], nbits, 64)
+        assert int(stats[1, 1]) > int(T[1]), name  # the image spans several sequences
 
 
 def test_the_upload_raises_a_corrupt_scan_naming_its_frame(dev):
