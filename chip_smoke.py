@@ -281,7 +281,27 @@ Phases (any failure ends the run with a non-zero exit code):
     launched; the training thread's wait in `next()` a step (median, p90),
     images/s per epoch (`scripts/bench_loader.py:training_stage`, whose
     `--ab --train` runs the same in both decodes);
- 19. the `kernels` line (`launches` from phase 5's steps, but K4's and
+ 19. the step profiler (`scripts/profile_step.py`, the counterpart of the JAX
+    package's) in this process at its defaults (batch 512, 30 timed calls,
+    every layout shape; `PROF_LAYOUT_SHAPES` must be unset), section by
+    section, the launch counts of K1-K3 reset before and read after each:
+    every section prints its lines (the JAX script's labels), every time is
+    finite and positive, the model's forward + backward takes longer than
+    its forward, `aug` launches K1 once an augmentation call, K2 at least
+    once and K3 once an augmentation or noise call, and `step` launches K1
+    and K3 once a step (the eager steps, the graph's warm-up steps and 8 a
+    replay) and K2 at least once, as phase 5. It prints the NCHW and
+    channels-last totals over MobileNetV1's conv shapes (bf16, weighted by
+    count) and the launches of each section (`launches_profile`);
+ 20. the dataset converters' LocalizerNet ROI refiner
+    (`scripts/dsprocess_lapa.py:LocalizerRoiRefiner`): phase 10's localizer
+    written by `models/io.py:save_model` and read back by the refiner on the
+    card and on the CPU, over 256 of phase 7's validation frames: the
+    `hasface` decisions equal wherever the CPU's probability is more than
+    1e-3 from 0.5, the refined ROIs within 1e-2 px, K1-K3 not launched; ms
+    an image on the card (CUDA events) and on the CPU. One line says that
+    the HDF5-writing converters run only in the CPU tests;
+ 21. the `kernels` line (`launches` from phase 5's steps, but K4's and
     K5's from phase 18's run, their own main path; `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
@@ -290,7 +310,8 @@ Phases (any failure ends the run with a non-zero exit code):
     (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
     both ranks of (b), `launches_face_tools` from phase 16, which are 0,
     `launches_viewer` from phase 17 (b), `launches_jpeg_run` from phase 18
-    (c)), then `{"ok": true, "device": ...}` as the last line.
+    (c)), `launches_profile` from phase 19), then `{"ok": true, "device":
+    ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -373,6 +394,15 @@ RENDER_POSES = [("xyz", (0, 0, 0)), ("xyz", (0, 40, 0)), ("xyz", (-25, -20, 15))
 VIEW_VIDEO_N, VIEW_YAW_N, VIEW_INDIVIDUALS, VIEW_PER_INDIVIDUAL, VIEW_CPU_N, VIEW_SAMPLES = 2100, 200, 4, 6, 128, 32
 # the eval's tolerances (tests/test_torch_eval.py): hpb within what 1e-4 per quaternion component allows, px
 VIEW_HPB_TOL, VIEW_PX_TOL = 4e-4, 1e-3
+# the step profiler (phase 19): scripts/profile_step.py's defaults, and the labels each section prints
+PROF_BATCH, PROF_REPS = 512, 30
+PROF_LABELS = {"dwconv": ["dw 65x65x  64 conv : fwd", "dw 5x5x1024 shift: fwd"],
+               "aug": ["aug program:", "intensity stage1:", "intensity noise:"],
+               "model": ["model fwd:", "model fwd+bwd:"], "step": ["full train_step:", "full train_step_multi (K=8):"],
+               "layout": ["stem 5x5 s2 pad8", "TOTAL NCHW:", "TOTAL channels_last:"]}
+# the converters' ROI refiner (phase 20): frames, the band around 0.5 where the card may decide otherwise than
+# the CPU, and the refined ROIs' limit in px
+REFINER_N, REFINER_BAND, REFINER_PX = 256, 1e-3, 1e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 I32_OPS_PER_S = 33.5e12  # 32-bit integer: half the f32 lanes per SM on Hopper
@@ -539,40 +569,16 @@ def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
 
 def synthetic_batch(np, n, seed=0):
     """The training batch of the JAX package's bench.py, at batch n (other
-    seeds give other images and points)."""
-    rng = np.random.RandomState(seed)
-    return {
-        "image": rng.randint(0, 256, size=(n, SRC, SRC, 1), dtype=np.uint8),
-        "pose": np.tile(np.asarray([0.0, 0, 0, 1], np.float32), (n, 1)),
-        "coord": (rng.rand(n, 3) * 100 + 100).astype(np.float32),
-        "roi": np.tile(np.asarray([100.0, 100, 350, 350], np.float32), (n, 1)),
-        "pt3d_68": (rng.rand(n, 68, 3) * 200 + 100).astype(np.float32),
-        "shapeparam": rng.randn(n, 50).astype(np.float32),
-        "hasface": np.full((n,), 0.9, np.float32),
-        "coord_convention_id": np.zeros((n,), np.int32),
-        "tag_id": np.zeros((n,), np.int32),
-        "dataset_weight": np.ones((n,), np.float32),
-        "param_index": np.arange(n, dtype=np.int32),
-    }
+    seeds give other images and points; `train/flagship.py`)."""
+    from neuralnet_tracker_traincode_torch.train.flagship import synthetic_batch as batch
+
+    return batch(n, seed, SRC)
 
 
 def flagship_criterion():
-    from neuralnet_tracker_traincode_torch.data.fields import Tag
-    from neuralnet_tracker_traincode_torch.losses import losses as L
-    from neuralnet_tracker_traincode_torch.losses import nll as NLL
-    from neuralnet_tracker_traincode_torch.losses.criterion import Criterion, CriterionGroup, MaskedMultiTaskCriterion
+    from neuralnet_tracker_traincode_torch.train.flagship import flagship_criterion as criterion
 
-    terms = [
-        Criterion("nllrot", NLL.QuatPoseNLLLoss(), 0.005),
-        Criterion("nllcoord", NLL.CorrelatedCoordPoseNLLLoss(), 0.005),
-        Criterion("rot", L.QuatPoseLoss("approx_distance"), 1.0),
-        Criterion("xy", L.PoseXYLoss("l2"), 0.25),
-        Criterion("sz", L.PoseSizeLoss("l2"), 0.25),
-        Criterion("points3d", L.Points3dLoss("l2", chin_weight=0.8), 0.5),
-        Criterion("box", L.BoxLoss("l2"), 0.01),
-        Criterion("quatreg", L.QuaternionNormalizationSoftConstraint(), 1e-6),
-    ]
-    return MaskedMultiTaskCriterion({Tag.POSE_WITH_LANDMARKS: CriterionGroup(terms)}, [Tag.POSE_WITH_LANDMARKS])
+    return criterion()
 
 
 def kernel_phase(torch, np, dev):
@@ -783,23 +789,13 @@ def reference_phase(torch, np, dev):
 
 def training_phase(torch, np, dev, name):
     """Phase 5: the flagship training step, the main path of the port."""
-    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
-    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
     from neuralnet_tracker_traincode_torch.kernels import ext
-    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
-    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig, nonfinite_metrics
+    from neuralnet_tracker_traincode_torch.train.loop import nonfinite_metrics
 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults; the model runs in bf16 autocast
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = NetworkWithPointHead(
-        enable_point_head=True, enable_uncertainty=True, config="mobilenetv1", dtype=torch.bfloat16
-    )
-    cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
-                        aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
-    trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev)
-    state = trainer.init_state(torch.Generator().manual_seed(0))
+    trainer, state, W = flagship_trainer(torch, dev)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(np, B).items()}
-    W = trainer.weight_matrix(50)
     gen = torch.Generator().manual_seed(7)
     losses = []
     torch.cuda.synchronize()
@@ -1912,18 +1908,11 @@ def against_eager(torch, trainer, state, singles, groups, W, what):
 
 def flagship_trainer(torch, dev, config="mobilenetv1", args=None, face=False, parallel=None):
     """Phase 5's flagship configuration (or another backbone in it): the
-    trainer, its state from seed 0 and the criterion's weights at epoch 50."""
-    from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
-    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
-    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
-    from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainerConfig
+    trainer, its state from seed 0 and the criterion's weights at epoch 50
+    (`train/flagship.py`)."""
+    from neuralnet_tracker_traincode_torch.train.flagship import flagship_trainer as build
 
-    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config=config,
-                                 backbone_args=args or {}, enable_face_detector=face, dtype=torch.bfloat16)
-    cfg = TrainerConfig(batchsize=B, epochs=100, samples_per_epoch=10240,
-                        aug=TrainAugmentationConfig(inputsize=S, enable_image_aug=True))
-    trainer = PoseTrainer(model, flagship_criterion(), cfg, LABEL_CATEGORIES, device=dev, parallel=parallel)
-    return trainer, trainer.init_state(torch.Generator().manual_seed(0)), trainer.weight_matrix(50)
+    return build(B, dev, config, args, face, parallel)
 
 
 def flagship_batches(torch, np, dev, n, count, K):
@@ -3447,6 +3436,143 @@ def jpeg_loader_run(torch, np, dev, train, val, pad, mode):
     return r
 
 
+class _Tee:
+    """Writes to the process's standard output and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def profile_phase(torch, np, dev, smi):
+    """Phase 19: `scripts/profile_step.py`'s sections on the card at its
+    defaults, the launch counts of K1-K3 reset before and read after each."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.scripts import profile_step as P
+
+    check("PROF_LAYOUT_SHAPES" not in os.environ, "phase 19 runs the whole layout sweep: unset PROF_LAYOUT_SHAPES")
+    t_phase = time.perf_counter()
+    kernels = ("warp_roi_rotate", "equalize", "gaussian_noise")
+    results, launches, seconds = {}, {}, {}
+    for name in P.SECTIONS:
+        torch.cuda.synchronize()
+        ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            results[name] = P.run_section(name, dev, PROF_BATCH, PROF_REPS)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: ext.LAUNCHES[k] for k in kernels}
+        out = "".join(tee.parts)
+        missing = [label for label in PROF_LABELS[name] if label not in out]
+        check(not missing, f"profile {name}: no line {missing}")
+
+    def numbers(x):
+        if isinstance(x, (tuple, list)):
+            for v in x:
+                yield from numbers(v)
+        else:
+            yield x
+
+    times = {f"{name} {label}": t for name in ("dwconv", "aug", "model", "step")
+             for label, t in results[name]["times"].items()}
+    times.update({f"layout {n} {lay}": v for n, (r, _) in results["layout"]["rows"].items() for lay, v in r.items()})
+    bad = [label for label, t in times.items() if not all(math.isfinite(v) and v > 0 for v in numbers(t))]
+    check(not bad, f"profile: times not finite and positive: {bad[:5]}")
+    model = results["model"]["times"]
+    check(model["model fwd+bwd"][0] > model["model fwd"][0],
+          f"profile: model fwd+bwd {model['model fwd+bwd'][0]} ms is not above fwd {model['model fwd'][0]} ms")
+    aug, calls = launches["aug"], results["aug"]["calls"]
+    check(aug["warp_roi_rotate"] == calls["aug program"] and aug["equalize"] >= 1
+          and aug["gaussian_noise"] == calls["aug program"] + calls["intensity noise"],
+          f"profile aug: launches {aug} for calls {calls}")
+    st, steps = launches["step"], results["step"]
+    n = (steps["calls"]["train_step"] + steps["steps_per_call"] * steps["calls"]["train_step_multi"]
+         + steps["graph_warmup_steps"])
+    check(st["warp_roi_rotate"] == n and st["gaussian_noise"] == n and st["equalize"] >= 1,
+          f"profile step: launches {st} in {n} steps")
+    total = {k: sum(launches[name][k] for name in P.SECTIONS) for k in kernels}
+    (f_nchw, fb_nchw), (f_cl, fb_cl) = (results["layout"]["totals"][lay] for lay in ("NCHW", "channels_last"))
+    print(f"profile: TOTAL NCHW fwd {f_nchw:.4f} ms, fwd+bwd {fb_nchw:.4f} ms; TOTAL channels_last fwd {f_cl:.4f} ms, "
+          f"fwd+bwd {fb_cl:.4f} ms (batch {PROF_BATCH}, bf16, the {len(P.LAYOUT_SHAPES) - 1} shapes weighted by "
+          f"count) on {smi}")
+    print("launches_profile: " + json.dumps({name: launches[name] for name in P.SECTIONS})
+          + f"; sections' seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return dict(total, gaussian_noise_from_bits=0, jpeg_idct=0, jpeg_huffman=0), results
+
+
+def refiner_phase(torch, np, dev, smi, localizer, frames):
+    """Phase 20: the converters' LocalizerNet ROI refiner
+    (`scripts/dsprocess_lapa.py:LocalizerRoiRefiner`) on the card against
+    the CPU, over phase 7's validation frames, with phase 10's localizer read
+    from its file."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.models.io import save_model
+    from neuralnet_tracker_traincode_torch.scripts.dsprocess_lapa import LocalizerRoiRefiner
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_refiner_")
+    try:
+        path = os.path.join(workdir, "localizer.ckpt")
+        save_model(localizer, None, path)
+        card, cpu = LocalizerRoiRefiner(path, dev), LocalizerRoiRefiner(path, "cpu")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    images = [np.ascontiguousarray(np.asarray(f["image"])[..., 0]) for f in frames[:REFINER_N]]
+    rois = [np.asarray(f["roi"], np.float32) for f in frames[:REFINER_N]]
+    check(len(images) == REFINER_N, f"refiner: {len(images)} frames, not {REFINER_N}")
+    torch.cuda.synchronize()
+    ext.reset_launch_counts()
+    card(images[0], rois[0])  # warm-up
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out_card = [card(img, roi) for img, roi in zip(images, rois)]
+    b.record()
+    b.synchronize()
+    card_ms = a.elapsed_time(b) / REFINER_N
+    raw_card = [card.predict(img) for img in images]
+    launches = dict(ext.LAUNCHES)
+    t0 = time.perf_counter()
+    raw_cpu = [cpu.predict(img) for img in images]
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / REFINER_N
+    out_cpu = [cpu.refine(img.shape[:2], roi, *r) for img, roi, r in zip(images, rois, raw_cpu)]
+    check(not any(launches[k] for k in ("warp_roi_rotate", "equalize", "gaussian_noise")),
+          f"refiner: K1-K3 launched {launches}")
+    p_cpu = np.asarray([p for p, _ in raw_cpu])
+    p_card = np.asarray([p for p, _ in raw_card])
+    box_err = max(float(np.abs(bc - bg).max()) for (_, bc), (_, bg) in zip(raw_cpu, raw_card))
+    away = np.abs(p_cpu - 0.5) > REFINER_BAND
+    decisions = [(ok_c, ok_g) for (_, ok_c), (_, ok_g) in zip(out_cpu, out_card)]
+    differ = [i for i in np.nonzero(away)[0] if decisions[i][0] != decisions[i][1]]
+    check(not differ, f"refiner: the card decides otherwise than the CPU on frames {differ[:8]}")
+    both = [i for i, (c, g) in enumerate(decisions) if c and g]
+    roi_err = max([float(np.abs(out_cpu[i][0] - out_card[i][0]).max()) for i in both], default=0.0)
+    check(roi_err <= REFINER_PX, f"refiner: refined ROIs differ by {roi_err} px (limit {REFINER_PX})")
+    print(f"refiner (dsprocess_lapa.LocalizerRoiRefiner, phase 10's localizer from its file, {REFINER_N} of phase 7's "
+          f"validation frames at {RUN_SRC}^2): card {card_ms:.3f} ms an image (CUDA events, one image a call, resize "
+          f"and whitening on the host), CPU {cpu_ms:.3f} ms (the network's prediction); hasface max |card - CPU| "
+          f"{float(np.abs(p_cpu - p_card).max()):.3e}, box {box_err:.3e}; {int(away.sum())} frames more than "
+          f"{REFINER_BAND} from 0.5, decisions equal there ({sum(c for c, _ in decisions)} refined on the CPU, "
+          f"{sum(g for _, g in decisions)} on the card); refined ROIs within {roi_err:.3e} px; launches {launches}; "
+          f"phase {time.perf_counter() - t_phase:.2f} s on {smi}")
+    try:
+        import h5py  # noqa: F401 - the probe: the converters write HDF5 files
+        why = "h5py imports here, but they are held against the JAX package's converters, which do not run here"
+    except ImportError:
+        why = "h5py does not import on this host"
+    print(f"phase 20: the HDF5-writing converters not run ({why}); tests/test_torch_converters.py holds each "
+          "against the JAX package's on the CPU")
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -3511,6 +3637,8 @@ def main() -> int:
         vw_launches, errs_vw = analysis_phase(torch, np, dev, f"{name} ({smi})", os.path.join(conv_dir, "best.ckpt"),
                                               conv_val, run["train_frames"])
         jp_launches, jpeg_rows = jpeg_phase(torch, np, dev, f"{name} ({smi})", jpeg_inputs)
+        prof_launches, _ = profile_phase(torch, np, dev, f"{name} ({smi})")
+        refiner_phase(torch, np, dev, f"{name} ({smi})", localizer, run["val_frames"])
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
         shutil.rmtree(conv_dir, ignore_errors=True)
@@ -3531,6 +3659,7 @@ def main() -> int:
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
             launches_data_parallel=dp_launches[r["name"]], launches_face_tools=ft_launches[r["name"]],
             launches_viewer=vw_launches[r["name"]], launches_jpeg_run=jp_launches[r["name"]],
+            launches_profile=prof_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

@@ -1,6 +1,6 @@
-"""Image codecs and ROI helpers on the host (the port's own copy of the parts
-of the JAX package's `data/preprocessing.py` that the loader, the writers
-and the CLIs use).
+"""Image codecs, ROI helpers and the 3DDFA label helpers on the host (the
+port's own copy of the JAX package's `data/preprocessing.py`, which the
+loader, the writers, the CLIs and the dataset converters use).
 
 The codecs are OpenCV's, with the JAX package's flags (JPEG quality 99
 unless given, grayscale decode by default, RGB colour images), so that a
@@ -10,6 +10,7 @@ neither.
 """
 
 import enum
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -70,6 +71,11 @@ def imread(fn) -> np.ndarray:
     if len(img.shape) == 3 and img.shape[-1] == 3:
         img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     return img
+
+
+def rgb2gray(img):
+    cv2 = _cv2()
+    return cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
 
 
 def imrescale(img, factor: float):
@@ -144,6 +150,71 @@ def extract_image_roi(image, roi, padding_fraction, square=False, return_offset=
     if return_offset:
         return image, offset
     return image
+
+
+@functools.lru_cache(1)
+def load_shape_components():
+    """(keypts (68, 3), w_shp (40, 68, 3), w_exp (10, 68, 3)) of the port's
+    68-keypoint face model (`facemodel/bfm.py`)."""
+    from neuralnet_tracker_traincode_torch.facemodel.bfm import BFMModel
+
+    bfm = BFMModel()
+    return bfm.keypts, bfm.w_shp, bfm.w_exp
+
+
+def get_3ddfa_shape_parameters(params):
+    """3DDFA .mat params -> rescaled (40 shape, 10 expression) coefficients."""
+    f_shp = params["Shape_Para"][:40, 0] / 20.0 / 1.0e5
+    f_exp = params["Exp_Para"][:10, 0] / 5.0
+    return f_shp, f_exp
+
+
+def compute_keypoints(f_shp, f_exp, head_size, rotation, tx, ty):
+    """(3, 68) keypoints of the face model posed by `rotation` at head radius
+    `head_size` and image position (tx, ty)."""
+    keypts, w_shp, w_exp = load_shape_components()
+    pts3d = (
+        keypts
+        + np.sum(f_shp[:40, None, None] * w_shp, axis=0)
+        + np.sum(f_exp[:10, None, None] * w_exp, axis=0)
+    )
+    pts3d = pts3d * head_size
+    pts3d = rotation.apply(pts3d)
+    pts3d = pts3d.T
+    pts3d[0] += tx
+    pts3d[1] += ty
+    return pts3d
+
+
+def sanity_check_landmarks(coord, rotation, pt3d_68, params=None, reltol=0.4, img=None):
+    """Whether the labelled landmarks lie within `reltol` head radii of the
+    face model posed at the labelled pose."""
+    if params is None:
+        f_shp, f_exp = np.zeros((40,)), np.zeros((10,))
+    else:
+        f_shp, f_exp = params
+    expected = compute_keypoints(f_shp, f_exp, coord[2], rotation, coord[0], coord[1])
+    ok = np.allclose(expected, pt3d_68, rtol=0.0, atol=coord[2] * reltol)
+    if not ok:
+        print("Large deviation between base shape and point labels detected. Check for coordinate flips.")
+    return ok
+
+
+def depth_centered_keypoints(kpts):
+    """(3, 68) keypoints with the eye corners' mean depth moved to 0."""
+    eye_corner_indices = [45, 42, 39, 36]
+    center = np.average(kpts[:, eye_corner_indices], axis=1)
+    kpts = np.array(kpts, copy=True)
+    kpts[2] -= center[2]
+    return kpts
+
+
+def move_aflw_head_center_to_between_eyes(coords, rot):
+    offset_my_mangled_shape_data = np.array([0.0, -0.26, -0.9])
+    offset = rot.apply(offset_my_mangled_shape_data) * coords[2]
+    coords = np.array(coords, copy=True)
+    coords[0:2] += offset[:2]
+    return coords
 
 
 def box_iou(box1, box2):

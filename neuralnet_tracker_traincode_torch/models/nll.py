@@ -8,11 +8,11 @@ The necks are f32 linears even when the model runs under bf16 autocast: the
 JAX package leaves their Dense at the promoted f32 dtype.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuralnet_tracker_traincode_torch.device import not_ported
 from neuralnet_tracker_traincode_torch.ops.mathfn import smoothclip0
 
 make_positive = smoothclip0
@@ -46,15 +46,20 @@ class DiagonalScaleParameter(nn.Module):
 
 def fill_triangular_matrix(dim: int, z: torch.Tensor) -> torch.Tensor:
     """Lower-triangular matrix: first `dim` values on the diagonal, then the
-    off-diagonals row by row. Only dim 3 (the pose and coordinate scales) is
-    ported."""
-    if dim != 3:
-        raise not_ported(f"fill_triangular_matrix for dim {dim}")
-    zero = torch.zeros_like(z[..., 0])
-    row0 = torch.stack([z[..., 0], zero, zero], dim=-1)
-    row1 = torch.stack([z[..., 3], z[..., 1], zero], dim=-1)
-    row2 = torch.stack([z[..., 4], z[..., 5], z[..., 2]], dim=-1)
-    return torch.stack([row0, row1, row2], dim=-2)
+    off-diagonals row by row. Stack-based for dim 3 (the pose and coordinate
+    scales), by index assignment otherwise."""
+    if dim == 3:
+        zero = torch.zeros_like(z[..., 0])
+        row0 = torch.stack([z[..., 0], zero, zero], dim=-1)
+        row1 = torch.stack([z[..., 3], z[..., 1], zero], dim=-1)
+        row2 = torch.stack([z[..., 4], z[..., 5], z[..., 2]], dim=-1)
+        return torch.stack([row0, row1, row2], dim=-2)
+    irow, icol = (torch.from_numpy(a) for a in np.tril_indices(dim, -1))
+    m = z.new_zeros(z.shape[:-1] + (dim, dim))
+    m[..., irow, icol] = z[..., dim:]
+    i = torch.arange(dim)
+    m[..., i, i] = z[..., :dim]
+    return m
 
 
 class FeaturesAsTriangularScale(nn.Module):

@@ -1,17 +1,24 @@
-"""Host-side helpers (the port's own copy of the parts of the JAX package's
-`utils.py` that eval, the sampler, the loader and the stability analyses
-need): the heading/pitch/bank and AFLW euler conventions, batching of an iterable, the padding bucket, `cycle`, the
-loader's worker count and the walk over an HDF5 file's datasets. numpy and
-scipy only; h5py is imported where a file is walked."""
+"""Host-side helpers (the port's own copy of the JAX package's `utils.py`
+but for its JAX compile-cache switch): the heading/pitch/bank and AFLW euler
+conventions, 3D affine chains, batching of an iterable, the padding bucket,
+`cycle`, the loader's worker count, file-name and dict-of-lists helpers and
+the walk over an HDF5 file's datasets. numpy and scipy only; h5py is
+imported where a file is walked."""
 
 import fnmatch
 import os
-from typing import List
+from os.path import splitext
+from typing import Any, Dict, List
 
 import numpy as np
 from scipy.spatial.transform import Rotation
 
 rad2deg = 180.0 / np.pi
+deg2rad = np.pi / 180.0
+
+
+def identity(arg):
+    return arg
 
 
 def as_hpb(rot: Rotation) -> np.ndarray:
@@ -31,11 +38,30 @@ def convert_to_rot(net_output: np.ndarray) -> Rotation:
 _P = np.asarray([[1, 0, 0], [0, 1, 0], [0, 0, -1]], dtype=np.float64)
 
 
+def aflw_rotation_conversion(pitch, yaw, roll) -> Rotation:
+    """AFLW / 300W-LP euler angles -> Rotation."""
+    rot = Rotation.from_euler("XYZ", np.asarray([pitch, -np.asarray(yaw), roll]).T)
+    return Rotation.from_matrix(_P @ rot.as_matrix() @ _P.T)
+
+
 def inv_aflw_rotation_conversion(rot: Rotation) -> np.ndarray:
     """Rotation -> (pitch, yaw, roll) euler angles of the AFLW convention,
     shape (..., 3)."""
     M = _P @ rot.as_matrix() @ _P.T
     return Rotation.from_matrix(M).as_euler("XYZ") * np.asarray([1.0, -1.0, 1.0])
+
+
+def affine3d_chain(Ta, Tb):
+    """(R, t) of x -> Ta(Tb(x)) for (Rotation, translation) pairs."""
+    Ra, ta = Ta
+    Rb, tb = Tb
+    return Ra * Rb, Ra.as_matrix().dot(tb) + ta
+
+
+def affine3d_inv(Ta):
+    Ra, ta = Ta
+    RaInv = Ra.inv()
+    return RaInv, -RaInv.as_matrix().dot(ta)
 
 
 def iter_batched(iterable, batchsize):
@@ -71,6 +97,17 @@ def cycle(iterable):
                 yield next(iterator)
             except StopIteration:
                 raise ValueError("cycle() over an empty iterable")
+
+
+def replace_ext(filename, replacement):
+    basename, _ = splitext(filename)
+    return basename + replacement
+
+
+def list_of_dicts_to_dict_of_lists(lod: List[Dict[Any, Any]]) -> Dict[Any, List[Any]]:
+    if not lod:
+        return {}
+    return {k: [items[k] for items in lod] for k in lod[0].keys()}
 
 
 def num_workers() -> int:

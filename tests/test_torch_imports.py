@@ -92,15 +92,23 @@ else:
 """
 
 CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
-        "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits", "bench_loader"]
-HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm", "show_face_model"]  # no device, no --device
+        "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits", "bench_loader",
+        "profile_step", "dsprocess_lapa", "dsprocess_300vw", "dsprocess_biwi", "dsprocess_unlabeled_images"]
+HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm", "show_face_model",  # no device, no --device
+             "dsprocess_300wlp", "dsprocess_aflw2k", "dsprocess_wflw", "dsprocess_synface", "dsprocess_widerface",
+             "dsprocess_replicantface", "dsprocess_panoptic", "dsjoin", "filter_dataset",
+             "create_aflw2k3d_closed_eyes", "create_largepose_dataset"]
 
 
 def test_the_export_and_cli_modules_are_covered():
+    """Every CLI module of the port's `scripts/` is in CLIS or HOST_CLIS."""
     for name in ("onnx_proto", "onnx_conformance", "onnx_run", "onnx_export"):
         assert os.path.join("neuralnet_tracker_traincode_torch", "export", name + ".py") in _sources()
     for name in CLIS + HOST_CLIS:
         assert os.path.join("neuralnet_tracker_traincode_torch", "scripts", name + ".py") in _sources()
+    scripts = os.path.join(PORT, "scripts")
+    modules = {n[:-3] for n in os.listdir(scripts) if n.endswith(".py") and n != "__init__.py"}
+    assert modules == set(CLIS) | set(HOST_CLIS)
 
 
 @pytest.mark.parametrize("target", ["package"] + CLIS + HOST_CLIS)

@@ -126,6 +126,24 @@ def test_log_prob_matches_jax(kind):
     _close(TNLL._LOG_PROB[kind](t(x), t(loc), t(scale)), JNLL._LOG_PROB[kind](*map(jnp.asarray, (x, loc, scale))))
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5])
+def test_fill_triangular_matrix_matches_jax(dim):
+    """The lower-triangular fill at every dim: stack-based at 3, index
+    assignment otherwise; bit-equal values, and the gradient reaches each
+    element of z once."""
+    from neuralnet_tracker_traincode_tpu.models import nll as JM
+    from neuralnet_tracker_traincode_torch.models import nll as TM
+
+    z = np.random.RandomState(dim).randn(2, 3, dim * (dim + 1) // 2).astype(np.float32)
+    ref = np.asarray(JM.fill_triangular_matrix(dim, jnp.asarray(z)))
+    zt = t(z).requires_grad_(True)
+    out = TM.fill_triangular_matrix(dim, zt)
+    assert out.shape == (2, 3, dim, dim)
+    np.testing.assert_array_equal(out.detach().numpy(), ref)
+    out.sum().backward()
+    np.testing.assert_array_equal(zt.grad.numpy(), np.ones_like(z))
+
+
 def test_shape_prior_npz_equals_the_h5_asset():
     with h5py.File(GMM_H5, "r") as h5, np.load(SHAPEPARAMS_GMM_NPZ, allow_pickle=False) as npz:
         assert str(npz["covariance_type"]) == h5.attrs["covariance_type"] == "diag"

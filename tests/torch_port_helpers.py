@@ -290,3 +290,338 @@ def two_intra_op_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+
+
+# ---- the dataset converters' synthetic sources --------------------------------------
+# Built as the JAX package's converter tests build them inline (tests/test_converters.py,
+# tests/test_bfm_gated.py); the functions those files define at module level are imported
+# from there instead.
+
+
+def _png(arr) -> bytes:
+    import cv2
+
+    return cv2.imencode(".PNG", arr)[1].tobytes()
+
+
+def _jpg(arr) -> bytes:
+    import cv2
+
+    return cv2.imencode(".JPEG", arr)[1].tobytes()
+
+
+def make_aflw2k_zip(tmp_path) -> str:
+    """One AFLW2000-3D sample whose GT landmarks agree with its pose."""
+    import zipfile
+
+    from neuralnet_tracker_traincode_tpu.data.preprocessing import compute_keypoints
+    from neuralnet_tracker_traincode_tpu.utils import aflw_rotation_conversion
+    from tests.test_converters import _mat_bytes
+
+    rng = np.random.RandomState(6)
+    img = (rng.rand(450, 450) * 255).astype(np.uint8)
+    rot = aflw_rotation_conversion(0.15, -0.3, 0.05)
+    radius = 0.5 * 0.001 / 224.0 * 450 * 1e5
+    raw_pt3d = np.array(compute_keypoints(np.zeros(40), np.zeros(10), radius, rot, 220.0, 450.0 - 200.0))
+    raw_pt3d[2] *= -1  # converter flips z back
+    blob = _mat_bytes({
+        "Pose_Para": np.asarray([[0.15, -0.3, 0.05, 220.0, 200.0, 0.0, 0.001]], np.float64),
+        "Shape_Para": np.zeros((199, 1)),
+        "Exp_Para": np.zeros((29, 1)),
+        "pt3d_68": raw_pt3d,
+    })
+    src = str(tmp_path / "aflw.zip")
+    with zipfile.ZipFile(src, "w") as zf:
+        zf.writestr("AFLW2000/image00002.mat", blob)
+        zf.writestr("AFLW2000/image00002.jpg", _jpg(img))
+    return src
+
+
+def make_synface_zip(tmp_path, skin: int = 1) -> str:
+    """Two FaceSynthetics samples, the second's face too small."""
+    import zipfile
+
+    rng = np.random.RandomState(8)
+    img = (rng.rand(128, 128, 3) * 255).astype(np.uint8)
+    seg = np.zeros((128, 128), np.uint8)
+    seg[30:100, 25:95] = skin
+    seg_small = np.zeros((128, 128), np.uint8)
+    seg_small[60:80, 60:80] = skin
+    lmk = "\n".join(f"{x:.2f} {y:.2f}" for x, y in rng.rand(70, 2) * 128)
+    src = str(tmp_path / "synface.zip")
+    with zipfile.ZipFile(src, "w") as zf:
+        for i, s in enumerate((seg, seg_small)):
+            zf.writestr(f"{i:06d}.png", _png(img))
+            zf.writestr(f"{i:06d}_seg.png", _png(s))
+            zf.writestr(f"{i:06d}_ldmks.txt", lmk)
+    return src
+
+
+def make_wflw_tree(tmp_path) -> str:
+    """A WFLW tree of one image with the same line in both splits."""
+    import cv2
+
+    src = tmp_path / "wflw_src"
+    (src / "WFLW_annotations" / "list_98pt_rect_attr_train_test").mkdir(parents=True)
+    (src / "WFLW_images" / "0--sub").mkdir(parents=True)
+    rng = np.random.RandomState(3)
+    cv2.imwrite(str(src / "WFLW_images" / "0--sub" / "a.png"), (rng.rand(300, 300, 3) * 255).astype(np.uint8))
+    pts = (rng.rand(98, 2) * 100 + 100).ravel()
+    line = " ".join(f"{v:.3f}" for v in pts) + " 100 100 250 240 0 0 0 0 0 0 0--sub/a.png\n"
+    for split in ("train", "test"):
+        with open(src / "WFLW_annotations" / "list_98pt_rect_attr_train_test" / f"list_98pt_rect_attr_{split}.txt",
+                  "w") as f:
+            f.write(line)
+    return str(src)
+
+
+def make_lapa_tree(tmp_path, names=("12345", "notmegafacename")) -> str:
+    """A LaPa tree of one image under each of `names` (only numeric names
+    are Megaface's)."""
+    import cv2
+
+    rng = np.random.RandomState(12)
+    src = tmp_path / "lapa_src"
+    (src / "train" / "images").mkdir(parents=True)
+    (src / "train" / "landmarks").mkdir(parents=True)
+    img = (rng.rand(280, 280, 3) * 255).astype(np.uint8)
+    lmk106 = rng.rand(106, 2) * 160 + 60
+    for name in names:
+        cv2.imwrite(str(src / "train" / "images" / f"{name}.jpg"), img)
+        with open(src / "train" / "landmarks" / f"{name}.txt", "w") as f:
+            f.write("106\n" + "\n".join(f"{x:.3f} {y:.3f}" for x, y in lmk106))
+    return str(src)
+
+
+def make_widerface_dir(tmp_path) -> str:
+    """The three WIDER FACE zips: two single-face images, one with two faces."""
+    import zipfile
+
+    rng = np.random.RandomState(4)
+    img = (rng.rand(360, 480, 3) * 255).astype(np.uint8)
+    annot = {
+        "train": (
+            "0--a/one.jpg\n1\n100 80 120 140 0 0 0 0 0 0\n"
+            "0--a/two.jpg\n2\n10 10 50 50 0 0 0 0 0 0\n200 40 60 70 0 0 0 0 0 0\n"
+        ),
+        "val": "1--b/v.jpg\n1\n150 60 100 120 0 0 0 0 0 0\n",
+    }
+    with zipfile.ZipFile(str(tmp_path / "wider_face_split.zip"), "w") as zf:
+        zf.writestr("wider_face_split/wider_face_train_bbx_gt.txt", annot["train"])
+        zf.writestr("wider_face_split/wider_face_val_bbx_gt.txt", annot["val"])
+    with zipfile.ZipFile(str(tmp_path / "WIDER_train.zip"), "w") as zf:
+        zf.writestr("WIDER_train/images/0--a/one.jpg", _jpg(img))
+        zf.writestr("WIDER_train/images/0--a/two.jpg", _jpg(img))
+    with zipfile.ZipFile(str(tmp_path / "WIDER_val.zip"), "w") as zf:
+        zf.writestr("WIDER_val/images/1--b/v.jpg", _jpg(img))
+    return str(tmp_path)
+
+
+def make_biwi_zip(tmp_path):
+    """(zip, opal23-style annotation file) of one Biwi video of two frames."""
+    import zipfile
+
+    rng = np.random.RandomState(13)
+    img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    pose_txt = "1 0 0\n0 1 0\n0 0 1\n\n50 -20 1000 \n"
+    cal_txt = "\n" * 6 + "1 0 0\n0 1 0\n0 0 1\n\n0 0 0 \n"
+    src = str(tmp_path / "biwi.zip")
+    with zipfile.ZipFile(src, "w") as zf:
+        for frame in ("00003", "00004"):
+            zf.writestr(f"faces_0/01/frame_{frame}_rgb.png", _png(img))
+            zf.writestr(f"faces_0/01/frame_{frame}_pose.txt", pose_txt)
+        zf.writestr("faces_0/01/rgb.cal", cal_txt)
+    ann = str(tmp_path / "biwi_ann.txt")
+    with open(ann, "w") as f:
+        f.write("idx;image;tl_x;tl_y;br_x;br_y\n")
+        for frame in ("00003", "00004"):
+            f.write(f"kinect_head_pose_db/01/frame_{frame}_rgb.png;200;150;400;370;\n")
+    return src, ann
+
+
+def make_300vw_zip(tmp_path):
+    """A 300-VW zip of one two-frame MJPG video, or None where cv2 cannot
+    write MJPG."""
+    import zipfile
+
+    import cv2
+
+    rng = np.random.RandomState(14)
+    avi_path = str(tmp_path / "vid.avi")
+    vw = cv2.VideoWriter(avi_path, cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (320, 240))
+    if not vw.isOpened():
+        return None
+    for _ in range(2):
+        vw.write((rng.rand(240, 320, 3) * 255).astype(np.uint8))
+    vw.release()
+
+    def pts(points):
+        body = "\n".join(f"{x:.3f} {y:.3f}" for x, y in points)
+        return f"version: 1\nn_points: 68\n{{\n{body}\n}}\n"
+
+    lmks = rng.rand(2, 68, 2) * 100 + 80
+    src = str(tmp_path / "300vw.zip")
+    with zipfile.ZipFile(src, "w") as zf:
+        zf.write(avi_path, "300VW_Dataset/007/vid.avi")
+        for i in range(2):
+            zf.writestr(f"300VW_Dataset/007/annot/{i + 1:06d}.pts", pts(lmks[i]))
+    return src
+
+
+def make_replicantface_tree(tmp_path, color_face=(204, 91, 118)) -> str:
+    """Two renders of a 100-vertex head, the second too dark."""
+    import cv2
+
+    rng = np.random.RandomState(15)
+    src = tmp_path / "repl_src"
+    src.mkdir()
+    np.savez(src / "head_indices.npz", indices=np.arange(100))
+    np.savez(src / "landmark_indices.npz", indices=np.arange(68))
+    np.savez(src / "face_indices.npz", indices=np.arange(68, 100))
+    f = 2.0
+    projection = np.array([[f, 0, 0, 0], [0, f, 0, 0], [0, 0, 1.0, 0], [0, 0, 1.0, 0]])
+    modelview = np.eye(4)
+    modelview[2, 3] = -2.0
+    vertices = (rng.rand(100, 3) * 0.2 - 0.1).astype(np.float64)
+    img = (rng.rand(256, 256, 3) * 200 + 40).astype(np.uint8)
+    mask = np.zeros((256, 256, 3), np.uint8)
+    mask[60:200, 70:210] = color_face
+    for i, name in enumerate(["face_0", "face_1"]):
+        np.savez(src / f"{name}.npz", modelview=modelview, projection=projection, vertices=vertices,
+                 resolution=np.asarray(256.0))
+        cv2.imwrite(str(src / f"{name}_img.jpg"), img if i == 0 else np.zeros_like(img))
+        cv2.imwrite(str(src / f"{name}_mask.png"), mask)
+    return str(src)
+
+
+def make_unlabeled_image_dir(tmp_path) -> str:
+    """Two sequences of frames <prefix><number>.<ext> of smooth random
+    images, one frame large enough for the converter's thumbnail, and a
+    file without a number (skipped)."""
+    import cv2
+
+    rng = np.random.RandomState(16)
+    src = tmp_path / "unlabeled"
+    src.mkdir()
+    for name, (h, w) in (("cam_a001.jpg", (120, 160)), ("cam_a002.jpg", (120, 160)), ("cam_a010.png", (130, 150)),
+                         ("clip7.jpg", (800, 760)), ("clip8.jpg", (96, 128)), ("readme.png", (20, 20))):
+        img = cv2.GaussianBlur((rng.rand(h, w, 3) * 255).astype(np.uint8), (7, 7), 3)
+        cv2.imwrite(str(src / name), img)
+    return str(src)
+
+
+def write_fitted_pose_file(path):
+    """The fitted file that `create_largepose_dataset` reads (the
+    `fitted_pose_h5` fixture of tests/test_bfm_gated.py): images, ROIs, the
+    MTCNN `has_one_face` field and a `2dfit_v3` group."""
+    import h5py
+
+    from neuralnet_tracker_traincode_tpu.data.fields import FieldCategory
+    from neuralnet_tracker_traincode_tpu.data.pose_dataset import create_pose_dataset
+
+    n = 5
+    rnd = np.random.RandomState(7)
+    quats = rnd.randn(n, 4).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    coords = (rnd.rand(n, 3).astype(np.float32) * 100) + 50
+    with h5py.File(path, "w") as f:
+        images = create_pose_dataset(f, FieldCategory.image, count=n)
+        for i in range(n):
+            images[i] = np.full((16, 16), i * 10, np.uint8)
+        rois = np.asarray([[0, 0, 300, 10], [0, 0, 100, 10], [0, 0, 300, 10], [0, 0, 300, 10], [0, 0, 300, 10]],
+                          np.float32)
+        create_pose_dataset(f, FieldCategory.roi, count=n, dtype=np.float32, data=rois)
+        f.create_dataset("has_one_face", data=np.asarray([1, 1, 1, 0, 1], "?"))
+        g = f.create_group("2dfit_v3")
+        create_pose_dataset(g, FieldCategory.quat, data=quats)
+        create_pose_dataset(g, FieldCategory.xys, data=coords)
+        create_pose_dataset(g, FieldCategory.points, name="pt3d_68", data=rnd.rand(n, 68, 3).astype(np.float32) * 200)
+        create_pose_dataset(g, FieldCategory.general, name="shapeparams", dtype=np.float16,
+                            data=rnd.randn(n, 50).astype(np.float16))
+    return str(path)
+
+
+def stub_closed_eyes_package(monkeypatch, written, passthrough_calls):
+    """The external `face3drotationaugmentation` modules that
+    `create_aflw2k3d_closed_eyes` imports, stubbed as
+    tests/test_bfm_gated.py stubs them."""
+    import contextlib
+    import sys
+    import types
+
+    class FakeDataset:
+        def __init__(self, fn):
+            self.samples = [{"name": "a", "scale": 1.0}, {"name": "b", "scale": -1.0}, {"name": "c", "scale": 2.0}]
+
+        def __len__(self):
+            return len(self.samples)
+
+        def __iter__(self):
+            return iter(self.samples)
+
+        def close(self):
+            pass
+
+    class FakeWriter:
+        def write(self, name, generated):
+            written.append((name, generated))
+
+    @contextlib.contextmanager
+    def fake_dataset_writer(fn):
+        yield FakeWriter()
+
+    def fake_augment(prob, rng, sample):
+        assert isinstance(rng, np.random.RandomState)
+        return {"aug": sample["name"], "prob": prob, "draw": rng.rand()}
+
+    def fake_passthrough(sample):
+        passthrough_calls.append(sample["name"])
+        return {"pass": sample["name"]}
+
+    pkg = types.ModuleType("face3drotationaugmentation")
+    ds_mod = types.ModuleType("face3drotationaugmentation.dataset300wlp")
+    ds_mod.DatasetAFLW2k3D = FakeDataset
+    wr_mod = types.ModuleType("face3drotationaugmentation.datasetwriter")
+    wr_mod.dataset_writer = fake_dataset_writer
+    gen_mod = types.ModuleType("face3drotationaugmentation.generate")
+    gen_mod.augment_eyes_only = fake_augment
+    gen_mod.make_sample_for_passthrough = fake_passthrough
+    pkg.dataset300wlp, pkg.datasetwriter, pkg.generate = ds_mod, wr_mod, gen_mod
+    for name, mod in [("face3drotationaugmentation", pkg), ("face3drotationaugmentation.dataset300wlp", ds_mod),
+                      ("face3drotationaugmentation.datasetwriter", wr_mod),
+                      ("face3drotationaugmentation.generate", gen_mod)]:
+        monkeypatch.setitem(sys.modules, name, mod)
+
+
+def assert_h5_files_equal(path_a, path_b):
+    """Two HDF5 files hold the same groups and datasets (names, dtypes,
+    shapes), bit-equal values (variable-length buffers element by element)
+    and equal attributes, the root's included."""
+    import h5py
+
+    def attrs(obj):
+        return {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in obj.attrs.items()}
+
+    def walk(a, b, where):
+        assert sorted(a.keys()) == sorted(b.keys()), where
+        assert attrs(a) == attrs(b), where
+        for name in a.keys():
+            x, y = a[name], b[name]
+            at = f"{where}/{name}"
+            assert isinstance(x, h5py.Group) == isinstance(y, h5py.Group), at
+            if isinstance(x, h5py.Group):
+                walk(x, y, at)
+                continue
+            assert x.dtype == y.dtype and x.shape == y.shape, (at, x.dtype, y.dtype, x.shape, y.shape)
+            assert attrs(x) == attrs(y), at
+            u, v = x[()], y[()]
+            if x.dtype.kind == "O" or (x.dtype.fields and any(
+                    h5py.check_vlen_dtype(x.dtype.fields[k][0]) for k in x.dtype.fields)):
+                assert len(u) == len(v), at
+                for i, (p, q) in enumerate(zip(u, v)):
+                    assert np.array_equal(np.asarray(p), np.asarray(q)), f"{at}[{i}]"
+            else:
+                assert np.array_equal(u, v, equal_nan=u.dtype.kind == "f"), at
+
+    with h5py.File(path_a, "r") as a, h5py.File(path_b, "r") as b:
+        walk(a, b, "")
