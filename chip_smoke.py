@@ -301,7 +301,25 @@ Phases (any failure ends the run with a non-zero exit code):
     1e-3 from 0.5, the refined ROIs within 1e-2 px, K1-K3 not launched; ms
     an image on the card (CUDA events) and on the CPU. One line says that
     the HDF5-writing converters run only in the CPU tests;
- 21. the `kernels` line (`launches` from phase 5's steps, but K4's and
+ 21. the convergence band (`scripts/convergence_band.py`, the counterpart
+    of the JAX package's `scripts/convergence_band.sh`). (a) Phase 9's
+    configuration, unchanged (4,096 marker frames at 160^2 from seed 3 in
+    memory, rows 0-399 validation, batch 128, 16 epochs of 10,240 samples at
+    K = 8 through `run_training`, SWA, bf16), trained for seeds 1, 2 and 3,
+    each with the model init, step generator and sampler seeds that
+    `convergence_band.seed_streams` gives (those the training CLI takes from
+    `--seed`), and the launch counts reset just before and read just after
+    each run; then the Predictor on each `best.ckpt` over the frames without
+    extreme poses. It fails unless each seed's `best.ckpt` is below
+    geodesic 16 degrees and NME3d 16% and K1, K3 and every 4th K2 launch of
+    each run agree with their plain versions (as in phase 9). It prints each
+    seed's row, images/s per epoch, the band (`band_summary`: the rows, min,
+    median, max) and the phase's seconds. (b) Where h5py imports: the band
+    CLI (2 seeds, 1 epoch, batch 16, on 432 frames at 64^2 written first)
+    and `reproduce_paper` (on the same `aflw2k.h5` with (a)'s last
+    `best.ckpt` as `CKPT`) as
+    processes that must exit 0; else one line says that (b) did not run;
+ 22. the `kernels` line (`launches` from phase 5's steps, but K4's and
     K5's from phase 18's run, their own main path; `launches_training_run`
     from phase 7's run, `launches_convergence_run` from phase 9's,
     `launches_localizer_run` from phase 10's, `launches_backbones` from
@@ -310,8 +328,9 @@ Phases (any failure ends the run with a non-zero exit code):
     (a)'s graph run, `launches_data_parallel` from phase 15's graph run and
     both ranks of (b), `launches_face_tools` from phase 16, which are 0,
     `launches_viewer` from phase 17 (b), `launches_jpeg_run` from phase 18
-    (c)), `launches_profile` from phase 19), then `{"ok": true, "device":
-    ...}` as the last line.
+    (c)), `launches_profile` from phase 19, `launches_band` from phase 21
+    (a)'s three runs together), then `{"ok": true, "device": ...}` as the
+    last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -358,6 +377,11 @@ DP_BN_CASES = [(shape, dtype, layout) for dtype, layout in (("float32", "contigu
 RUN_SRC, RUN_TRAIN, RUN_VAL, RUN_EPOCHS, RUN_SAMPLES_PER_EPOCH = 160, 2048, 256, 4, 1024
 # the convergence gate: tests/test_convergence.py of the JAX package
 CONV_N, CONV_SEED, CONV_VAL, CONV_B, CONV_EPOCHS, CONV_SAMPLES = 4096, 3, 400, 128, 16, 10240
+# phase 9's own streams: the model init, the step generator and the sampler
+CONV_STREAMS = (1234, 7, CONV_SEED)
+# the convergence band (phase 21): the seeds of scripts/convergence_band.sh; its gate (phase 9's); (b)'s rehearsal
+BAND_SEEDS, BAND_GEO_LIMIT, BAND_NME_LIMIT = (1, 2, 3), 16.0, 16.0
+BAND_CLI_FRAMES, BAND_CLI_SRC, BAND_CLI_B, BAND_CLI_SAMPLES = 432, 64, 16, 32
 # the localizer: scripts/train_localizer.py's defaults, cut to 4 epochs of 1,024 samples
 LOC_SRC, LOC_TRAIN, LOC_VAL, LOC_B, LOC_EPOCHS, LOC_SAMPLES = 256, 2048, 256, 64, 4, 1024
 # the other backbones: (config, backbone_args, face detector head)
@@ -1070,21 +1094,23 @@ def eval_phase(torch, np, dev, smi, run):
     return stages
 
 
-def convergence_phase(torch, np, dev, smi, keep_dir):
-    """Phase 9: the convergence gate of the JAX package's
-    `tests/test_convergence.py` on the card. `best.ckpt` is copied into
-    `keep_dir` (for phase 17); returns the validation frames last."""
+def convergence_run(torch, np, dev, frames, streams, what):
+    """The run of the convergence gate of the JAX package's
+    `tests/test_convergence.py` on `frames` (the first `CONV_VAL` validate)
+    from `streams` (the model init's, the step generator's and the sampler's
+    seeds) into a new temporary directory, with the launch counts reset just
+    before the run and read just after, and K1 and K3 at every training
+    launch and every 4th K2 launch (each step's first of its 4) held to their
+    plain versions: the warm-up's, eager, and the graph's, whose copies (made
+    inside the graph) hold the last replay's inputs and outputs. Returns a
+    dict: `outdir` (the caller removes it), the trainer, its state, the
+    records, the launches, the kernels' errors, K, the batches, the set-up's
+    and the run's seconds."""
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
-    from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
-    from neuralnet_tracker_traincode_torch.data.loader import (
-        LABEL_CATEGORIES,
-        iterate_fused_batches,
-        pack_fused_batch,
-        stack_batches,
-    )
+    from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES, iterate_fused_batches, pack_fused_batch, \
+        stack_batches
     from neuralnet_tracker_traincode_torch.data.sampling import ConcatDataset, make_concat_dataset_item_sampler
-    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
     from neuralnet_tracker_traincode_torch.kernels import equalize as K2
     from neuralnet_tracker_traincode_torch.kernels import ext
     from neuralnet_tracker_traincode_torch.kernels import noise as K3
@@ -1097,8 +1123,8 @@ def convergence_phase(torch, np, dev, smi, keep_dir):
 
     torch.backends.cudnn.allow_tf32 = True  # as in phases 5 and 7
     torch.backends.cuda.matmul.allow_tf32 = False
-    t_phase = time.perf_counter()
-    frames = synthetic_frames(CONV_N, CONV_SEED, dev)
+    t_setup = time.perf_counter()
+    init_seed, step_seed, sampler_seed = streams
     val_frames, train_frames = frames[:CONV_VAL], frames[CONV_VAL:]  # the aflw2k3d split of `pipelines.py`
     opts = LossOptions(epochs=CONV_EPOCHS, with_nll_loss=True)  # the CLI's defaults with --with-nll-loss
     tags = [Tag.POSE_WITH_LANDMARKS]
@@ -1108,84 +1134,200 @@ def convergence_phase(torch, np, dev, smi, keep_dir):
                         swa_start_epoch=CONV_EPOCHS * 2 // 3,  # --with-swa
                         aug=TrainAugmentationConfig(inputsize=S, rotation_aug_angle=THETA, extension_factor=1.1))
     trainer = PoseTrainer(model, setup_losses(opts, tags), cfg, LABEL_CATEGORIES, device=dev)
-    state = trainer.init_state(torch.Generator().manual_seed(1234))
+    state = trainer.init_state(torch.Generator().manual_seed(init_seed))
     validation = FusedValidation(trainer, val_frames, batchsize=2 * CONV_B)
     packed = pack_fused_batch(train_frames, [0] * len(train_frames), RUN_SRC)
     steps_per_epoch = cfg.steps_per_epoch
     K = steps_per_dispatch(0, CONV_B, steps_per_epoch, dev.type)  # the training CLI's default on the card
 
     def batches(start):  # the training CLI's sampler, K batches a group
-        sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=CONV_SEED)
+        sampler = make_concat_dataset_item_sampler(ConcatDataset([train_frames]), [1.0], seed=sampler_seed)
         it = iterate_fused_batches(packed, CONV_B, sampler, device=dev, start=start)
         return it if K == 1 else stack_batches(it, K)
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_convergence_")
-    t_data = time.perf_counter() - t_phase
+    setup_s = time.perf_counter() - t_setup
     try:
-        # K1 and K3 at every training launch, every 4th K2 launch (each step's first of its 4): the warm-up's,
-        # eager, and the graph's, whose copies (made inside the graph) hold the last replay's inputs and outputs
         with k1_captured(K1, lambda skip, n: not skip) as train_crops, \
                 wrapper_captured(K2, "equalize", 4) as equalized, \
                 wrapper_captured(K3, "add_gaussian_noise", 1) as noised:
             torch.cuda.synchronize()
             ext.reset_launch_counts()
             t_run = time.perf_counter()
-            state, records = run_training(trainer, state, batches, validation, outdir, torch.Generator().manual_seed(7),
-                                          steps_per_dispatch=K)
+            state, records = run_training(trainer, state, batches, validation, outdir,
+                                          torch.Generator().manual_seed(step_seed), steps_per_dispatch=K)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t_run
             launches = dict(ext.LAUNCHES)
         steps = CONV_EPOCHS * steps_per_epoch
         warm = trainer.graph_stats["warmup_steps"]
-        check(K == 8 and state.step == steps, f"the run took {state.step} steps in blocks of {K}, not {steps} of 8")
+        check(K == 8 and state.step == steps, f"{what}: the run took {state.step} steps in blocks of {K}, not {steps} "
+                                              f"of 8")
         check(launches["warp_roi_rotate"] == steps + warm + CONV_EPOCHS * len(validation._batches),
-              f"K1 launched {launches['warp_roi_rotate']} times")
+              f"{what}: K1 launched {launches['warp_roi_rotate']} times")
         check(launches["gaussian_noise"] == steps + warm and launches["equalize"] == 4 * (steps + warm),
-              f"launches {launches}")
+              f"{what}: launches {launches}")
         check(len(train_crops) == warm + K * trainer.graph_stats["captures"],
-              f"{len(train_crops)} training crops kept for {trainer.graph_stats}")
+              f"{what}: {len(train_crops)} training crops kept for {trainer.graph_stats}")
         for images, _, _, _, _, skip, _ in train_crops:
-            check(not skip and tuple(images.shape) == (CONV_B, RUN_SRC, RUN_SRC), f"K1 at {tuple(images.shape)}")
-        err_k1 = k1_against_plain(K1, train_crops, "convergence run's crop")
-        errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "convergence run")
+            check(not skip and tuple(images.shape) == (CONV_B, RUN_SRC, RUN_SRC), f"{what}: K1 at {tuple(images.shape)}")
+        err_k1 = k1_against_plain(K1, train_crops, f"{what}'s crop")
+        errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, what)
         errs["warp_roi_rotate"] = err_k1
         del train_crops, equalized, noised
-
-        quats = np.stack([f["pose"] for f in frames])
-        coords = np.stack([f["coord"] for f in frames])
-        keep = indices_without_extreme_poses(quats, coords)
-        samples = eval_samples([frames[i] for i in keep])
-        t_eval = time.perf_counter()
-        nets = {f: CheckpointPoseNetwork(os.path.join(outdir, f), dev) for f in ("best.ckpt", "swa.ckpt")}
-        rows, stages = report_rows(torch, np, dev, nets, samples, f"synthetic {CONV_N} (seed {CONV_SEED})", smi)
-        eval_s = time.perf_counter() - t_eval
-        shutil.copy(os.path.join(outdir, "best.ckpt"), keep_dir)
-    finally:
+    except BaseException:
         shutil.rmtree(outdir, ignore_errors=True)
-    for r in records:
+        raise
+    return dict(outdir=outdir, trainer=trainer, state=state, records=records, launches=launches, errs=errs, K=K,
+                batches=batches, setup_s=setup_s, run_s=run_s, steps=steps, warm=warm)
+
+
+def convergence_rows(torch, np, dev, smi, frames, outdir, files):
+    """The Predictor on `files` of `outdir` over the frames without extreme
+    poses, with the head ROI: (rows by file, the last file's stage ms, the
+    eval's seconds, the number of frames)."""
+    from neuralnet_tracker_traincode_torch.data.host_transforms import indices_without_extreme_poses
+    from neuralnet_tracker_traincode_torch.eval.predictor import CheckpointPoseNetwork
+
+    quats = np.stack([f["pose"] for f in frames])
+    coords = np.stack([f["coord"] for f in frames])
+    keep = indices_without_extreme_poses(quats, coords)
+    samples = eval_samples([frames[i] for i in keep])
+    t_eval = time.perf_counter()
+    nets = {f: CheckpointPoseNetwork(os.path.join(outdir, f), dev) for f in files}
+    rows, stages = report_rows(torch, np, dev, nets, samples, f"synthetic {CONV_N} (seed {CONV_SEED})", smi)
+    return rows, stages, time.perf_counter() - t_eval, len(samples)
+
+
+def convergence_phase(torch, np, dev, smi, keep_dir):
+    """Phase 9: the convergence gate of the JAX package's
+    `tests/test_convergence.py` on the card. `best.ckpt` is copied into
+    `keep_dir` (for phase 17); returns the validation frames last."""
+    t_phase = time.perf_counter()
+    frames = synthetic_frames(CONV_N, CONV_SEED, dev)
+    val_frames = frames[:CONV_VAL]
+    t_frames = time.perf_counter() - t_phase
+    run = convergence_run(torch, np, dev, frames, CONV_STREAMS, "convergence run")
+    trainer, K, steps, warm, launches = run["trainer"], run["K"], run["steps"], run["warm"], run["launches"]
+    try:
+        rows, stages, eval_s, n_eval = convergence_rows(torch, np, dev, smi, frames, run["outdir"],
+                                                        ("best.ckpt", "swa.ckpt"))
+        shutil.copy(os.path.join(run["outdir"], "best.ckpt"), keep_dir)
+    finally:
+        shutil.rmtree(run["outdir"], ignore_errors=True)
+    for r in run["records"]:
         print(f"convergence run epoch {r['epoch'] + 1}/{CONV_EPOCHS}: {r['steps']} steps in {r['train_s']:.2f} s, "
               f"{r['images_per_s']:.1f} images/s ({r['sustained_images_per_s']:.1f} sustained); validation "
               f"{r['val_ms']:.1f} ms, loss {r['val_loss']:.4f}; checkpoints {sum(r['checkpoint_ms'].values()):.1f} ms")
     best_geo, best_nme = rows["best.ckpt"][5], rows["best.ckpt"][8]
     print(f"convergence gate: best.ckpt geodesic {best_geo:.3f} deg (< 16), NME3d {best_nme:.3f}% (< 16); swa.ckpt "
-          f"geodesic {rows['swa.ckpt'][5]:.3f}, NME3d {rows['swa.ckpt'][8]:.3f}; {len(samples)} of {CONV_N} frames "
-          f"without extreme poses; K1 at the run's crops max |kernel - plain| {err_k1:.3e} gray; {K} steps a "
-          f"dispatch, graphs {trainer.graph_stats}; launches {launches} ({warm} warm-up steps); data {t_data:.2f} s, "
-          f"run {run_s:.2f} s ({steps * CONV_B / run_s:.1f} images/s with "
-          f"validation and checkpoints), eval {eval_s:.2f} s (Predictor ms per chunk of 128, swa.ckpt, median of "
-          f"{len(stages['crop_ms'])} chunks: "
+          f"geodesic {rows['swa.ckpt'][5]:.3f}, NME3d {rows['swa.ckpt'][8]:.3f}; {n_eval} of {CONV_N} frames "
+          f"without extreme poses; K1 at the run's crops max |kernel - plain| {run['errs']['warp_roi_rotate']:.3e} "
+          f"gray; {K} steps a dispatch, graphs {trainer.graph_stats}; launches {launches} ({warm} warm-up steps); "
+          f"data {t_frames + run['setup_s']:.2f} s, run {run['run_s']:.2f} s ({steps * CONV_B / run['run_s']:.1f} "
+          f"images/s with validation and checkpoints), eval {eval_s:.2f} s (Predictor ms per chunk of 128, swa.ckpt, "
+          f"median of {len(stages['crop_ms'])} chunks: "
           + ", ".join(f"{k} {statistics.median(v):.2f}" for k, v in stages.items())
           + f"), phase {time.perf_counter() - t_phase:.2f} s on {smi}")
     check(best_geo < 16.0 and best_nme < 16.0, f"convergence gate failed: geodesic {best_geo}, NME3d {best_nme}")
     W = trainer.weight_matrix(CONV_EPOCHS - 1)
     gen = torch.Generator().manual_seed(11)
-    more = batches(state.step)
+    more = run["batches"](run["state"].step)
+    state = run["state"]
 
     def step():
         nonlocal state
         state, _ = trainer.train_step_multi(state, next(more), W, generator=gen)
 
-    return launches, errs, step, val_frames
+    return launches, run["errs"], step, val_frames
+
+
+def band_phase(torch, np, dev, smi):
+    """Phase 21: the convergence band, phase 9's run for each of
+    `BAND_SEEDS` with the training CLI's streams of `--seed`
+    (`scripts/convergence_band.py:seed_streams`); (b) the band and the
+    reproduction CLIs as processes where h5py imports. Returns the launches
+    of the three runs together and the kernels' largest errors."""
+    import gc
+
+    from neuralnet_tracker_traincode_torch.scripts.convergence_band import band_summary, seed_streams
+
+    t_phase = time.perf_counter()
+    frames = synthetic_frames(CONV_N, CONV_SEED, dev)
+    t_frames = time.perf_counter() - t_phase
+    rows, launches, errs = {}, {}, {}
+    keep_dir = tempfile.mkdtemp(prefix="chip_smoke_band_best_")  # the last seed's best.ckpt, for (b)
+    for seed in BAND_SEEDS:
+        streams = seed_streams(seed)
+        what = f"band seed {seed}"
+        run = convergence_run(torch, np, dev, frames, streams, what)
+        try:
+            table, _, eval_s, n_eval = convergence_rows(torch, np, dev, smi, frames, run["outdir"], ("best.ckpt",))
+            shutil.copy(os.path.join(run["outdir"], "best.ckpt"), keep_dir)
+        finally:
+            shutil.rmtree(run["outdir"], ignore_errors=True)
+        row = table["best.ckpt"]
+        rows[what] = {"geo": row[5], "nme3d": row[8]}
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in run["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        ips = ", ".join(f"{r['images_per_s']:.0f}" for r in run["records"])
+        print(f"{what} (streams: init {streams.init}, steps {streams.steps}, sampler {streams.sampler}): best.ckpt "
+              f"geodesic {row[5]:.3f} deg, NME3d {row[8]:.3f}% over {n_eval} frames; final validation loss "
+              f"{run['records'][-1]['val_loss']:.4f}; images/s per epoch [{ips}]; set-up {run['setup_s']:.2f} s, run "
+              f"{run['run_s']:.2f} s ({run['steps'] * CONV_B / run['run_s']:.1f} images/s with validation and "
+              f"checkpoints), eval {eval_s:.2f} s; graphs {run['trainer'].graph_stats}; launches {run['launches']}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("band: " + json.dumps(band_summary(rows)))
+    print(f"phase 21 (a): seeds {list(BAND_SEEDS)}, frames {t_frames:.2f} s, {time.perf_counter() - t_phase:.2f} s "
+          f"on {smi}")
+    try:
+        band_cli_phase(dev, smi, os.path.join(keep_dir, "best.ckpt"))
+    finally:
+        shutil.rmtree(keep_dir, ignore_errors=True)
+    print(f"phase 21: {time.perf_counter() - t_phase:.2f} s on {smi}")
+    for what, r in rows.items():
+        check(r["geo"] < BAND_GEO_LIMIT and r["nme3d"] < BAND_NME_LIMIT,
+              f"{what}: the convergence gate failed: geodesic {r['geo']}, NME3d {r['nme3d']}")
+    return launches, errs
+
+
+def band_cli_phase(dev, smi, best_ckpt):
+    """Phase 21 (b): `convergence_band` at a rehearsal size and
+    `reproduce_paper` with `CKPT` = `best_ckpt` over a synthetic
+    `aflw2k.h5`, as processes, where h5py imports."""
+    try:
+        import h5py  # noqa: F401 - the probe: the CLIs read HDF5 files
+    except ImportError:
+        print("phase 21 (b): not run, h5py does not import on this host; the band and reproduction CLIs over HDF5 "
+              "are held on the CPU by tests/test_torch_band.py and tests/test_torch_reproduce.py")
+        return
+    from neuralnet_tracker_traincode_torch.data.synthetic import write_synthetic_pose_dataset
+
+    t_phase = time.perf_counter()
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_band_")
+    try:
+        write_synthetic_pose_dataset(os.path.join(datadir, "aflw2k.h5"), BAND_CLI_FRAMES, BAND_CLI_SRC, seed=3,
+                                     device=dev)
+        env = dict(os.environ, DATADIR=datadir, PYTHONPATH=ROOT, CKPT=best_ckpt)
+        runs = [["convergence_band", datadir, "1", "--seeds", "1", "2", "--batchsize", str(BAND_CLI_B),
+                 "--samples-per-epoch", str(BAND_CLI_SAMPLES), "--device", dev.type],
+                ["reproduce_paper", "--device", dev.type]]
+        for args in runs:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", f"neuralnet_tracker_traincode_torch.scripts.{args[0]}"]
+                                 + args[1:], env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(res.returncode == 0, f"{args[0]} exited {res.returncode}: {res.stderr[-3000:]}")
+            print(f"phase 21 (b): {args[0]} exited 0 in {time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(datadir, "band.json")) as f:
+            check(len(json.load(f)) == 2, "band.json has not one row a seed")
+        check(os.path.exists(os.path.join(datadir, "aflw2k3d_results.json")), "reproduce_paper wrote no table")
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    print(f"phase 21 (b): {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
 def host_probe():
@@ -3639,12 +3781,13 @@ def main() -> int:
         jp_launches, jpeg_rows = jpeg_phase(torch, np, dev, f"{name} ({smi})", jpeg_inputs)
         prof_launches, _ = profile_phase(torch, np, dev, f"{name} ({smi})")
         refiner_phase(torch, np, dev, f"{name} ({smi})", localizer, run["val_frames"])
+        band_launches, errs_band = band_phase(torch, np, dev, f"{name} ({smi})")
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
         shutil.rmtree(conv_dir, ignore_errors=True)
     for r in rows:  # the errors at the runs' own launches join those of phase 3
         r["max_abs_err"] = max([r["max_abs_err"]] + [e.get(r["name"], 0.0) for e in (
-            errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp, errs_vw)])
+            errs_run, errs_conv, errs_loc, errs_bb, errs_ld, errs_ms, errs_dp, errs_vw, errs_band)])
     # K4's and K5's own main path is phase 18's run: their `launches` are that run's
     launches = dict(launches, jpeg_idct=jp_launches["jpeg_idct"], jpeg_huffman=jp_launches["jpeg_huffman"])
 
@@ -3659,7 +3802,7 @@ def main() -> int:
             launches_export=ex_launches[r["name"]], launches_multistep=ms_launches[r["name"]],
             launches_data_parallel=dp_launches[r["name"]], launches_face_tools=ft_launches[r["name"]],
             launches_viewer=vw_launches[r["name"]], launches_jpeg_run=jp_launches[r["name"]],
-            launches_profile=prof_launches[r["name"]],
+            launches_profile=prof_launches[r["name"]], launches_band=band_launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_stream=r["ms_stream"],
             plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],

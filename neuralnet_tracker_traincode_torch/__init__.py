@@ -10,15 +10,15 @@ kernels for Hopper (`kernels/csrc/`), built at first use. Entry points run on
 the CUDA device unless the caller passes `device="cpu"`; on the CPU the kernel
 wrappers take their plain PyTorch versions.
 
-Ported so far: the pose-estimator training run (every backbone and head of
-the training CLI, every loss option, the full training augmentation, SWA,
-validation, the epoch loop, model checkpoints in the JAX package's file
-layout and resumable training states), the eval path (the Predictor's crop,
-f32 forward and backtransform, the metrics, the rotation alignments and the
-evaluation table), the face localizer, the host loader (HDF5 datasets, JPEG
-decoding, `FusedBatchLoader` with thread or process workers, the upload to
-the card) and the four training and evaluation CLIs (`scripts/`). What
-waits is listed in ROADMAP.md.
+Every public module of the JAX package has its counterpart here: the
+pose-estimator training run (every backbone and head of the training CLI,
+every loss option, the full training augmentation, SWA, validation, the
+epoch loop, model checkpoints in the JAX package's file layout and
+resumable training states, data parallel), the eval path, the face
+localizer, the host loader (HDF5 datasets, JPEG decoding on the card,
+`FusedBatchLoader`), export to ONNX and its runtime, the face-model tools,
+and the CLIs (`scripts/`), the paper-reproduction protocol and the
+convergence band among them.
 """
 
 __version__ = "0.1.0"

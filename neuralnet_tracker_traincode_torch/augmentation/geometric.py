@@ -13,6 +13,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from neuralnet_tracker_traincode_torch.augmentation.affine import apply_affine2d
+from neuralnet_tracker_traincode_torch.augmentation.warp import warp_affine
+from neuralnet_tracker_traincode_torch.data.batch import Batch
+from neuralnet_tracker_traincode_torch.data.fields import FieldCategory
 from neuralnet_tracker_traincode_torch.ops.affine2d import Affine2d
 
 MAX_BEYOND_BORDER_SHIFT = 0.3
@@ -123,6 +127,27 @@ def focus_roi_transform(roi, params: RoiFocusRandomizationParameters, new_size: 
     return focus_roi_components(roi, params, new_size, round_roi)[1]
 
 
+def focus_roi_batch(batch: Batch, tr: Affine2d, new_size: int, oversample: int = 2,
+                    insert_backtransform: bool = False) -> Batch:
+    """The crop transform applied to the image and every label of a Batch
+    of tensors: the image warped (`warp_affine`), the labels moved by
+    `apply_affine2d`; with `insert_backtransform` also the inverse
+    transform and the source's (W, H), for backtransforming predictions."""
+    W, H = batch.meta.image_wh
+    out = batch.copy()
+    for k, v in batch.items():
+        c = batch.get_category(k)
+        if c == FieldCategory.image:
+            out[k] = warp_affine(torch.as_tensor(v), tr, new_size, oversample)
+        else:
+            out[k] = apply_affine2d(tr, k, torch.as_tensor(v), c)
+    if insert_backtransform:
+        out["image_backtransform"] = tr.inv().tensor()
+        out["image_original_size"] = torch.tensor((W, H), dtype=torch.int32)
+    out.meta._imagesize = new_size
+    return out
+
+
 def sample_flip_rot90(generator: Optional[torch.Generator], batchshape, p_rot: float = 0.01):
     """(do_flip bool, rot_dir in {-1, 0, +1} float): flip with p=0.5, +-90 deg
     with p=p_rot/2 each."""
@@ -148,3 +173,11 @@ def flip_rot90_transform(do_flip: torch.Tensor, rot_dir: torch.Tensor, new_size:
     tr_flip = constant_remap((0.0, 0.0), (w, h), (w, 0.0), (0.0, h), dev).broadcast_to(batchshape)
     flip_or_id = Affine2d(torch.where(do_flip[..., None, None], tr_flip.tensor(), identity.tensor()))
     return tr @ flip_or_id
+
+
+def random_flip_rot90_transform(generator: Optional[torch.Generator], batchshape, new_size: int,
+                                p_rot: float = 0.01) -> Affine2d:
+    """Batched horizontal flip (p=0.5) and +-90 degree rotation (p=p_rot):
+    `flip_rot90_transform` of the `sample_flip_rot90` draws, an Affine2d to
+    compose with the crop transform."""
+    return flip_rot90_transform(*sample_flip_rot90(generator, batchshape, p_rot), new_size)

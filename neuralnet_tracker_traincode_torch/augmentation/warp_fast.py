@@ -17,6 +17,26 @@ from neuralnet_tracker_traincode_torch.kernels import warp as K1
 from neuralnet_tracker_traincode_torch.kernels.warp import canvas_size  # noqa: F401  (re-export)
 
 
+def apply_fliprot(
+    crop: torch.Tensor,  # (B, S, S, C)
+    do_flip: Optional[torch.Tensor],  # (B,) bool
+    rot_dir: Optional[torch.Tensor],  # (B,) in {-1, 0, +1}
+) -> torch.Tensor:
+    """Square-canvas horizontal flip, then +-90 degree rotation, per sample:
+    exact pixel permutations (plain gathers) matching the Affine2d that
+    `geometric.py:flip_rot90_transform` builds (the flip is x -> S - x,
+    rot_dir +1 rotates by +90 degrees). The training step folds the flip
+    into K1 instead (`fold_fliprot`)."""
+    x = crop
+    if do_flip is not None:
+        x = torch.where(do_flip[:, None, None, None], x.flip(2), x)
+    if rot_dir is not None:
+        d = x.transpose(1, 2)
+        rd = rot_dir[:, None, None, None]
+        x = torch.where(rd > 0, d.flip(2), torch.where(rd < 0, d.flip(1), x))
+    return x
+
+
 def _masked_transpose(crop: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Per-sample transpose of the square (B, S, S, C) crop where mask holds:
     the residue of the folded +-90 degree rotations."""

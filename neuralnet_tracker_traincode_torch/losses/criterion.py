@@ -6,10 +6,13 @@ which evaluates every loss term over the whole fused batch and masks it with
 a per-sample weight looked up from a host-side (num_tags, num_terms) weight
 matrix by the sample's tag id. Equal-but-distinct loss objects shared between
 tags are deduplicated by `_loss_fingerprint` and evaluated once.
+`compute_loss_of_batches` is the reference's loss over a list of per-tag
+sub-batches, for the host and eval side.
 """
 
 import functools
 import types
+from collections import defaultdict
 from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Union
 
 import numpy as np
@@ -46,6 +49,51 @@ class CriterionGroup(NamedTuple):
         w = self._eval_weight(step)
         lossvals = sum((c.evaluate(pred, batch, step) for c in self.criterions), start=[])
         return [LossVal(v.val, v.weight * w, self.name + v.name) for v in lossvals]
+
+
+def _full_like(w, val: torch.Tensor) -> torch.Tensor:
+    """A per-sample weight tensor of `val`'s shape from a scalar or a tensor."""
+    if tuple(getattr(w, "shape", ())) != ():
+        return torch.as_tensor(w, device=val.device)
+    return torch.full(val.shape, float(w), dtype=val.dtype, device=val.device)
+
+
+def concatenated_lossvals_by_name(vals: Sequence[LossVal]) -> Dict[str, tuple]:
+    """Group per-sub-batch LossVals by name: {name: (values, weights)}, each
+    concatenated over the sub-batches, a scalar weight repeated per value."""
+    value_lists, weight_lists = defaultdict(list), defaultdict(list)
+    for v in vals:
+        val = torch.atleast_1d(torch.as_tensor(v.val))
+        value_lists[v.name].append(val)
+        weight_lists[v.name].append(torch.atleast_1d(_full_like(v.weight, val)))
+    return {k: (torch.cat(value_lists[k]), torch.cat(weight_lists[k])) for k in value_lists}
+
+
+def compute_loss_of_batches(preds: Dict[str, Any], batches, step: int, loss):
+    """The reference's loss over a list of per-tag sub-batches (`Batch`es
+    whose predictions lie in `preds` one after the other): each sub-batch
+    takes its rows of `preds` and its tag's criterion (`loss` a dict by tag,
+    or one criterion), per-sample weights times its `dataset_weight` where
+    it has one; the weighted values of all terms summed over the summed
+    batch size. Returns (the loss, the LossVal list of each sub-batch)."""
+    all_lossvals: List[List[LossVal]] = []
+    offset = 0
+    for subset in batches:
+        (n,) = subset.meta.prefixshape
+        subpreds = {k: v[offset:offset + n] if hasattr(v, "__getitem__") else v for k, v in preds.items()}
+        loss_func = loss[subset.meta.tag] if isinstance(loss, dict) else loss
+        terms = loss_func.evaluate(subpreds, subset, step)
+        if "dataset_weight" in subset:
+            dw = torch.as_tensor(subset["dataset_weight"])
+            terms = [v._replace(weight=v.weight * dw) for v in terms]
+        else:
+            terms = [v._replace(weight=_full_like(v.weight, torch.atleast_1d(torch.as_tensor(v.val)))) for v in terms]
+        all_lossvals.append(terms)
+        offset += n
+    batchsize = sum(max(s.meta.batchsize, 1) for s in batches)
+    byname = concatenated_lossvals_by_name([v for terms in all_lossvals for v in terms])
+    loss_sum = torch.cat([values * weights for values, weights in byname.values()]).sum() / batchsize
+    return loss_sum, all_lossvals
 
 
 class _Term(NamedTuple):

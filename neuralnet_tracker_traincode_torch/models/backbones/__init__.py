@@ -1,2 +1,2 @@
-"""Backbones. Only MobileNet v1 is ported; ResNet, EfficientNet and the hybrid
-ViT wait (ROADMAP.md)."""
+"""Backbones: MobileNet v1, ResNet (18, with and without BlurPool),
+EfficientNet (b0 to b4) and the hybrid ViT."""

@@ -1,8 +1,10 @@
 """Scale (uncertainty) parameterisations for the NLL losses.
 
 Counterpart of the JAX package's `models/nll.py`: Neck, the diagonal scale
-parameter and the lower-triangular scale head, positivity through
-smoothclip0 (+1e-6). `FeaturesAsDiagonalScale` waits (ROADMAP.md).
+head and parameter and the lower-triangular scale head, positivity through
+smoothclip0 (+1e-6). A network holds them under names that start with
+`uncertainty` or `scales` (`models/weights.py` maps them to flax's paths);
+the optimizer finds them by type (`SCALE_MODULES`).
 
 The necks are f32 linears even when the model runs under bf16 autocast: the
 JAX package leaves their Dense at the promoted f32 dtype.
@@ -13,9 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuralnet_tracker_traincode_torch.ops.mathfn import smoothclip0
+from neuralnet_tracker_traincode_torch.ops.mathfn import inv_smoothclip0, smoothclip0
 
 make_positive = smoothclip0
+inv_make_positive = inv_smoothclip0
 
 
 class Neck(nn.Module):
@@ -29,6 +32,20 @@ class Neck(nn.Module):
         with torch.autocast(x.device.type, enabled=False):
             y = F.linear(x.float(), self.lin.weight, self.lin.bias)
         return y[..., 1:], make_positive(y[..., :1])
+
+
+class FeaturesAsDiagonalScale(nn.Module):
+    """Features -> positive per-feature scales: smoothclip0 of the neck's
+    values times its global multiplier, + eps."""
+
+    def __init__(self, in_features: int, num_out_features: int, eps: float = 1.0e-6):
+        super().__init__()
+        self.neck = Neck(in_features, num_out_features)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, multiplier = self.neck(x)
+        return make_positive(x) * multiplier + self.eps
 
 
 class DiagonalScaleParameter(nn.Module):
@@ -81,4 +98,4 @@ class FeaturesAsTriangularScale(nn.Module):
         return fill_triangular_matrix(self.dim, z)
 
 
-SCALE_MODULES = (Neck, DiagonalScaleParameter, FeaturesAsTriangularScale)
+SCALE_MODULES = (Neck, DiagonalScaleParameter, FeaturesAsTriangularScale)  # FeaturesAsDiagonalScale: its Neck

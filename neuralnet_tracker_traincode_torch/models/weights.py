@@ -19,7 +19,8 @@ to b4, hybrid_vit) and head (the quaternion and the 6D rotation alike are
    (3d, d) and `in_proj_bias`, out (heads, d_head, d) -> `out_proj`
  - hybrid_vit's positional channels NHWC -> NCHW
  - NLL necks `uncertainty_*/neck/lin` -> `*.scales.neck.lin` /
-   `quatnet.uncertainty_net.neck.lin`.
+   `quatnet.uncertainty_net.neck.lin`; a `FeaturesAsDiagonalScale` on its
+   own (`diagonal_scale_state_dict_from_jax`) `<path>/neck/lin` -> `neck.lin`.
 
 The buffers with no flax counterpart (`_constant_buffers`: the NLL necks'
 `min_diag`, the BFM keypoint tables from the port's own npz copy, the
@@ -316,3 +317,22 @@ def localizer_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.
 def localizer_variables_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's `LocalizerNet` state dict -> the JAX variables."""
     return _variables_to_jax(state_dict, _localizer_layout())
+
+
+def _diagonal_scale_layout(path: str) -> List[Row]:
+    return _dense("neck.lin", path + "/neck/lin")
+
+
+def diagonal_scale_state_dict_from_jax(params: Dict[str, Any], path: str = "uncertainty_scales"
+                                       ) -> Dict[str, torch.Tensor]:
+    """The flax params of a JAX `FeaturesAsDiagonalScale` held at `path`
+    (slash-separated, e.g. "uncertainty_scales") -> the state dict of the
+    port's `models/nll.py:FeaturesAsDiagonalScale` (CPU tensors)."""
+    return _state_dict_from_jax({"params": params}, _diagonal_scale_layout(path), {})
+
+
+def diagonal_scale_params_to_jax(state_dict: Dict[str, torch.Tensor], path: str = "uncertainty_scales"
+                                 ) -> Dict[str, Any]:
+    """The port's `FeaturesAsDiagonalScale` state dict -> the flax params,
+    the module at `path`."""
+    return _variables_to_jax(state_dict, _diagonal_scale_layout(path))["params"]

@@ -133,3 +133,11 @@ class Affine2d:
     # ---- reshaping ----------------------------------------------------------
     def broadcast_to(self, shape) -> "Affine2d":
         return Affine2d(self.m.expand(tuple(shape) + (2, 3)))
+
+
+def roi_normalizing_transform(roi: torch.Tensor) -> Affine2d:
+    """Transform mapping an (x0, y0, x1, y1) roi onto [-1, 1]^2."""
+    roi = torch.as_tensor(roi)
+    assert roi.shape[-1] == 4
+    out_min = torch.full(roi.shape[:-1] + (2,), -1.0, dtype=torch.float32, device=roi.device)
+    return Affine2d.range_remap_2d(roi[..., :2], roi[..., 2:], out_min, torch.ones_like(out_min))

@@ -1,10 +1,11 @@
 """Small math helpers (counterpart of the JAX package's `ops/mathfn.py`).
 
-smoothclip0 = elu + 1 and its inverse, and the matrix-vector products the
-geometry code uses.
+smoothclip0 = elu + 1, sqrclip0 (a relu smoothed by a parabola) and their
+inverses, and the matrix products the geometry code uses.
 """
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -55,3 +56,20 @@ def inv_smoothclip0(x) -> torch.Tensor:
     x = torch.as_tensor(x)
     safe_log = torch.log(torch.where(x > 1.0, torch.ones_like(x), x))
     return torch.where(x > 1.0, x - 1.0, safe_log)
+
+
+def sqrclip0(x: torch.Tensor, beta: float) -> torch.Tensor:
+    """Smoothed relu: quadratic in [-beta/2, beta/2], linear above."""
+    z = F.relu(x + beta * 0.5)
+    return torch.where(z < beta, (0.5 / beta) * torch.square(z), z - 0.5 * beta)
+
+
+def inv_sqrclip0(y, beta: float) -> torch.Tensor:
+    y = torch.as_tensor(y)
+    safe_sqrt = torch.sqrt(torch.clamp(beta * 2.0 * y, min=0.0))
+    return torch.where(y > 0.5 * beta, y + 0.5 * beta, safe_sqrt) - beta * 0.5
+
+
+def chain_gmm(*matrices: torch.Tensor) -> torch.Tensor:
+    """The product of the matrices, left to right, in f32 (`matmul_hp`)."""
+    return functools.reduce(matmul_hp, matrices)

@@ -3,10 +3,13 @@
 Counterpart of the JAX package's `ops/quaternion.py`: Hamilton products,
 vector rotation, quat<->matrix conversions (best-conditioned-of-four
 candidate selection in `from_matrix`), the rotation vector between two
-rotations and the distances the losses use. Plain functions on tensors,
+rotations and back (`to_rotvec`, `from_rotvec`), spherical interpolation
+(`slerp`) and the distances the losses use. Plain functions on tensors,
 elementwise f32; `quat_average` (the pseudo-labels' ensemble mean) is host
-numpy. `from_rotvec` and `slerp` wait (ROADMAP.md).
+numpy.
 """
+
+from typing import Union
 
 import numpy as np
 import torch
@@ -118,6 +121,15 @@ def from_matrix(m: torch.Tensor) -> torch.Tensor:
     return positivereal(quat).reshape(shape + (4,))
 
 
+def from_rotvec(r: torch.Tensor, eps: float = 1.0e-12) -> torch.Tensor:
+    """Rotation vector (..., 3) -> unit quaternion (..., 4); `eps` keeps the
+    axis finite at a zero angle."""
+    angle = torch.linalg.norm(r, dim=-1, keepdim=True)
+    axis = r / (angle + eps)
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+
+
 def to_rotvec(q: torch.Tensor, eps: float = 1.0e-12) -> torch.Tensor:
     # Positive real part constrains angles to [0, pi].
     q = positivereal(q)
@@ -131,6 +143,12 @@ def to_rotvec(q: torch.Tensor, eps: float = 1.0e-12) -> torch.Tensor:
 def rotation_delta(from_: torch.Tensor, to_: torch.Tensor) -> torch.Tensor:
     """Rotation vector taking `from_` to `to_` (tangent-space difference)."""
     return to_rotvec(mult(conjugate(from_), to_))
+
+
+def slerp(p: torch.Tensor, q: torch.Tensor, t: Union[float, torch.Tensor], eps: float = 1.0e-12) -> torch.Tensor:
+    """Spherical interpolation from `p` (t = 0) to `q` (t = 1) along the
+    shorter arc; `t` a float or a tensor that broadcasts against (..., 1)."""
+    return mult(p, from_rotvec(rotation_delta(p, q) * t, eps))
 
 
 def positivereal(q: torch.Tensor) -> torch.Tensor:

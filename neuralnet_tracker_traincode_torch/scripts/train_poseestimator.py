@@ -165,8 +165,10 @@ def _train(args, parallel, dev) -> int:
 
     if args.plot_error is not None and parallel.rank == 0:
         print(f"train.pdf will not be written: matplotlib does not import ({args.plot_error})")
+    from neuralnet_tracker_traincode_torch.scripts.convergence_band import seed_streams
+
     # every rank of a node must sample the node's batches and draw the augmentation alike
-    seed = parallel.agreed_seed(args.seed)
+    streams = seed_streams(parallel.agreed_seed(args.seed))
     dsids, dataset_weights = parse_dataset_definition(args.ds)
     train_loader, test_set, _, tag_order, aug_cfg = pipelines.make_pose_estimation_loaders(
         inputsize=args.input_size,
@@ -178,7 +180,7 @@ def _train(args, parallel, dev) -> int:
         rotation_aug_angle=args.rotation_aug_angle,
         roi_override=args.roi_override,
         pad_size=args.pad_size,
-        seed=seed,
+        seed=streams.sampler,
         parallel=parallel,
         jpeg_decode="device" if dev.type == "cuda" else "host",
     )
@@ -202,12 +204,13 @@ def _train(args, parallel, dev) -> int:
         aug=aug_cfg,
     )
     trainer = PoseTrainer(model, criterion, cfg, LABEL_CATEGORIES, device=dev, parallel=parallel)
-    state = trainer.init_state(torch.Generator().manual_seed(1234 if args.seed is None else args.seed))
+    # the init is the fixed one without --seed, also where the ranks agreed on a drawn seed
+    state = trainer.init_state(torch.Generator().manual_seed(seed_streams(args.seed).init))
     generator = torch.Generator()
-    if seed is None:
+    if streams.steps is None:
         generator.seed()
     else:
-        generator.manual_seed(seed + 1)
+        generator.manual_seed(streams.steps)
 
     model_out_dir = join(args.outdir, model.name_tag)
     os.makedirs(model_out_dir, exist_ok=True)

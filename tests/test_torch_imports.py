@@ -93,7 +93,8 @@ else:
 
 CLIS = ["train_poseestimator", "evaluate_pose_network", "train_localizer", "evaluate_localizer", "export_model",
         "add_pose_pseudolabels", "fit_face_model", "evaluate_stability", "show_train_test_splits", "bench_loader",
-        "profile_step", "dsprocess_lapa", "dsprocess_300vw", "dsprocess_biwi", "dsprocess_unlabeled_images"]
+        "profile_step", "dsprocess_lapa", "dsprocess_300vw", "dsprocess_biwi", "dsprocess_unlabeled_images",
+        "reproduce_paper", "convergence_band"]
 HOST_CLIS = ["fit_shapeparams_gmm", "make_bfm_fallback", "convert_bfm", "show_face_model",  # no device, no --device
              "dsprocess_300wlp", "dsprocess_aflw2k", "dsprocess_wflw", "dsprocess_synface", "dsprocess_widerface",
              "dsprocess_replicantface", "dsprocess_panoptic", "dsjoin", "filter_dataset",

@@ -25,9 +25,14 @@ meanwhile.
    back; efficientnet_b0 (stochastic depth, masks
    per rank) bit-equal across ranks after 2 steps.
  - Four ranks as 2 nodes x 2: each node's plans are the JAX loader's for
-   that node's `process_local_seed`, each rank's batches their rows.
+   that node's `process_local_seed`, each rank's batches their rows; the
+   flagship step (2 steps, each node's batch of 8 in its own row numbers,
+   the draws of the 16 rows given): the 4 ranks bit-equal, the first step's
+   state within the CLI test's limits of one process on the 16 rows.
  - The training CLI under `torchrun`'s variables, 2 ranks, one epoch: only
    rank 0 writes files, and its `last.ckpt` is within 1e-5 of one process's.
+   2 ranks with one shared output directory, resumed after epoch 1: every
+   file bit-equal to an uninterrupted 2-rank run's.
 """
 
 import itertools
@@ -584,6 +589,61 @@ def test_two_nodes_sample_their_process_local_streams(datadir, tmp_path, monkeyp
                                               err_msg=f"rank {r} batch {i} {k}")
 
 
+def _state_within_the_cli_limits(two, one, lr=1e-3):
+    """One step of several ranks against one process on the same rows, at
+    the limits `test_training_cli_over_two_ranks` sets out: each leaf of
+    BatchNorm statistics within 1e-4, the first moment within 0.2 over all
+    leaves, 95% of the parameters within 1e-5 and all within 2 lr."""
+    assert two["count"] == one["count"] == 1
+    for k, v in one["model"].items():
+        if "running" in k:
+            assert leaf_rel_err(two["model"][k].numpy(), v.numpy()) <= 1e-4, k
+    flat = lambda tree: np.concatenate([tree[k].numpy().ravel() for k in one["mu"]])  # noqa: E731
+    assert leaf_rel_err(flat(two["mu"]), flat(one["mu"])) <= 0.2
+    moved = np.abs(flat(two["model"]) - flat(one["model"]))
+    assert np.mean(moved <= 1e-5) >= 0.95 and moved.max() <= 2 * lr + 1e-6
+
+
+def test_flagship_step_over_two_nodes_of_two_ranks(tmp_path):
+    """Ranks 0-1 (node 0) and 2-3 (node 1), 4 rows each, 2 steps: each
+    node's batch holds its 8 rows with `param_index` in its own row
+    numbers, the draws are the 16 rows'. The 4 ranks are bit-equal after
+    both steps; the first step against one process on the 16 rows within
+    the CLI test's limits (`_state_within_the_cli_limits`) and its metrics
+    within 1e-5, the second's metrics within 1e-2 (as for two ranks)."""
+    from neuralnet_tracker_traincode_torch.models.posenet import NetworkWithPointHead
+
+    n = 2 * B
+    _, tcrit = flagship_criteria()
+    one = TTrainer(NetworkWithPointHead(**SMALL_NET), tcrit, TTrainerConfig(aug=TCfg(**GEOMETRY), **COMMON), TCATS,
+                   lambda e: TABLE[e], device="cpu")
+    state = one.init_state(torch.Generator().manual_seed(0))
+    state_dict = {k: v.clone() for k, v in one.model.state_dict().items()}
+    batches = [make_batch(np.random.RandomState(40 + i), n, 160) for i in range(2)]
+    draws = [sample_augmentation_parameters(torch.Generator().manual_seed(50 + i), n, TCfg(**GEOMETRY))
+             for i in range(2)]
+    node_rows = [dict(b, param_index=b["param_index"] % B) for b in batches]  # each node numbers its own rows
+    torch.save({"flagship_nodes": dict(aug=GEOMETRY, state_dict=state_dict, batches=node_rows, draws=draws)},
+               tmp_path / "inputs.pt")
+    procs = _start("flagship_nodes", str(tmp_path), 4, 2)
+    try:
+        W, ref = one.weight_matrix(0), []
+        for batch, d in zip(batches, draws):
+            state, m = one.train_step(state, batch, W, aug_params=d)
+            ref.append(_snapshot(one, state, m))
+    finally:
+        _finish(procs, "flagship step over two nodes")
+    ranks = _results("flagship_nodes", str(tmp_path), 4)
+    assert [r["node"] for r in ranks] == [0, 0, 1, 1]
+    for r in range(1, 4):
+        _bit_equal(ranks[0]["step"], ranks[r]["step"], f"rank 0 against rank {r}")
+    first = ranks[0]["step"][0]
+    _state_within_the_cli_limits(first, ref[0])
+    _close(first["metrics"], ref[0]["metrics"], "first step's metrics, 2 x 2 ranks against one process", tol=1e-5)
+    for k, v in ref[1]["metrics"].items():
+        np.testing.assert_allclose(ranks[0]["step"][1]["metrics"][k].item(), v.item(), rtol=1e-2, err_msg=k)
+
+
 def _resume_file(path):
     """The model's state dict and Adam's moments of a `resume.pt`."""
     with open(path, "rb") as f:
@@ -622,14 +682,39 @@ def test_training_cli_over_two_ranks(datadir, tmp_path):
     assert sorted(os.listdir(os.path.join(out, "rank0", name))) == ["best.ckpt", "last.ckpt", "resume.pt", "train.pdf"]
     assert os.listdir(os.path.join(out, "rank1", name)) == []
     two, one = (_resume_file(os.path.join(out, d, name, "resume.pt")) for d in ("rank0", "one"))
-    assert two["count"] == one["count"] == 1
-    for k, v in one["model"].items():
-        if "running" in k:
-            assert leaf_rel_err(two["model"][k].numpy(), v.numpy()) <= 1e-4, k
-    flat = lambda tree: np.concatenate([tree[k].numpy().ravel() for k in one["mu"]])  # noqa: E731
-    assert leaf_rel_err(flat(two["mu"]), flat(one["mu"])) <= 0.2
-    moved = np.abs(flat(two["model"]) - flat(one["model"]))
-    assert np.mean(moved <= 1e-5) >= 0.95 and moved.max() <= 2e-3 + 1e-6
+    _state_within_the_cli_limits(two, one)
     ckpt = load_posenet(os.path.join(out, "rank0", name, "last.ckpt")).state_dict()
     _bit_equal({k: v for k, v in ckpt.items() if not k.endswith("num_batches_tracked")},  # not in the file
                {k: v for k, v in two["model"].items() if not k.endswith("num_batches_tracked")}, "last.ckpt")
+
+
+def test_training_cli_over_two_ranks_resumes_in_one_outdir(datadir, tmp_path):
+    """2 ranks sharing one `--outdir`, as the ranks of a machine under
+    `torchrun` do: `--epochs 1`, then `--epochs 2 --resume auto` (every rank
+    loads the `resume.pt` that rank 0 wrote), against `--epochs 2`
+    uninterrupted; epochs of 2 steps. The model files are the same bytes,
+    and the state files hold the same weights, Adam moments and count."""
+    argv = ["--ds", "300wlp", "--batchsize", "8", "--samples-per-epoch", "16", "--device", "cpu", "--dtype",
+            "float32", "--seed", "0"]
+    name = "NetworkWithPointHead_mobilenetv1"
+
+    def launch(work, epochs, out, resume=()):
+        os.makedirs(work)
+        torch.save({"cli": dict(datadir=datadir, argv=argv + ["--epochs", str(epochs), *resume], outdir=out)},
+                   os.path.join(work, "inputs.pt"))
+        return _start("cli", work, 2, 2)
+
+    whole, parts = str(tmp_path / "whole"), str(tmp_path / "parts")
+    _finish(launch(str(tmp_path / "w"), 2, whole) + launch(str(tmp_path / "p1"), 1, parts), "2-rank runs")
+    _finish(launch(str(tmp_path / "p2"), 2, parts, ("--resume", "auto")), "resumed 2-rank run")
+    for work in ("w", "p1", "p2"):
+        assert [r["exit"] for r in _results("cli", str(tmp_path / work), 2)] == [0, 0], work
+    files = sorted(os.listdir(os.path.join(whole, name)))
+    assert files == sorted(os.listdir(os.path.join(parts, name))) == ["best.ckpt", "last.ckpt", "resume.pt",
+                                                                      "train.pdf"]
+    for f in ("best.ckpt", "last.ckpt"):
+        with open(os.path.join(whole, name, f), "rb") as a, open(os.path.join(parts, name, f), "rb") as b:
+            assert a.read() == b.read(), f
+    got, want = (_resume_file(os.path.join(d, name, "resume.pt")) for d in (parts, whole))
+    assert want["count"] == 4
+    _bit_equal(got, want, "resume.pt of the resumed run against the uninterrupted one")

@@ -14,8 +14,10 @@ Cases: `two` (2 ranks: synchronized BatchNorm with uneven rows, K1's agreed
 plan, the loader's rows and agreed padding, the flagship step with injected
 draws, a K = 2 block with image augmentation and sequences across the ranks'
 edge, the device part's read-backs, efficientnet_b0 with stochastic depth),
-`nodes` (4 ranks as 2 nodes x 2: the training CLI's loaders), `cli` (the
-training CLI itself).
+`nodes` (4 ranks as 2 nodes x 2: the training CLI's loaders),
+`flagship_nodes` (4 ranks as 2 nodes x 2: the flagship step with injected
+draws, each node's batch in its own row numbers), `cli` (the training CLI
+itself, each rank in its own output directory or all in one).
 """
 
 import os
@@ -181,12 +183,24 @@ def case_nodes(dp, inputs):
     return dict(plans=plans, batches=list(itertools.islice(iter(loader), 2)))
 
 
+def case_flagship_nodes(dp, inputs):
+    """The flagship step on this rank's rows of the batch of all ranks,
+    whose `param_index` holds each node's own row numbers."""
+    trainer, state = trainer_of(dp, inputs["aug"], state_dict=inputs["state_dict"])
+    W = trainer.weight_matrix(0)
+    out = []
+    for batch, draws in zip(inputs["batches"], inputs["draws"]):
+        state, m = trainer.train_step(state, rows_of(batch, dp.rows(len(batch["tag_id"]))), W, aug_params=draws)
+        out.append(snapshot(trainer, state, m))
+    return dict(step=out, node=dp.node)
+
+
 def case_cli(inputs):
     from neuralnet_tracker_traincode_torch.scripts import train_poseestimator
 
     os.environ["DATADIR"] = inputs["datadir"]
     os.environ["NUM_WORKERS"] = "1"
-    outdir = inputs["outdir"] % int(os.environ["RANK"])
+    outdir = inputs["outdir"] % int(os.environ["RANK"]) if "%d" in inputs["outdir"] else inputs["outdir"]
     return dict(exit=train_poseestimator.main(inputs["argv"] + ["--outdir", outdir]))
 
 
@@ -199,7 +213,7 @@ def main():
     else:
         dp, _ = init_from_env("cpu")
         try:
-            out = {"two": case_two, "nodes": case_nodes}[case](dp, inputs)
+            out = {"two": case_two, "nodes": case_nodes, "flagship_nodes": case_flagship_nodes}[case](dp, inputs)
         finally:
             dp.close()
     torch.save(out, os.path.join(workdir, f"{case}_rank{os.environ['RANK']}.pt"))
