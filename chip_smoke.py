@@ -15,12 +15,18 @@ Phases (any failure ends the run with a non-zero exit code):
     ROIs; K2 bit-equal with the gate drawn and all on, and on a one-bin and
     a two-bin image; K3 at the drawn sigma (mostly 0), at all sigma > 0 and
     at an odd P, at offsets 0 and -0.5, its bits equal to K3b's on
-    `philox_bits`. Two times per kernel, with CUDA events: `ms`, the median
+    `philox_bits`; K3b (injected bits) at the drawn sigma, at all sigma > 0,
+    at P = 1, 3, 5, 999 with sigma mixed with zeros and the bits' high 8 bits
+    set, from a misaligned x and from x and bits misaligned alike, its
+    sigma 0 samples bit-equal to clip(x) whatever their bits (its bound
+    counts the bits of the samples with sigma > 0 only,
+    `k3b_bound`). Two times per kernel, with CUDA events: `ms`, the median
     of 25 single launches, each after an L2 flush (it includes the launch
     latency); `ms_stream`, the mean per launch over 50 back-to-back launches
     that cycle through at least 16 input buffers (together over 100 MB, twice
-    the 50 MB L2). Then a line with K2's and K3's `ms_stream` with every
-    sample on (gate 1, sigma > 0), beside the drawn ones, which skip work;
+    the 50 MB L2). Then a line with K2's, K3's and K3b's `ms_stream` with
+    every sample on (gate 1, sigma > 0), beside the drawn ones, which skip
+    work, and K3b's registers and spills from the build's log;
     and `torch.clamp` over the same buffers, a yardstick of one launch that
     reads and writes as many bytes;
  4. the port's output against the port on the CPU on a small input (the
@@ -329,8 +335,9 @@ Phases (any failure ends the run with a non-zero exit code):
     both ranks of (b), `launches_face_tools` from phase 16, which are 0,
     `launches_viewer` from phase 17 (b), `launches_jpeg_run` from phase 18
     (c)), `launches_profile` from phase 19, `launches_band` from phase 21
-    (a)'s three runs together), then `{"ok": true, "device": ...}` as the
-    last line.
+    (a)'s three runs together; K3b also `ms_stream_all_on` and
+    `bound_ms_all_on`, with every sigma > 0), then `{"ok": true, "device":
+    ...}` as the last line.
 
 Before phase 2 a `host probe:` line says which of h5py, PIL, cv2,
 torchvision and matplotlib import, whether libjpeg is found and whether
@@ -605,10 +612,85 @@ def flagship_criterion():
     return criterion()
 
 
+def phase3_draws(torch):
+    """Phase 3's draws, in its order from one generator (seed 1): K1's ROI
+    randomization and flip/rot90 folds, K2's p=0.2 gate and K3's noise
+    parameters (the main path's combined sigmas, base + arange seeds)."""
+    from neuralnet_tracker_traincode_torch.augmentation import geometric as G
+    from neuralnet_tracker_traincode_torch.augmentation.intensity import sample_noise_parameters
+
+    gen = torch.Generator().manual_seed(1)
+    params = G.make_roi_randomization_parameters(gen, (B,), THETA, 1.1)
+    do_flip, rot_dir = G.sample_flip_rot90(gen, (B,), 0.5)
+    gate = (torch.rand(B, generator=gen) < 0.2).to(torch.int32)
+    return params, do_flip, rot_dir, gate, sample_noise_parameters(gen, B)
+
+
+def k3b_bound(n_on: int, batch: int, P: int):
+    """K3b's bound for what its inputs need: x and the output for every
+    sample, bits1 and bits2 only for the `n_on` samples with sigma > 0 (a
+    sample with sigma 0 is clip(x, 0, 1) and reads no bits), sigma; the
+    Box-Muller tail, scale, add and clip (12 f32 operations) a pixel of such
+    a sample, the clip (2) otherwise."""
+    return bound_ms((2 * batch + 2 * n_on) * P * 4 + 4 * batch, f32_ops=(12 * n_on + 2 * (batch - n_on)) * P)
+
+
+def misaligned(torch, t, words=1):
+    """A copy of `t` that starts `words` 4-byte words past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[words:words + t.numel()].view(t.shape)
+    out.copy_(t)
+    check(out.data_ptr() % 16 == 4 * words, f"misaligned copy at {out.data_ptr() % 16} bytes")
+    return out
+
+
+def k3b_cases(torch, K3, x, seeds, sigma, sigma_on):
+    """K3b against its plain version (1e-6) at the drawn sigma, with every
+    sigma > 0, at odd P (1, 3, 5, 999) with sigma mixed with zeros and the
+    bits' high 8 bits set, from a misaligned x and from x and both bit
+    arrays misaligned alike (both the scalar path: the output the wrapper
+    allocates is aligned; at an odd P the samples' rows start at every
+    phase, which moves the vector path's heads); each sigma = 0 sample
+    bit-equal to clip(x, 0, 1) and unchanged when its bits are overwritten;
+    on `philox_bits` bit-equal to K3 at both sigmas. Returns the largest
+    error."""
+    B, P = x.shape
+    high = lambda b: b | -0x1000000  # noqa: E731 - the high 8 bits set, which the kernel must mask off
+    b1, b2 = K3.philox_bits(seeds, P)
+    cases = [("drawn sigma", x, b1, b2, sigma), ("every sigma > 0", x, b1, b2, sigma_on)]
+    mixed = torch.where(torch.arange(B, device=x.device) % 3 == 1, 0.0, sigma_on)
+    for n, p in ((7, 999), (7, 5), (3, 3), (1, 1)):
+        c1, c2 = K3.philox_bits(seeds[:n] + 17, p)
+        cases.append((f"P={p}, B={n}, high bits set", x[:n, :p].contiguous(), high(c1), high(c2), mixed[:n]))
+    cases.append(("x 4 bytes off 16", misaligned(torch, x), high(b1), b2, mixed))
+    cases.append(("x, bits 4 bytes off 16", misaligned(torch, x[:7, :999].contiguous()),
+                  misaligned(torch, b1[:7, :999].contiguous()), misaligned(torch, b2[:7, :999].contiguous()),
+                  mixed[:7]))
+    err = 0.0
+    for what, xs, c1, c2, sg in cases:
+        out = K3.add_gaussian_noise_from_bits(xs, c1, c2, sg)
+        d = float((out - K3.add_gaussian_noise_from_bits_plain(xs, c1, c2, sg)).abs().max())
+        err = max(err, d)
+        check(d <= 1e-6, f"K3b ({what}) disagrees with its plain version: {d}")
+        quiet = sg == 0
+        check(torch.equal(out[quiet], xs[quiet].clamp(0, 1)), f"K3b ({what}): a sigma 0 sample is not clip(x)")
+        if bool(quiet.any()):
+            o1, o2 = c1.clone(), c2.clone()
+            o1[quiet], o2[quiet] = o1[quiet] ^ 0x5A5A5A, ~o2[quiet]
+            check(torch.equal(K3.add_gaussian_noise_from_bits(xs, o1, o2, sg), out),
+                  f"K3b ({what}): overwriting the bits of sigma 0 samples changed the output")
+    for sg in (sigma, sigma_on):
+        check(torch.equal(K3.add_gaussian_noise_from_bits(x, b1, b2, sg), K3.add_gaussian_noise(x, seeds, sg)),
+              "K3 seeded and K3b on the plain version's Philox bits differ")
+    print(f"K3b gaussian_noise_from_bits: max |kernel - plain| {err:.3e} (tolerance 1e-6) over "
+          f"{', '.join(c[0] for c in cases)}; sigma 0 samples bit-equal to clip(x) and blind to their bits; "
+          f"bit-equal to K3 on philox_bits at the drawn sigma and every sigma > 0")
+    return err
+
+
 def kernel_phase(torch, np, dev):
     """Phase 3: every kernel against its plain version at the main path's shapes."""
     from neuralnet_tracker_traincode_torch.augmentation import geometric as G
-    from neuralnet_tracker_traincode_torch.augmentation.intensity import sample_noise_parameters
     from neuralnet_tracker_traincode_torch.augmentation.warp_fast import fold_fliprot
     from neuralnet_tracker_traincode_torch.kernels import equalize as K2
     from neuralnet_tracker_traincode_torch.kernels import ext
@@ -618,16 +700,14 @@ def kernel_phase(torch, np, dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("kernel checks: TF32 off (cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False)")
-    gen = torch.Generator().manual_seed(1)
+    params, do_flip, rot_dir, gate, noise = phase3_draws(torch)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     rows = []
     x_np = synthetic_batch(np, B)
     images = torch.from_numpy(x_np["image"][..., 0]).to(dev)
 
     # K1 at the main path's view ROIs, angles and folded flips
-    params = G.make_roi_randomization_parameters(gen, (B,), THETA, 1.1)
     view_roi, _ = G.focus_roi_components(torch.from_numpy(x_np["roi"]) + 0.5, params, S)
-    do_flip, rot_dir = G.sample_flip_rot90(gen, (B,), 0.5)
     view_roi, angles, _ = fold_fliprot(view_roi, params.angles, do_flip, rot_dir)
     view_roi, angles = view_roi.to(dev), angles.to(dev)
     cs = K1.canvas_size(S, THETA)
@@ -669,7 +749,7 @@ def kernel_phase(torch, np, dev):
     # K2 on the crops the main path equalizes, with a draw of its p=0.2 gate
     x = (crop / 256.0).reshape(B, -1).contiguous()
     P = x.shape[1]
-    gate = (torch.rand(B, generator=gen) < 0.2).to(torch.int32).to(dev)
+    gate = gate.to(dev)
     on = torch.ones_like(gate)
     few_bins = x.clone()
     few_bins[0] = 0.3  # one bin: step 0, passes through
@@ -699,7 +779,6 @@ def kernel_phase(torch, np, dev):
 
     # K3 at the main path's combined sigmas and base + arange seeds; the main
     # path adds the whitening's -0.5 in the kernel
-    noise = sample_noise_parameters(gen, B)
     sigma, seeds = noise.sigma.to(dev), noise.seeds.to(dev)
     n_on = int((sigma > 0).sum())
     sigma_on = torch.full((B,), 16.0 / 255.0, device=dev)
@@ -712,10 +791,7 @@ def kernel_phase(torch, np, dev):
             check(d <= 1e-6, f"K3 (P={xs.shape[1]}, offset {offset}) disagrees with its plain version: {d}")
     out = K3.add_gaussian_noise(x, seeds, sigma_on)
     b1, b2 = K3.philox_bits(seeds, P)
-    out_bits = K3.add_gaussian_noise_from_bits(x, b1, b2, sigma_on)
-    check(torch.equal(out_bits, out), "K3 seeded and K3 with the plain version's Philox bits differ")
-    err_k3b = float((out_bits - K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma_on)).abs().max())
-    check(err_k3b <= 1e-6, f"K3 (injected bits) disagrees with its plain version: {err_k3b}")
+    err_k3b = k3b_cases(torch, K3, x, seeds, sigma, sigma_on)
     check(torch.equal(K3.add_gaussian_noise(x, seeds, sigma_on), out), "K3 is not deterministic")
     check(not torch.equal(K3.add_gaussian_noise(x, seeds + B, sigma_on), out), "K3 ignores its seeds")
     half = torch.full((B, P), 0.5, device=dev)
@@ -730,7 +806,9 @@ def kernel_phase(torch, np, dev):
     def launch_k3(xs, sg=sigma):
         ext.extension().gaussian_noise(xs, seeds, sg, n_out, -0.5)
 
-    launch_k3b = lambda xs, c1, c2: ext.extension().gaussian_noise_from_bits(xs, c1, c2, sigma, n_out)  # noqa: E731
+    def launch_k3b(xs, c1, c2, sg=sigma):
+        ext.extension().gaussian_noise_from_bits(xs, c1, c2, sg, n_out)
+
     # what these draws need: half a Philox call (~50 integer operations) and the Box-Muller tail, scale, add,
     # clip and offset (13 f32 operations) for each pixel of a sample with sigma > 0; clip and offset otherwise
     k3_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=(13 * n_on + 3 * (B - n_on)) * P, i32_ops=50 * n_on * P)
@@ -743,20 +821,30 @@ def kernel_phase(torch, np, dev):
     ))
     k3_all_on = stream_ms(torch, lambda xs: launch_k3(xs, sigma_on), k3_inputs)
     k3_all_on_bound = bound_ms(2 * B * P * 4 + 8 * B, f32_ops=13 * B * P, i32_ops=50 * B * P)
+    k3b_inputs = rotating(torch, x, b1, b2)
     rows.append(dict(
         name="gaussian_noise_from_bits", source="neuralnet_tracker_traincode_torch/kernels/csrc/noise.cu",
         replaces="neuralnet_tracker_traincode_tpu/augmentation/noise_pallas.py:109", max_abs_err=err_k3b,
         ms=time_ms(torch, lambda: launch_k3b(x, b1, b2), flush),
-        ms_stream=stream_ms(torch, launch_k3b, rotating(torch, x, b1, b2)),
+        ms_stream=stream_ms(torch, launch_k3b, k3b_inputs),
         plain_ms=time_ms(torch, lambda: K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma), flush),
-        bound=bound_ms(4 * B * P * 4 + 4 * B, f32_ops=12 * B * P), library_ms=None,
+        bound=k3b_bound(n_on, B, P), library_ms=None,
     ))
+    # K3b with every sigma > 0: every sample reads its bits
+    k3b_all_on = stream_ms(torch, lambda xs, c1, c2: launch_k3b(xs, c1, c2, sigma_on), k3b_inputs)
+    k3b_all_on_bound = k3b_bound(B, B, P)
+    rows[-1].update(ms_stream_all_on=k3b_all_on, bound_ms_all_on=k3b_all_on_bound[0])
     print(f"K3 gaussian_noise: {n_on} of {B} samples have sigma > 0 at the main path's draw; max |kernel - plain| "
           f"{err_k3:.3e} (tolerance 1e-6) at that draw, all sigma > 0 and odd P=999, offsets 0 and -0.5; bits equal "
-          f"to K3b's on philox_bits; moments {float(z.mean()):.2e} / {float(z.std()):.4f}; from bits {err_k3b:.3e}")
+          f"to K3b's on philox_bits; moments {float(z.mean()):.2e} / {float(z.std()):.4f}")
     print(f"all samples on: equalize (every gate 1) ms_stream {k2_all_on:.4f} ms beside {rows[1]['ms_stream']:.4f} "
           f"at the drawn gate; gaussian_noise (every sigma > 0) ms_stream {k3_all_on:.4f} ms, bound "
-          f"{k3_all_on_bound[0]:.4f} ms ({k3_all_on_bound[1]}), beside {rows[2]['ms_stream']:.4f} at the drawn sigma")
+          f"{k3_all_on_bound[0]:.4f} ms ({k3_all_on_bound[1]}), beside {rows[2]['ms_stream']:.4f} at the drawn sigma; "
+          f"gaussian_noise_from_bits (every sigma > 0) ms_stream {k3b_all_on:.4f} ms, bound {k3b_all_on_bound[0]:.4f} "
+          f"ms ({k3b_all_on_bound[1]}), beside {rows[3]['ms_stream']:.4f} at the drawn sigma (bound "
+          f"{rows[3]['bound'][0]:.4f} ms, {n_on} of {B} samples reading bits)")
+    print("K3b ptxas (-Xptxas -v, the build's log; <true>: the vector path): "
+          + (" | ".join(ext.ptxas_summary(["noise_bits_kernel"])) or "none: the build was up to date"))
     # a yardstick, not a kernel of the port: PyTorch's own elementwise pass over the same (B, P) f32 buffers
     # reads and writes what K2 and K3 must, so it shows what a launch of that size takes on this card
     clamp_out = torch.empty_like(x)
@@ -3810,6 +3898,8 @@ def main() -> int:
         for extra in ("dense", "colour"):  # K4 and K5 on dense (noise) and colour 4:2:0 frames at 64 x 448^2
             if f"ms_{extra}" in r:
                 kernels[-1].update({f"{k}_{extra}": r[f"{k}_{extra}"] for k in ("ms", "ms_stream", "bound_ms")})
+        if "ms_stream_all_on" in r:  # K3b with every sigma > 0
+            kernels[-1].update(ms_stream_all_on=r["ms_stream_all_on"], bound_ms_all_on=r["bound_ms_all_on"])
         if r["name"] in loc_stream:  # at the localizer's shape, (64, 224 x 288)
             ms, (b, _) = loc_stream[r["name"]]
             kernels[-1].update(ms_stream_localizer=ms, bound_ms_localizer=b)

@@ -120,10 +120,15 @@ def add_gaussian_noise(
 
 
 def add_gaussian_noise_from_bits(images, bits1, bits2, sigma) -> torch.Tensor:
-    """K3 with injected int32 bits of the images' shape (low 24 bits used)."""
+    """K3 with injected int32 bits, B * P elements each (low 24 bits used);
+    on the card a sample whose sigma is 0 reads none of its bits."""
     if images.device.type == "cpu":
         return add_gaussian_noise_from_bits_plain(images, bits1, bits2, sigma)
     x, sigma = _check(images, sigma)
+    for name, b in (("bits1", bits1), ("bits2", bits2)):
+        if b.numel() != x.numel():
+            raise ValueError(f"{name} must have B * P = {x.shape[0]} * {x.shape[1]} elements, got shape "
+                             f"{tuple(b.shape)}")
     b1, b2 = (b.reshape(x.shape) for b in (bits1, bits2))
     for name, b in (("bits1", b1), ("bits2", b2)):
         ext.require_cuda_tensor(b, name, torch.int32, 2)

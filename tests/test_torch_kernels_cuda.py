@@ -12,6 +12,9 @@ and two-bin images, gates mixed, all off and all on, and from an input 4
 bytes off 16-byte alignment. K3 runs with sigma 0 and > 0 mixed, at
 offsets 0 and -0.5. Both run at the localizer's shape too, (64, 224 x 288),
 with the gates and sigmas drawn as its augmentation draws them and all on.
+K3b (injected bits) at B in {1, 7, 64} and P from 1 to 224 x 288, sigma
+mixed with zeros, the bits' high 8 bits set, from misaligned inputs; its
+sigma 0 samples bit-equal to clip(x) whatever their bits.
 The training step's CUDA graph (`PoseTrainer.train_step_multi`) at a small
 width: its replays bit-equal to the eager steps.
 """
@@ -231,6 +234,54 @@ def test_k3_kernels_match_plain(dev):
     assert (out - K3.add_gaussian_noise_from_bits(x, b1, b2, sigma)).abs().max() <= 1e-6
 
 
+@pytest.mark.parametrize("P", [1, 3, 5, 999, 129 * 129, P_LOCALIZER])
+@pytest.mark.parametrize("B", [1, 7, 64])
+def test_k3b_kernel_matches_plain_and_skips_the_bits_of_quiet_samples(dev, B, P):
+    """K3b with sigma mixed with zeros and bits with their high 8 bits set:
+    within 1e-6 of its plain version; a sigma 0 sample is clip(x, 0, 1) bit
+    for bit and stays so when its bits are overwritten (it reads none)."""
+    rng = np.random.RandomState(B * 7 + P)
+    x = torch.from_numpy(rng.rand(B, P).astype(np.float32) * 1.2 - 0.1)
+    b1, b2 = (torch.from_numpy(rng.randint(-(2**31), 2**31 - 1, size=(B, P)).astype(np.int32)) | -0x1000000
+              for _ in range(2))
+    sigma = torch.where(torch.arange(B) % 3 == 1, 0.0, torch.from_numpy(rng.rand(B).astype(np.float32)) * 0.3 + 0.01)
+    ext.reset_launch_counts()
+    out = K3.add_gaussian_noise_from_bits(x.to(dev), b1.to(dev), b2.to(dev), sigma.to(dev)).cpu()
+    assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
+    assert (out - K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma)).abs().max() <= 1e-6
+    quiet = sigma == 0
+    assert torch.equal(out[quiet], x[quiet].clamp(0, 1))
+    b1[quiet], b2[quiet] = ~b1[quiet], b2[quiet] ^ 0x5A5A5A
+    again = K3.add_gaussian_noise_from_bits(x.to(dev), b1.to(dev), b2.to(dev), sigma.to(dev)).cpu()
+    assert torch.equal(again, out)
+
+
+def _off_by_a_word(t):
+    """A copy of `t` on the card whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device="cuda")
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("which", ["x", "all"])
+def test_k3b_kernel_from_a_misaligned_input(dev, which):
+    """x alone 4 bytes off 16-byte alignment, and x and both bit arrays off
+    alike, at an odd P: the scalar path (the output the wrapper allocates
+    is aligned), with its sigma 0 samples still reading no bits."""
+    B, P = 9, 129 * 129
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.rand(B, P).astype(np.float32))
+    b1, b2 = (torch.from_numpy(rng.randint(-(2**31), 2**31 - 1, size=(B, P)).astype(np.int32)) for _ in range(2))
+    sigma = torch.where(torch.arange(B) % 2 == 0, 0.05, 0.0)
+    xs = _off_by_a_word(x)
+    c1, c2 = (_off_by_a_word(b) if which == "all" else b.to(dev) for b in (b1, b2))
+    out = K3.add_gaussian_noise_from_bits(xs, c1, c2, sigma.to(dev)).cpu()
+    assert (out - K3.add_gaussian_noise_from_bits_plain(x, b1, b2, sigma)).abs().max() <= 1e-6
+    assert torch.equal(out[sigma == 0], x[sigma == 0].clamp(0, 1))
+
+
 def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     ext.reset_launch_counts()
     x = torch.rand(2, 64, device=dev)
@@ -241,8 +292,18 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K2.equalize(x.t(), torch.ones(64, dtype=torch.bool, device=dev))
     assert ext.LAUNCHES["equalize"] == 1
+    xs, sigma = torch.rand(2, 64, device=dev), torch.ones(2, device=dev)
+    bits = torch.zeros(2, 64, dtype=torch.int32, device=dev)
+    for name, b1, b2 in (("bits1", bits[:, :63], bits), ("bits2", bits, bits.reshape(-1)[:127])):
+        with pytest.raises(ValueError, match=name):
+            K3.add_gaussian_noise_from_bits(xs, b1, b2, sigma)
+    with pytest.raises(TypeError):
+        K3.add_gaussian_noise_from_bits(xs, bits.float(), bits, sigma)
+    K3.add_gaussian_noise_from_bits(xs, bits.reshape(2, 8, 8), bits, sigma)  # any shape of B * P elements
+    assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
     np.testing.assert_array_equal(sorted(ext.LAUNCHES), sorted(["warp_roi_rotate", "equalize", "gaussian_noise",
-                                                               "gaussian_noise_from_bits"]))
+                                                               "gaussian_noise_from_bits", "jpeg_idct",
+                                                               "jpeg_huffman"]))
 
 
 def _graph_test_batch(rng, B=8, src=96):

@@ -287,18 +287,29 @@ def _bits(rng, shape):
     return rng.randint(-(2**31), 2**31 - 1, size=shape).astype(np.int32)
 
 
-def test_k3_from_bits_plain_matches_pallas_kernel():
+@pytest.mark.parametrize("shape,sigma", [
+    ((3, 40, 129), [0.1, 0.02, 0.5]),
+    ((4, 40, 129), [0.1, 0.0, 0.5, 0.0]),  # sigma with zeros among non-zeros
+    ((1, 40, 129), [0.3]),  # B = 1
+    ((3, 7, 143), [0.0, 0.2, 0.05]),  # an odd P, 1,001
+], ids=["sigma_on", "sigma_with_zeros", "one_sample", "odd_P"])
+def test_k3_from_bits_plain_matches_pallas_kernel(shape, sigma):
     rng = np.random.RandomState(0)
-    x = rng.rand(3, 40, 129).astype(np.float32)
+    x = rng.rand(*shape).astype(np.float32)
+    if shape != (3, 40, 129):  # beyond [0, 1] too, where the clip of a quiet sample acts
+        x = x * np.float32(1.2) - np.float32(0.1)
     b1, b2 = _bits(rng, x.shape), _bits(rng, x.shape)
     b1[0, 0, :3] = [0, -1, 0xFFFFFF]  # u1 at its ends, high bits masked off
-    sigma = np.asarray([0.1, 0.02, 0.5], np.float32)
+    sigma = np.asarray(sigma, np.float32)
     ref = np.asarray(add_gaussian_noise_from_bits(jnp.asarray(x), jnp.asarray(b1), jnp.asarray(b2),
                                                   jnp.asarray(sigma), interpret=True))
     out = K3.add_gaussian_noise_from_bits(t(x), t(b1), t(b2), t(sigma)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
-    z = K3.add_gaussian_noise_from_bits(t(x), t(b1), t(b2), torch.zeros(3)).numpy()
-    np.testing.assert_array_equal(z, x)
+    quiet = sigma == 0
+    np.testing.assert_array_equal(out[quiet], np.clip(x[quiet], 0, 1))
+    np.testing.assert_array_equal(ref[quiet], np.clip(x[quiet], 0, 1))
+    z = K3.add_gaussian_noise_from_bits(t(x), t(b1), t(b2), torch.zeros(shape[0])).numpy()
+    np.testing.assert_array_equal(z, np.clip(x, 0, 1))
 
 
 def test_philox_matches_published_test_vectors():
