@@ -1,27 +1,22 @@
 """K3b (`kernels/csrc/noise.cu:nntc_gaussian_noise_from_bits`, the gaussian
-noise from injected bits) in its shapes and beside its first, scalar form
-(a thread a pixel, every sample's bits read), at the pose step's shape
-(64 x 129^2) on the card.
+noise from injected bits) beside its first, scalar form (a thread a pixel,
+every sample's bits read), at the pose step's shape (64 x 129^2) on the card.
 
-The shipped `noise.cu` is built by `nvcc` at its own shape and at the
-others it takes (`-DNNTC_K3B_PIX`, `-DNNTC_K3B_THREADS`: pixels a thread,
-threads a block); the first form is built from the `noise.cu` of an earlier
-checkout, where one is given (`--parent DIR`, default `.cache/parent`, e.g.
-`git archive` of the parent commit unpacked there). Each build is one
+The shipped `noise.cu` and the first form, from the `noise.cu` of an earlier
+checkout (`--parent DIR`, default `.cache/parent`, e.g. `git archive` of the
+parent commit unpacked there), are built by `nvcc` at once, each as one
 library with a plain C entry (a small file that includes the `noise.cu`),
-with the extension's flags and `-Xptxas=-v`, all at once; each kernel's
-registers, spills and blocks an SM are printed. A diagnostic build, not a
-kernel, is the shipped form whose noisy samples skip the Box-Muller
-arithmetic (their words kept live), to show what the arithmetic adds. Each
-other build is held to the plain version (1e-6) at phase 3's drawn sigma,
-with every sigma > 0, and at P = 999 from a misaligned x and from x, bits
-and output all one word off. Then each is timed as `chip_smoke.py` phase 3
-times K3b (`ms`: median of 25 launches after an L2 flush; `ms_stream`: 50
-launches back to back over >= 100 MB), at the drawn sigma and with every
-sigma > 0, in turns: the first form, the shapes and the diagnostic, the
-same in reverse, the first form. Last, the launch floor: the shipped form
-on one sample of 4 pixels, back to back. Needs the card; from the repo's
-root:
+with the extension's flags and `-Xptxas=-v`; each K3b kernel's registers,
+spills and blocks an SM are printed. Each build is held to the plain version
+(1e-6) at phase 3's drawn sigma, with every sigma > 0, and at P = 999 from a
+misaligned x and from x, bits and output all one word off. Then each is
+timed as `chip_smoke.py` phase 3 times K3b (`ms`: median of 25 launches
+after an L2 flush; `ms_stream`: 50 launches back to back over >= 100 MB) at
+the drawn sigma, with every sigma > 0 and with every sigma 0, in turns: the
+first form, the shipped form (aligned arrays: its vector path), the shipped
+form on x, bits1 and bits2 one word off (its scalar path), the same in
+reverse. Last, the launch floor: the shipped form on one sample of 4
+pixels, back to back. Needs the card; from the repo's root:
 
     python3 chip_smoke_noise_designs.py [--parent DIR]
 
@@ -32,7 +27,6 @@ JSON object of the times last. Exits 1 if a check fails.
 import ctypes
 import json
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -44,11 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import chip_smoke as C  # noqa: E402
 
 CSRC = os.path.join(C.ROOT, "neuralnet_tracker_traincode_torch", "kernels", "csrc")
-# (pixels a thread, threads a block): noise.cu's NNTC_K3B_* choices
-KNOBS = ("NNTC_K3B_PIX", "NNTC_K3B_THREADS")
-SHAPES = ((4, 128), (4, 256), (8, 256), (8, 128))
-NO_ARITHMETIC = "diagnostic: shipped, noisy samples without the arithmetic"
-FIRST = "first form (a thread a pixel)"
+SHIPPED, SCALAR, FIRST = "shipped (vector path)", "shipped, inputs one word off (scalar path)", "first form"
 ENTRY = """#include "{src}"
 extern "C" int k3b_entry(const float* x, const int32_t* b1, const int32_t* b2, const float* sigma, float* out,
                          int B, int P, cudaStream_t stream) {{
@@ -61,55 +51,30 @@ extern "C" int k3b_blocks_per_sm() {{
 """
 
 
-def shipped_shape():
-    text = open(os.path.join(CSRC, "noise.cu")).read()
-    return tuple(int(re.search(rf"#define {k} (\d+)", text).group(1)) for k in KNOBS)
-
-
-def shape_name(v):
-    return f"{v[0]} px x {v[1]} threads"
-
-
 def build(workdir, parent):
-    """Start nvcc for every build at once; returns {name: (entry, blocks an SM)}."""
+    """Start nvcc for both builds at once; returns {name: (entry, blocks an SM)}."""
     from neuralnet_tracker_traincode_torch.kernels import ext
 
     cuda = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    shipped = shipped_shape()
-    jobs = {f"{'shipped' if v == shipped else 'shape'} {shape_name(v)}":
-            (os.path.join(CSRC, "noise.cu"), [f"-D{k}={n}" for k, n in zip(KNOBS, v)]) for v in SHAPES}
+    jobs = {SHIPPED: os.path.join(CSRC, "noise.cu")}
     parent_cu = os.path.join(parent, "neuralnet_tracker_traincode_torch", "kernels", "csrc", "noise.cu")
     if os.path.exists(parent_cu):
         if "kBitsThreads" in open(parent_cu).read():
             C.fail(f"{parent_cu} is not K3b's first form (it has the vector path)")
-        jobs[FIRST] = (parent_cu, [])
+        jobs[FIRST] = parent_cu
     else:
         print(f"no earlier checkout at {parent}: the first form is not built (compare with PERF.md's row from the "
               f"same card model)")
-    # a diagnostic, not a kernel: the shipped form whose noisy samples skip the Box-Muller arithmetic (their words
-    # stay live through a low bit added to x), so that the time the arithmetic adds shows beside it
-    text = open(os.path.join(CSRC, "noise.cu")).read()
-    body = text[text.index("template <bool kVec>"):]
-    noisy = "apply_noise(c1[k], c2[k], v[k], s)"
-    live = ("make_float4(" + ", ".join(f"v[k].{c} + __int_as_float((c1[k].{c} ^ c2[k].{c}) & 1)" for c in "xyzw")
-            + ")")
-    if noisy not in body:
-        C.fail("noise.cu's vector path changed: update the arithmetic-free diagnostic")
-    jobs[NO_ARITHMETIC] = (os.path.join(workdir, "noise.cu"), [])
-    with open(jobs[NO_ARITHMETIC][0], "w") as f:
-        f.write(text[:text.index("template <bool kVec>")] + body.replace(noisy, live, 1))
     procs = {}
-    for i, (name, (src, defines)) in enumerate(jobs.items()):
-        new = "kBitsThreads" in open(src).read()
+    for i, (name, src) in enumerate(jobs.items()):
         entry = os.path.join(workdir, f"entry{i}.cu")
         with open(entry, "w") as f:
-            f.write(ENTRY.format(src=src, kernel="noise_bits_kernel<true>" if new else "noise_bits_kernel",
-                                 threads="kBitsThreads" if new else "kThreads"))
+            f.write(ENTRY.format(src=src, kernel="noise_bits_kernel<true>" if name == SHIPPED else "noise_bits_kernel",
+                                 threads="kBitsThreads" if name == SHIPPED else "kThreads"))
         lib = os.path.join(workdir, f"lib{i}.so")
         procs[name] = (lib, subprocess.Popen(
-            [cuda, *ext.CUDA_FLAGS, "-Xptxas=-v", *defines, "-shared", "-Xcompiler", "-fPIC",
-             "-I", os.path.dirname(src), "-I", CSRC, entry, "-o", lib],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            [cuda, *ext.CUDA_FLAGS, "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-I", os.path.dirname(src),
+             "-I", CSRC, entry, "-o", lib], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     built = {}
     for name, (lib, proc) in procs.items():
         _, err = proc.communicate(timeout=600)
@@ -126,7 +91,7 @@ def build(workdir, parent):
                 kernel = text.split("'")[1] if "noise_bits_kernel" in text else None
             elif kernel and ("registers" in text or "spill" in text):
                 info.append(f"{kernel}: {text}")
-        print(f"ptxas ({name}): " + " | ".join(info) + f"; vector path's blocks an SM {built[name][1]}", flush=True)
+        print(f"ptxas ({name}): " + " | ".join(info) + f"; blocks an SM {built[name][1]}", flush=True)
     return built
 
 
@@ -177,8 +142,6 @@ def main() -> int:
               C.misaligned(torch, b1[:7, :999].contiguous()), C.misaligned(torch, b2[:7, :999].contiguous()),
               mixed)]
     for name, (entry, _) in builds.items():
-        if name == NO_ARITHMETIC:
-            continue
         err = 0.0
         for what, xs, c1, c2, sg in cases:
             out = C.misaligned(torch, torch.empty_like(xs)) if "out 4 bytes" in what else torch.empty_like(xs)
@@ -191,47 +154,48 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     inputs = C.rotating(torch, x, b1, b2)
+    off = [tuple(C.misaligned(torch, t) for t in s) for s in inputs]  # every array of every set one word off
     out = torch.empty_like(x)
-    bounds = {"drawn": C.k3b_bound(n_on, B, P), "all_on": C.k3b_bound(B, B, P)}
-    names = [n for n in builds if n != FIRST]  # the shapes, then the diagnostic
-    order = ([FIRST] if FIRST in builds else []) + names + names[::-1] + (
-        [FIRST] if FIRST in builds else [])
-    report = {name: {"blocks_per_sm": builds[name][1]} for name in builds}
+    draws = {"drawn": sigma, "all_on": sigma_on, "all_quiet": torch.zeros(B, device=dev)}
+    bounds = {"drawn": C.k3b_bound(n_on, B, P), "all_on": C.k3b_bound(B, B, P), "all_quiet": C.k3b_bound(0, B, P)}
+    forms = {FIRST: inputs, SHIPPED: inputs, SCALAR: off} if FIRST in builds else {SHIPPED: inputs, SCALAR: off}
+    order = list(forms) + list(forms)[::-1]
+    report = {name: {} for name in forms}
     for name in order:
-        launch = launcher(builds[name][0], out)
-        for key, sg in (("drawn", sigma), ("all_on", sigma_on)):
-            ms = C.time_ms(torch, lambda: launch(x, b1, b2, sg), flush)
-            ms_stream = C.stream_ms(torch, lambda xs, c1, c2: launch(xs, c1, c2, sg), inputs)
+        launch = launcher(builds[SHIPPED if name == SCALAR else name][0], out)
+        sets = forms[name]
+        for key, sg in draws.items():
+            ms = C.time_ms(torch, lambda: launch(*sets[0], sg), flush)
+            ms_stream = C.stream_ms(torch, lambda xs, c1, c2: launch(xs, c1, c2, sg), sets)
             report[name].setdefault(f"ms_{key}", []).append(ms)
             report[name].setdefault(f"ms_stream_{key}", []).append(ms_stream)
-            print(f"K3b ({name}) at {'the drawn sigma' if key == 'drawn' else 'every sigma > 0'}: {ms:.4f} ms "
-                  f"({ms_stream:.4f} ms_stream), bound {bounds[key][0]:.4f} ms ({bounds[key][1]}) on {smi}", flush=True)
-    for name, row in list(report.items()):
-        if not isinstance(row, dict):
-            continue
+            print(f"K3b ({name}) at sigma {key}: {ms:.4f} ms ({ms_stream:.4f} ms_stream), bound {bounds[key][0]:.4f} "
+                  f"ms ({bounds[key][1]}) on {smi}", flush=True)
+    for name, row in report.items():
         parts = []
-        for key in ("drawn", "all_on"):
+        for key in draws:
             mean = statistics.mean(row[f"ms_stream_{key}"])
             row[f"bound_ms_{key}"] = bounds[key][0]
-            row[f"bound_share_{key}"] = bounds[key][0] / mean
             parts.append(f"{key} ms_stream {mean:.4f} ms = {bounds[key][0] / mean:.0%} of its bound")
         print(f"K3b ({name}): " + "; ".join(parts) + f" (means of two, in turns) on {smi}")
     # the launch floor: the shipped form on one sample of 4 pixels (one block), back to back
-    shipped = next(n for n in report if n.startswith("shipped"))
-    launch = launcher(builds[shipped][0], out)
+    launch = launcher(builds[SHIPPED][0], out)
+    tiny = [t[:1, :4].contiguous() for t in (x, b1, b2)]
     for key, sg in (("quiet", torch.zeros(1, device=dev)), ("noisy", sigma_on[:1])):
-        tiny = [t[:1, :4].contiguous() for t in (x, b1, b2)]
         report[f"floor_ms_stream_{key}"] = [C.stream_ms(torch, lambda: launch(*tiny, sg), [()]) for _ in range(2)]
         print(f"K3b (shipped) on one sample of 4 pixels, {key}, back to back: ms_stream "
               + ", ".join(f"{t:.4f}" for t in report[f"floor_ms_stream_{key}"]) + f" ms on {smi}")
-    if FIRST in report:
-        for key in ("drawn", "all_on"):
-            ratio = statistics.mean(report[shipped][f"ms_stream_{key}"]) / statistics.mean(
-                report[FIRST][f"ms_stream_{key}"])
-            report[f"shipped_over_first_{key}"] = ratio
-            print(f"K3b shipped / first form, ms_stream at {key}: {ratio:.3f}")
+    for name in (FIRST, SCALAR):
+        if name not in report:
+            continue
+        for key in draws:
+            ratio = statistics.mean(report[SHIPPED][f"ms_stream_{key}"]) / statistics.mean(
+                report[name][f"ms_stream_{key}"])
+            report[f"shipped_over_{'first' if name == FIRST else 'scalar'}_{key}"] = ratio
+            print(f"K3b shipped / {name}, ms_stream at sigma {key}: {ratio:.3f}")
     print(smi)
-    print(json.dumps({"card": smi, "n_on": n_on, "B": B, "P": P, "builds": report}))
+    print(json.dumps({"card": smi, "n_on": n_on, "B": B, "P": P,
+                      "blocks_per_sm": {name: b[1] for name, b in builds.items()}, "forms": report}))
     return 0
 
 

@@ -47,19 +47,19 @@
 // us at 3.35 TB/s; 17.0 MB with every sample on. The design:
 //   - one sample per blockIdx.y, so sigma is uniform across the block: a
 //     block whose sigma is 0 reads x only, never bits1 or bits2;
-//   - 16-byte accesses: a thread takes kBitsPix / 4 groups of 4 consecutive
-//     pixels, kBitsThreads groups apart, as float4 / int4; the loads go
-//     through the streaming path (__ldcs) and are all issued before the
-//     arithmetic, the stores are streaming too (__stcs: nothing in the
-//     launch reads the output again);
+//   - 16-byte accesses: a thread takes 4 consecutive pixels, one float4 /
+//     int4 of each array; the loads go through the streaming path (__ldcs)
+//     and are all issued before the arithmetic, the stores are streaming
+//     too (__stcs: nothing in the launch reads the output again);
 //   - a sample's row starts at b * P * 4 bytes, on a 16-byte boundary only
-//     when the pointer's phase and b * P allow: each sample has a scalar head
-//     up to its first aligned pixel and a scalar tail (at most 3 pixels
-//     each, taken by the sample's first block and loaded with its groups,
-//     so that no thread's first load waits). The vector path needs x,
-//     bits1, bits2 and out at one phase modulo 16 bytes; where they differ
-//     (a caller's view that starts off its allocation), every pixel takes the
-//     scalar path, same blocks, same skip. No vector access is misaligned.
+//     when b * P % 4 == 0: each sample has a scalar head up to its first
+//     aligned pixel and a scalar tail (at most 3 pixels each, taken by the
+//     sample's first block and loaded with its groups, so that no thread's
+//     first load waits). The vector path needs x, bits1, bits2 and out to
+//     start on 16-byte boundaries; where one does not (a caller's view that
+//     starts off its allocation), every pixel takes the scalar path, 4
+//     pixels a thread 128 apart, same blocks, same skip. No vector access is
+//     misaligned.
 // At this size a back-to-back launch has a fixed cost of its own, and the
 // arithmetic of the noisy samples runs only once their words have arrived;
 // both add to the bytes' time (PERF.md, section 6).
@@ -126,25 +126,13 @@ __global__ void __launch_bounds__(kThreads) noise_seeded_kernel(const float* __r
             apply_noise((int32_t)(w.z & 0xFFFFFFu), (int32_t)(w.w & 0xFFFFFFu), x[base + p + 1], s), offset);
 }
 
-// K3b's shape: pixels a thread (4 or 8: one or two 16-byte groups an array)
-// and threads a block. Chosen from the ptxas log and the card's times
-// (`chip_smoke_noise_designs.py`, which also builds the other shapes): at 4
-// pixels x 128 threads the vector kernel takes 32 registers, no spills (a
-// 32-byte stack frame: cosf's slow path), 16 blocks an SM, so the pose
-// step's 64 x 129^2 is one wave of 2,112 blocks; 8 pixels take 40 registers
-// and are slower with every sigma > 0.
-#ifndef NNTC_K3B_PIX
-#define NNTC_K3B_PIX 4
-#endif
-#ifndef NNTC_K3B_THREADS
-#define NNTC_K3B_THREADS 128
-#endif
-constexpr int kBitsThreads = NNTC_K3B_THREADS;
-constexpr int kBitsPix = NNTC_K3B_PIX;
-constexpr int kBitsGroups = kBitsPix / 4;  // 16-byte groups a thread
-constexpr int kBitsChunk = kBitsThreads * kBitsPix;  // pixels a block
-static_assert(kBitsPix == 4 || kBitsPix == 8, "K3b takes 4 or 8 pixels a thread");
-static_assert(kBitsThreads % 32 == 0 && kBitsThreads >= 64, "the tail's threads start at 32");
+// K3b's shape: 4 pixels a thread, 128 threads a block. The vector kernel
+// takes 32 registers, no spills (a 32-byte stack frame: cosf's slow path),
+// 16 blocks an SM, so the pose step's 64 x 129^2 is one wave of 2,112
+// blocks; 8 pixels a thread took 40 registers and were slower with every
+// sigma > 0 (PERF.md, section 6).
+constexpr int kBitsThreads = 128;
+constexpr int kBitsChunk = 4 * kBitsThreads;  // pixels a block
 
 __device__ __forceinline__ float4 clip01(float4 v) {
     return make_float4(clip01(v.x), clip01(v.y), clip01(v.z), clip01(v.w));
@@ -157,41 +145,40 @@ __device__ __forceinline__ float4 apply_noise(int4 c1, int4 c2, float4 v, float 
                        apply_noise(c1.w & 0xFFFFFF, c2.w & 0xFFFFFF, v.w, s));
 }
 
-// kVec: x, bits1, bits2 and out share `phase`, the pointers' 4-byte word
-// modulo 16 bytes; sample b's pixel p is then 16-byte aligned where
-// (phase + b * P + p) % 4 == 0.
+// kVec: x, bits1, bits2 and out start on 16-byte boundaries; sample b's
+// pixel p is then 16-byte aligned where (b * P + p) % 4 == 0.
 template <bool kVec>
 __global__ void __launch_bounds__(kBitsThreads) noise_bits_kernel(const float* __restrict__ x,
                                                                   const int32_t* __restrict__ bits1,
                                                                   const int32_t* __restrict__ bits2,
                                                                   const float* __restrict__ sigma,
-                                                                  float* __restrict__ out, int P, int phase) {
+                                                                  float* __restrict__ out, int P) {
     const int t = threadIdx.x;
     const size_t base = (size_t)blockIdx.y * P;
     const float s = sigma[blockIdx.y];
     const bool noisy = s != 0.0f;  // uniform across the block
     if constexpr (!kVec) {
         const int p0 = blockIdx.x * kBitsChunk + t;
-        float v[kBitsPix];
-        int32_t c1[kBitsPix], c2[kBitsPix];
+        float v[4];
+        int32_t c1[4], c2[4];
 #pragma unroll
-        for (int k = 0; k < kBitsPix; ++k) {
+        for (int k = 0; k < 4; ++k) {
             const int p = p0 + k * kBitsThreads;
             v[k] = p < P ? __ldcs(x + base + p) : 0.0f;
             c1[k] = noisy && p < P ? __ldcs(bits1 + base + p) : 0;
             c2[k] = noisy && p < P ? __ldcs(bits2 + base + p) : 0;
         }
 #pragma unroll
-        for (int k = 0; k < kBitsPix; ++k) {
+        for (int k = 0; k < 4; ++k) {
             const int p = p0 + k * kBitsThreads;
             if (p < P)
                 __stcs(out + base + p, noisy ? apply_noise(c1[k] & 0xFFFFFF, c2[k] & 0xFFFFFF, v[k], s) : clip01(v[k]));
         }
     } else {
-        const int head = min((4 - (int)((phase + base) & 3)) & 3, P);  // pixels before the first aligned one
+        const int head = min((4 - (int)(base & 3)) & 3, P);  // pixels before the first aligned one
         const int groups = (P - head) >> 2;
         // the scalar head (threads 0-2 of the sample's first block) and tail
-        // (threads 32-34), loaded with the groups: nothing delays a thread's first load
+        // (threads 32-34), loaded with the group: nothing delays a thread's first load
         const int tail = head + 4 * groups;
         int q = -1;
         if (blockIdx.x == 0) q = t < head ? t : (t >= 32 && t - 32 < P - tail ? tail + (t - 32) : -1);
@@ -199,25 +186,13 @@ __global__ void __launch_bounds__(kBitsThreads) noise_bits_kernel(const float* _
         const int32_t q1 = noisy && q >= 0 ? __ldcs(bits1 + base + q) : 0;
         const int32_t q2 = noisy && q >= 0 ? __ldcs(bits2 + base + q) : 0;
         const size_t a = base + head;  // 16-byte aligned in every array
-        const float4* xv = reinterpret_cast<const float4*>(x + a);
-        const int4* w1 = reinterpret_cast<const int4*>(bits1 + a);
-        const int4* w2 = reinterpret_cast<const int4*>(bits2 + a);
-        float4* ov = reinterpret_cast<float4*>(out + a);
-        const int g0 = blockIdx.x * (kBitsThreads * kBitsGroups) + t;
-        float4 v[kBitsGroups];
-        int4 c1[kBitsGroups], c2[kBitsGroups];
-#pragma unroll
-        for (int k = 0; k < kBitsGroups; ++k) {  // every load in flight before the arithmetic
-            const int g = g0 + k * kBitsThreads;
-            v[k] = g < groups ? __ldcs(xv + g) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            c1[k] = noisy && g < groups ? __ldcs(w1 + g) : make_int4(0, 0, 0, 0);
-            c2[k] = noisy && g < groups ? __ldcs(w2 + g) : make_int4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int k = 0; k < kBitsGroups; ++k) {
-            const int g = g0 + k * kBitsThreads;
-            if (g < groups) __stcs(ov + g, noisy ? apply_noise(c1[k], c2[k], v[k], s) : clip01(v[k]));
-        }
+        const int g = blockIdx.x * kBitsThreads + t;
+        const bool live = g < groups;
+        const float4 v =
+            live ? __ldcs(reinterpret_cast<const float4*>(x + a) + g) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const int4 c1 = noisy && live ? __ldcs(reinterpret_cast<const int4*>(bits1 + a) + g) : make_int4(0, 0, 0, 0);
+        const int4 c2 = noisy && live ? __ldcs(reinterpret_cast<const int4*>(bits2 + a) + g) : make_int4(0, 0, 0, 0);
+        if (live) __stcs(reinterpret_cast<float4*>(out + a) + g, noisy ? apply_noise(c1, c2, v, s) : clip01(v));
         if (q >= 0) __stcs(out + base + q, noisy ? apply_noise(q1 & 0xFFFFFF, q2 & 0xFFFFFF, qx, s) : clip01(qx));
     }
 }
@@ -236,12 +211,11 @@ cudaError_t nntc_gaussian_noise_from_bits(const float* x, const int32_t* bits1, 
                                           const float* sigma, float* out, int B, int P, cudaStream_t stream) {
     if (B == 0 || P == 0) return cudaSuccess;
     if (B > 65535) return cudaErrorInvalidValue;  // a sample a blockIdx.y
-    const uintptr_t a = (uintptr_t)x;
-    const bool vec = (((a ^ (uintptr_t)bits1) | (a ^ (uintptr_t)bits2) | (a ^ (uintptr_t)out)) & 15) == 0 && (a & 3) == 0;
+    const bool vec = (((uintptr_t)x | (uintptr_t)bits1 | (uintptr_t)bits2 | (uintptr_t)out) & 15) == 0;
     const dim3 grid((P + kBitsChunk - 1) / kBitsChunk, B);
     if (vec)
-        noise_bits_kernel<true><<<grid, kBitsThreads, 0, stream>>>(x, bits1, bits2, sigma, out, P, (int)((a >> 2) & 3));
+        noise_bits_kernel<true><<<grid, kBitsThreads, 0, stream>>>(x, bits1, bits2, sigma, out, P);
     else
-        noise_bits_kernel<false><<<grid, kBitsThreads, 0, stream>>>(x, bits1, bits2, sigma, out, P, 0);
+        noise_bits_kernel<false><<<grid, kBitsThreads, 0, stream>>>(x, bits1, bits2, sigma, out, P);
     return cudaGetLastError();
 }
