@@ -3196,7 +3196,7 @@ def viewer_phase(torch, np, dev, frames):
         torch.cuda.synchronize()
         launches = dict(ext.LAUNCHES)
     check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0,
-                       "jpeg_idct": 0, "jpeg_huffman": 0},
+                       "jpeg_idct": 0, "jpeg_huffman": 0, "stamp": 0},
           f"show_train_test_splits: launches {launches}")
     errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "show_train_test_splits")
     errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "show_train_test_splits")

@@ -128,6 +128,19 @@ void jpeg_huffman_decode(torch::Tensor scan, torch::Tensor intervals, torch::Ten
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void stamp(torch::Tensor ring, torch::Tensor cursor, int64_t kind, int64_t arg) {
+    check(ring, torch::kInt64, "ring");
+    check(cursor, torch::kInt64, "cursor");
+    TORCH_CHECK(ring.dim() == 2 && ring.size(0) > 0 && ring.size(1) == 2 && cursor.numel() == 1 &&
+                cursor.device() == ring.device());
+    TORCH_CHECK(kind >= 0 && kind < NNTC_STAMP_KINDS && arg >= 0, "no stamp of kind ", kind, " and argument ", arg);
+    const c10::cuda::CUDAGuard guard(ring.device());
+    C10_CUDA_CHECK(nntc_stamp(reinterpret_cast<long long*>(ring.data_ptr<int64_t>()),
+                              reinterpret_cast<long long*>(cursor.data_ptr<int64_t>()), ring.size(0), (int)kind,
+                              (long long)arg, at::cuda::getCurrentCUDAStream()));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 int64_t jpeg_huffman_ctas_per_sm() {
     const int n = nntc_jpeg_huffman_ctas_per_sm();
     TORCH_CHECK(n > 0, "K5's occupancy query failed");
@@ -143,5 +156,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("gaussian_noise_from_bits", &gaussian_noise_from_bits, "K3: gaussian noise from injected bits");
     m.def("jpeg_idct_pack", &jpeg_idct_pack, "K4: JPEG dequantize, ISLOW IDCT, range limit, zero-padded batch");
     m.def("jpeg_huffman_decode", &jpeg_huffman_decode, "K5: JPEG Huffman decode of the Y scans into K4's slots");
+    m.def("stamp", &stamp, "the tracer's stamp: (kind | arg << 8, %globaltimer) into the next slot of a ring");
     m.def("jpeg_huffman_ctas_per_sm", &jpeg_huffman_ctas_per_sm, "K5: its decode CTAs an SM at most");
 }

@@ -1,4 +1,4 @@
-// Launchers of the port's kernels (the augmentation's and the JPEG decode's). Plain C++ interface: the .cu
+// Launchers of the port's kernels (the augmentation's, the JPEG decode's and the tracer's stamp). Plain C++ interface: the .cu
 // files do not include PyTorch's headers (that keeps nvcc fast); only
 // bindings.cpp does. Each launcher enqueues on `stream`, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
@@ -70,3 +70,12 @@ cudaError_t nntc_jpeg_huffman_decode(const uint8_t* scan, const int32_t* interva
 
 // K5's decode CTAs (128 threads) an SM at most on the current device (-1 on an error).
 int nntc_jpeg_huffman_ctas_per_sm();
+
+// The tracer's stamp: one thread writes (kind | arg << 8, %globaltimer in ns)
+// into slot *cursor % capacity of ring (capacity, 2) int64, then increments
+// *cursor (int64). kind in [0, NNTC_STAMP_KINDS), each its own kernel name
+// (nntc_stamp_kernel<kind>). Returns cudaErrorInvalidValue for another kind,
+// capacity <= 0 or arg < 0.
+#define NNTC_STAMP_KINDS 16
+cudaError_t nntc_stamp(long long* ring, long long* cursor, long long capacity, int kind, long long arg,
+                       cudaStream_t stream);

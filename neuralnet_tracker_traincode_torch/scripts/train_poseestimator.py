@@ -21,7 +21,10 @@ the same trajectory. The default (0) is the JAX CLI's rule
 (`steps_per_dispatch`): on the card with batches of at most 128, the largest
 of 8, 4 and 2 that divides the epoch's steps; else 1. An explicit K that
 does not divide the epoch rounds it down. `--profile-dir` traces the first
-8 calls (dispatches) with `torch.profiler`. Every epoch the loss plot is
+8 calls (dispatches) with `torch.profiler` and turns the trainer's tracer on
+(`train/tracing.py`): every epoch's line then adds the device ms a block by
+section, the device's idle share between blocks and the host part a block.
+Every epoch the loss plot is
 written to `--plot-save-filename`, by default `<outdir>/<network
 name>/train.pdf` (`train/plotting.py:TrainHistoryPlotter`). Where matplotlib
 does not import, the CLI says at its start that `train.pdf` will not be
@@ -102,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", default=None, type=str,
                         help="resume from a training-state file ('auto' = <outdir>/<network>/resume.pt)")
     parser.add_argument("--profile-dir", default=None, type=str,
-                        help="trace the first 8 dispatches with torch.profiler into this directory")
+                        help="trace the first 8 dispatches with torch.profiler into this directory, and print "
+                             "every epoch the device ms a block by section, the idle share and the host part")
     parser.add_argument("--steps-per-dispatch", default=0, type=int,
                         help="optimizer steps per call, one CUDA graph replay on the card (0: auto, 8/4/2 on the "
                              "card at batch <= 128, else 1)")
@@ -204,6 +208,8 @@ def _train(args, parallel, dev) -> int:
         aug=aug_cfg,
     )
     trainer = PoseTrainer(model, criterion, cfg, LABEL_CATEGORIES, device=dev, parallel=parallel)
+    if args.profile_dir:
+        trainer.tracer.enable()
     # the init is the fixed one without --seed, also where the ranks agreed on a drawn seed
     state = trainer.init_state(torch.Generator().manual_seed(seed_streams(args.seed).init))
     generator = torch.Generator()

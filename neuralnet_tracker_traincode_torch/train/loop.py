@@ -25,6 +25,15 @@ that shape a step (K1's plan, whether a CUDA graph captures) are agreed
 across the ranks first. The parameters, buffers and Adam moments stay
 bit-equal across ranks.
 
+The trainer's `tracer` (`train/tracing.py`) names the step's sections
+(`augment`, `forward`, `loss`, `backward`, `gradient_mean`, `optimizer`) and
+its host part's spans (`draws`, with `sample` and `load` inside it, and
+`replay`) as profiler ranges. Inside a replay of the K-step graph a profiler
+sees the kernels but not the ranges, so the sections' device time there is
+read from the tracer's stamps: when it is on, each section launches one, and
+the graph captures them with its kernels. Off, the graph is the same as
+without it.
+
 SWA keeps an equal-weight running average of the parameters and the
 BatchNorm running statistics in the `TrainState` (`update_swa`);
 `save_checkpoint` writes the current or the averaged weights in the JAX
@@ -42,7 +51,6 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
     AugmentationParameters,
@@ -60,6 +68,7 @@ from neuralnet_tracker_traincode_torch.models.backbones.common import BatchNorm2
 from neuralnet_tracker_traincode_torch.models.nll import SCALE_MODULES
 from neuralnet_tracker_traincode_torch.parallel.distributed import DataParallel
 from neuralnet_tracker_traincode_torch.train.schedules import exponential_up_then_steps
+from neuralnet_tracker_traincode_torch.train.tracing import Tracer
 
 _GROUP_LR = {"main": 1.0, "variance": 0.1, "transformer": 0.01}
 _GROUP_WEIGHT_DECAY = {"transformer": 0.01}
@@ -357,6 +366,7 @@ class PoseTrainer:
             model, config.lr, epoch_schedule, config.steps_per_epoch, config.epochs, config.grad_clip_norm
         )
         self._mask_generator = torch.Generator(device=self.device)
+        self.tracer = Tracer(self.device)  # off until `tracer.enable()`
         self._graphs: "collections.OrderedDict[tuple, _StepGraph]" = collections.OrderedDict()
         # what the captures cost, for reports: graphs captured, warm-up steps run, seconds, pool bytes
         self.graph_stats = {"captures": 0, "warmup_steps": 0, "capture_s": 0.0, "instantiate_s": 0.0,
@@ -467,6 +477,7 @@ class PoseTrainer:
         dev = self.device
         aug, seed = self._draws(batch, aug_params, generator)
         plan = self._plan([batch], [aug])
+        self.tracer.stamp("load")
         on_device = {k: torch.as_tensor(v).to(dev) for k, v in self._device_fields(batch).items()}
         (aug,) = self._upload([aug])
         mask_gen = None
@@ -498,28 +509,28 @@ class PoseTrainer:
         and their values, one f32 vector: 'loss' and the mean of each loss
         term over the samples whose tag defines it."""
         batch = inputs.batch
-        with record_function("augment"):
+        with self.tracer.section("augment"):
             labels = {k: v for k, v in batch.items() if k not in _NOT_LABELS}
             x, labels = augment_batch_for_training(
                 batch["image"], labels, self.categories, self.config.aug, params=inputs.aug,
                 param_index=batch.get("param_index"), device=self.device, k1_plan=inputs.plan,
             )
         self.model.train()
-        with record_function("forward"):
+        with self.tracer.section("forward"):
             out = self.model(x, coord_convention_id=labels.get("coord_convention_id"),
                              mask_generator=inputs.mask_generator)
-        with record_function("loss"):
+        with self.tracer.section("loss"):
             loss, byname = self.criterion(
                 out, labels, batch["tag_id"], weight_matrix, dataset_weight=batch.get("dataset_weight")
             )
         params = self.params()
-        with record_function("backward"):
+        with self.tracer.section("backward"):
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {n: (torch.zeros_like(p) if g is None else g) for (n, p), g in zip(params.items(), grads)}
         if self.parallel.active:
-            with record_function("gradient_mean"):
+            with self.tracer.section("gradient_mean"):
                 grads = self._mean_over_ranks(grads)
-        with record_function("optimizer"):
+        with self.tracer.section("optimizer"):
             self.tx.step(params, grads, state.opt_state)
         names = ["loss"] + list(byname)
         if self.parallel.active:  # the numerators and counts of all ranks
@@ -527,11 +538,14 @@ class PoseTrainer:
             sums = torch.stack([loss.detach().float()] + [vals.detach().sum() for vals, _ in byname.values()]
                                + [(ws != 0).sum().float() for _, ws in byname.values()])
             P.all_reduce_(sums)
-            return names, torch.cat([sums[:1] / P.ranks, sums[1:1 + m] / torch.clamp(sums[1 + m:], min=1)])
-        values = [loss.detach().float()]
-        for vals, ws in byname.values():
-            values.append(vals.detach().sum() / torch.clamp((ws != 0).sum(), min=1))
-        return names, torch.stack(values)
+            values = torch.cat([sums[:1] / P.ranks, sums[1:1 + m] / torch.clamp(sums[1 + m:], min=1)])
+        else:
+            values = [loss.detach().float()]
+            for vals, ws in byname.values():
+                values.append(vals.detach().sum() / torch.clamp((ws != 0).sum(), min=1))
+            values = torch.stack(values)
+        self.tracer.stamp("step_end")  # the optimizer's section holds the metrics above
+        return names, values
 
     def _mean_over_ranks(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The gradients summed over the ranks in one flat buffer, then
@@ -560,9 +574,11 @@ class PoseTrainer:
         `generator`; the network's dropout and stochastic-depth masks (of the
         backbones that have them) draw from `generator` too. Returns the new state and device scalars: 'loss' and the
         mean of each loss term over the samples whose tag defines it."""
-        with record_function("draws"):
+        self.tracer.next_block()
+        with self.tracer.span("draws"):
             inputs = self.prepare_step(batch, aug_params, generator)
         names, values = self.device_step(state, inputs, torch.as_tensor(weight_matrix).to(self.device))
+        self.tracer.stamp("block_end")
         return dataclasses.replace(state, step=state.step + 1), {n: values[i] for i, n in enumerate(names)}
 
     def train_step_multi(
@@ -602,14 +618,17 @@ class PoseTrainer:
             if dist.get_backend(self.parallel.group) != "nccl":
                 raise ValueError("a CUDA graph cannot capture the collectives of the "
                                  f"{dist.get_backend(self.parallel.group)} backend; train eagerly (train_step)")
-        with record_function("draws"):
-            drawn, plan = self.prepare_block(batches, aug_params, generator)
-            fields = self._device_fields(batches)
-            graph, capture = self._graph_for(state, fields, drawn[0], plan)
-            graph.load(fields, drawn, weight_matrix)
+        self.tracer.next_block()
+        with self.tracer.span("draws"):
+            with self.tracer.span("sample"):
+                drawn, plan = self.prepare_block(batches, aug_params, generator)
+            with self.tracer.span("load"):
+                fields = self._device_fields(batches)
+                graph, capture = self._graph_for(state, fields, drawn[0], plan)
+                graph.load(fields, drawn, weight_matrix)
         if capture:
             graph.capture(self, state)
-        with record_function("replay"):
+        with self.tracer.span("replay"):
             graph.graph.replay()
         for name, n in graph.launches.items():
             ext.LAUNCHES[name] += n
@@ -628,7 +647,8 @@ class PoseTrainer:
             seed is not None,
             plan,
         )
-        key = shared + (state.opt_state.count.data_ptr(), next(iter(self.params().values())).data_ptr())
+        key = shared + (state.opt_state.count.data_ptr(), next(iter(self.params().values())).data_ptr(),
+                        self.tracer.key())
         graph = self._graphs.get(key)
         if graph is None:
             while len(self._graphs) >= self.MAX_GRAPHS:
@@ -735,6 +755,7 @@ class _StepGraph:
         self.draws = torch.empty(self.packing.nbytes, dtype=torch.uint8, device=dev)
         self.weight_matrix: Optional[torch.Tensor] = None
         self.generators = [torch.Generator(device=dev) for _ in range(K)] if with_masks else None
+        self.tracer = trainer.tracer
         self.seeds: List[Optional[int]] = [None] * K
         views = self.packing.views(self.draws)
         self.inputs = [
@@ -753,7 +774,9 @@ class _StepGraph:
     def load(self, batches: Dict[str, Any], drawn: Sequence[Tuple[AugmentationParameters, Optional[int]]],
              weight_matrix):
         """Copy a block's batches, draws and weight matrix into the slots and
-        seed each slot's mask generator, all queued before the next replay."""
+        seed each slot's mask generator, all queued before the next replay,
+        after the tracer's load stamp."""
+        self.tracer.stamp("load")
         for n, v in batches.items():
             self.batch[n].copy_(torch.as_tensor(v), non_blocking=True)
         leaves = [_draw_leaves(a) for a, _ in drawn]
@@ -772,7 +795,8 @@ class _StepGraph:
 
     def capture(self, trainer: PoseTrainer, state: TrainState):
         """Warm up the device part on a side stream (max(3, K) steps over the
-        slots), put back every tensor it changed, then capture the K steps."""
+        slots, with no stamp), put back every tensor it changed, then capture
+        the K steps and the tracer's block_end stamp after their metrics."""
         dev = trainer.device
         tensors = trainer._state_tensors(state)
         with torch.no_grad():
@@ -780,7 +804,7 @@ class _StepGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         warmup = max(3, self.K)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), trainer.tracer.paused():
             for i in range(warmup):
                 trainer.device_step(state, self.inputs[i % self.K], self.weight_matrix)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -799,6 +823,7 @@ class _StepGraph:
             outs = [trainer.device_step(state, inputs, self.weight_matrix) for inputs in self.inputs]
             self.metric_names = outs[0][0]
             self.metrics = torch.stack([values for _, values in outs])
+            trainer.tracer.stamp("block_end")
             t1 = time.perf_counter()
         t2 = time.perf_counter()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved

@@ -1,16 +1,23 @@
 """Profiling of the training step and the throughput meter (counterpart of
 the JAX package's `train/profiling.py`).
 
-`PoseTrainer.train_step` marks its stages with `torch.profiler.record_function`
-ranges named in `STAGES`; they cost a few microseconds a step when no
-profiler runs. `train_step_multi` on the card marks only its host part
-('draws') and the graph's replay ('replay'): the captured stages run on the
-device without the host. `profile_steps` runs calls of a step function under
-`torch.profiler` and returns where the time went, per optimizer step: host
-time per stage, the device's busy share, kernel launches per step and the
-kernels that take the most device time. `profile_batches` traces the first
-calls of a training run into a directory (the training CLI's
-`--profile-dir`: its first 8 dispatches).
+`PoseTrainer` marks its stages with `torch.profiler.record_function` ranges
+named in `STAGES`, the trainer's tracer's sections and host spans
+(`train/tracing.py`); they cost a few microseconds a step when no profiler
+runs. On the card `train_step_multi`'s ranges are its host part ('draws',
+with 'sample' and 'load' inside it) and the graph's replay ('replay'): the
+captured sections run on the device without the host, so a profile shows
+their kernels and not their ranges. Their device time in a replay comes from
+the tracer's stamps (`Tracer.enable`, `tracing.summarize`), and a profile of
+replays with the tracer on is cut into sections at the stamp kernels
+(`tracing.device_ops_by_section`).
+
+`profile_steps` runs calls of a step function under `torch.profiler` and
+returns where the time went, per optimizer step: host time per stage, the
+device's busy share, kernel launches per step and the kernels that take the
+most device time. `profile_batches` traces the first calls of a training run
+into a directory (the training CLI's `--profile-dir`, which also turns the
+trainer's tracer on: its first 8 dispatches).
 """
 
 import os
@@ -19,7 +26,9 @@ from typing import Callable, Dict, Iterator, Optional, TypeVar
 
 import torch
 
-STAGES = ("draws", "augment", "forward", "loss", "backward", "gradient_mean", "optimizer", "replay")
+from neuralnet_tracker_traincode_torch.train.tracing import HOST_SPANS, SECTIONS
+
+STAGES = HOST_SPANS + SECTIONS
 T = TypeVar("T")
 
 

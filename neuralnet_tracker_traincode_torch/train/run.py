@@ -36,6 +36,7 @@ from neuralnet_tracker_traincode_torch.train.checkpointing import load_train_sta
 from neuralnet_tracker_traincode_torch.train.loop import PoseTrainer, TrainState, check_not_nan
 from neuralnet_tracker_traincode_torch.train.plotting import ConsoleTrainOutput
 from neuralnet_tracker_traincode_torch.train.profiling import ThroughputMeter
+from neuralnet_tracker_traincode_torch.train.tracing import format_summary, summarize
 
 
 @dataclasses.dataclass
@@ -155,7 +156,9 @@ def run_training(
     final state and one record per epoch (host seconds of the steps, images/s,
     images/s sustained since the run's second step with validation and
     checkpoints included, validation loss and milliseconds, milliseconds of
-    each checkpoint file written, the epoch's mean of each train metric).
+    each checkpoint file written, the epoch's mean of each train metric, and
+    with the trainer's tracer on `tracing.summarize` of the epoch's blocks,
+    which the epoch's line prints too).
     `plotter` (a `train/plotting.py:TrainHistoryPlotter`) gets the points the
     console gets and renders them at every epoch's end."""
     cfg = trainer.config
@@ -199,6 +202,10 @@ def run_training(
         table = torch.cat([torch.stack([m[n].float() for n in names], -1).reshape(-1, len(names))
                            for m in history]).cpu()
         train_s = time.perf_counter() - t0
+        trace = None
+        if trainer.tracer.on:  # the epoch's blocks, read before validation queues work of its own
+            trace = summarize(trainer.tracer.records())
+            trainer.tracer.clear()
         steps = table.shape[0]
         per_step = {n: table[:, i] for i, n in enumerate(names)}
         check_not_nan(per_step, trainer.params(), batch, os.path.join(outdir, "notgood.pt"))
@@ -239,11 +246,12 @@ def run_training(
         if writer:
             per_device = f", {meter.per_device:.0f} img/s per device" if parallel.active else ""
             print(f"epoch {epoch + 1}/{cfg.epochs}: {ips:.0f} img/s (sustained {sustained:.0f} img/s incl. "
-                  f"validation{per_device}), val_loss {val_loss:.4f} (best {best_val:.4f})")
+                  f"validation{per_device}), val_loss {val_loss:.4f} (best {best_val:.4f})"
+                  + ("" if trace is None else "; " + format_summary(trace)))
         records.append(dict(
             epoch=epoch, steps=steps, train_s=train_s, images_per_s=ips, sustained_images_per_s=sustained,
             val_loss=val_loss, val_ms=val_ms, checkpoint_ms=checkpoint_ms,
-            train_metrics={n: float(per_step[n].double().mean()) for n in names},
+            train_metrics={n: float(per_step[n].double().mean()) for n in names}, trace=trace,
         ))
     # a generator's clean-up (the profiler's trace, the loader's workers) runs now, not when the collector finds it
     close = getattr(batches, "close", None)

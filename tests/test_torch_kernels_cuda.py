@@ -16,7 +16,10 @@ K3b (injected bits) at B in {1, 7, 64} and P from 1 to 224 x 288, sigma
 mixed with zeros, the bits' high 8 bits set, from misaligned inputs; its
 sigma 0 samples bit-equal to clip(x) whatever their bits.
 The training step's CUDA graph (`PoseTrainer.train_step_multi`) at a small
-width: its replays bit-equal to the eager steps.
+width: its replays bit-equal to the eager steps, and to the replays of the
+graph captured with the tracer's stamps (`train/tracing.py`), whose ring
+holds each block's stamps in order. The stamp kernel fills and wraps its
+ring.
 """
 
 import math
@@ -303,7 +306,7 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
     np.testing.assert_array_equal(sorted(ext.LAUNCHES), sorted(["warp_roi_rotate", "equalize", "gaussian_noise",
                                                                "gaussian_noise_from_bits", "jpeg_idct",
-                                                               "jpeg_huffman"]))
+                                                               "jpeg_huffman", "stamp"]))
 
 
 def _graph_test_batch(rng, B=8, src=96):
@@ -327,13 +330,9 @@ def _graph_test_batch(rng, B=8, src=96):
     }
 
 
-def test_graph_replays_equal_eager_steps(dev):
-    """`train_step_multi` (2 replays of a CUDA graph of K=2 steps) against 4
-    `train_step` calls from the same weights and generator: MobileNetV1 at
-    width 0.25, point and NLL heads, the 8-term criterion, f32, batch 8,
-    96^2 sources, image augmentation on. Every metric, parameter, buffer,
-    Adam moment and the count bit-equal; K1, K2 and K3 counted once a
-    replayed step."""
+def _graph_test_trainer(dev):
+    """MobileNetV1 at width 0.25, point and NLL heads, the 8-term criterion,
+    f32, batch 8, image augmentation on; its state from seed 0."""
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import TrainAugmentationConfig
     from neuralnet_tracker_traincode_torch.data.fields import Tag
     from neuralnet_tracker_traincode_torch.data.loader import LABEL_CATEGORIES
@@ -349,17 +348,32 @@ def test_graph_replays_equal_eager_steps(dev):
              Criterion("sz", L.PoseSizeLoss("l2"), 0.25),
              Criterion("quatreg", L.QuaternionNormalizationSoftConstraint(), 1e-6)]
     crit = MaskedMultiTaskCriterion({Tag.POSE_WITH_LANDMARKS: CriterionGroup(terms)}, [Tag.POSE_WITH_LANDMARKS])
+    model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
+                                 backbone_args={"widen_factor": 0.25})
+    cfg = TrainerConfig(batchsize=8, epochs=4, samples_per_epoch=32,
+                        aug=TrainAugmentationConfig(inputsize=129, enable_image_aug=True, p_flip_rot90=0.5))
+    tr = PoseTrainer(model, crit, cfg, LABEL_CATEGORIES, device=dev)
+    return tr, tr.init_state(torch.Generator().manual_seed(0))
+
+
+def _graph_test_blocks(dev):
+    """4 single batches of 96^2 sources on the card, and the same as 2 blocks of K = 2."""
     rng = np.random.RandomState(0)
     singles = [{k: torch.from_numpy(v).to(dev) for k, v in _graph_test_batch(rng).items()} for _ in range(4)]
-    groups = [{k: torch.stack([b[k] for b in singles[i:i + 2]]) for k in singles[0]} for i in (0, 2)]
+    return singles, [{k: torch.stack([b[k] for b in singles[i:i + 2]]) for k in singles[0]} for i in (0, 2)]
+
+
+def test_graph_replays_equal_eager_steps(dev):
+    """`train_step_multi` (2 replays of a CUDA graph of K=2 steps) against 4
+    `train_step` calls from the same weights and generator: MobileNetV1 at
+    width 0.25, point and NLL heads, the 8-term criterion, f32, batch 8,
+    96^2 sources, image augmentation on. Every metric, parameter, buffer,
+    Adam moment and the count bit-equal; K1, K2 and K3 counted once a
+    replayed step."""
+    singles, groups = _graph_test_blocks(dev)
     runs = []
     for multi in (False, True):
-        model = NetworkWithPointHead(enable_point_head=True, enable_uncertainty=True, config="mobilenetv1",
-                                     backbone_args={"widen_factor": 0.25})
-        cfg = TrainerConfig(batchsize=8, epochs=4, samples_per_epoch=32,
-                            aug=TrainAugmentationConfig(inputsize=129, enable_image_aug=True, p_flip_rot90=0.5))
-        tr = PoseTrainer(model, crit, cfg, LABEL_CATEGORIES, device=dev)
-        state = tr.init_state(torch.Generator().manual_seed(0))
+        tr, state = _graph_test_trainer(dev)
         W, gen = tr.weight_matrix(0), torch.Generator().manual_seed(3)
         ext.reset_launch_counts()
         rows = []
@@ -381,3 +395,62 @@ def test_graph_replays_equal_eager_steps(dev):
     assert int(runs[1][-1]) == 4
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_stamp_kernel_fills_and_wraps_its_ring(dev):
+    from neuralnet_tracker_traincode_torch.kernels import stamp as KS
+
+    ext.reset_launch_counts()
+    ring, cursor = KS.new_ring(3, dev)
+    for kind in (0, 5, 15, 2, 7):
+        KS.stamp(ring, cursor, kind, kind * 1000)
+    stamps, lost = KS.unroll(ring, cursor)
+    assert lost == 2 and ext.LAUNCHES["stamp"] == 5
+    np.testing.assert_array_equal(stamps[:, :2], [[15, 15000], [2, 2000], [7, 7000]])
+    assert (np.diff(stamps[:, 2]) >= 0).all() and stamps[0, 2] > 0
+    with pytest.raises(ValueError):
+        KS.stamp(ring, cursor, KS.KINDS, 0)  # past the kernels' kinds
+    assert ext.LAUNCHES["stamp"] == 5 and int(cursor[0]) == 5
+
+
+def test_stamps_leave_the_blocks_bit_equal_and_fill_the_ring(dev):
+    """2 blocks of K = 2 through the graph with the tracer on and 2 with it
+    off, from the same weights and draws: every metric, parameter, buffer,
+    Adam moment and the count bit-equal; the graph with stamps launches the
+    same kernels and 13 stamps more a replay; the ring holds each block's
+    load, 2 x (5 sections, step_end) and block_end in order, inside the
+    anchors' brackets, and the sections sum to the block."""
+    from neuralnet_tracker_traincode_torch.train import tracing as T
+
+    _, groups = _graph_test_blocks(dev)
+    runs = []
+    for on in (True, False):
+        tr, state = _graph_test_trainer(dev)
+        W, gen = tr.weight_matrix(0), torch.Generator().manual_seed(3)
+        if on:
+            tr.tracer.enable()
+        rows = []
+        for g in groups:
+            state, m = tr.train_step_multi(state, g, W, generator=gen)
+            rows.append(torch.stack([m[n] for n in m], -1))
+        torch.cuda.synchronize()
+        (graph,) = tr._graphs.values()
+        runs.append(([torch.cat(rows)] + [t.detach().clone() for t in tr._state_tensors(state)], graph.launches,
+                     tr.tracer.records()))
+    (on, launches_on, rec), (off, launches_off, rec_off) = runs
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert launches_off["stamp"] == 0 and launches_on == dict(launches_off, stamp=13)
+    assert len(rec_off.stamps) == 0 and len(rec_off.spans) == 0
+    blocks = T.split_blocks(rec.stamps)
+    assert [b.number for b in blocks] == [1, 2] and len(rec.stamps) == 28 and rec.stamps_lost == 0
+    want = ["load"] + ["augment", "forward", "loss", "backward", "optimizer", "step_end"] * 2 + ["block_end"]
+    for b in blocks:
+        assert [T.KINDS[k] for k in b.marks[:, 0]] == want
+        assert list(b.marks[1:, 1]) == [0] * 6 + [1] * 6 + [2] and (np.diff(b.marks[:, 2]) >= 0).all()
+        assert sum(T.section_ns(b).values()) == b.end - b.start
+    first, last = rec.anchors
+    slack = first.half_ns + last.half_ns
+    assert first.host_ns - slack <= T.to_host_ns(blocks[0].start, rec.anchors)
+    assert T.to_host_ns(blocks[-1].end, rec.anchors) <= last.host_ns + slack
+    s = T.summarize(rec)
+    assert s["blocks"] == 2 and s["clock"]["uncertainty_us"] < 50 and s["host_part_ms"] > 0

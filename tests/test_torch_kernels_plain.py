@@ -413,6 +413,12 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     payload = scan_batch([imencode(np.random.default_rng(0).integers(0, 256, (16, 24), dtype=np.uint8))], 24)
     K5.huffman_decode(*(torch.as_tensor(a) for a in payload.arrays[:4]), *payload.counts[:2], payload.counts[3],
                       payload.counts[2])
+    # the tracer's stamp on a CPU ring: the host's clock
+    from neuralnet_tracker_traincode_torch.kernels import stamp as KS
+
+    ring, cursor = KS.new_ring(2, "cpu")
+    KS.stamp(ring, cursor, 3, 7)
+    assert int(cursor[0]) == 1 and int(ring[0, 0]) == 3 | 7 << 8 and int(ring[0, 1]) > 0
     assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits",
-                                 "jpeg_idct", "jpeg_huffman"}
+                                 "jpeg_idct", "jpeg_huffman", "stamp"}
     assert all(v == 0 for v in ext.LAUNCHES.values())
