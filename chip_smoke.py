@@ -28,7 +28,14 @@ Phases (any failure ends the run with a non-zero exit code):
     every sample on (gate 1, sigma > 0), beside the drawn ones, which skip
     work, and K3b's registers and spills from the build's log;
     and `torch.clamp` over the same buffers, a yardstick of one launch that
-    reads and writes as many bytes;
+    reads and writes as many bytes. Then the pose heads' kernel pair
+    (`kernels/heads.py`) at the step's shape (B = 64, the flagship's ids, all
+    row 0, and at every row taken): outputs within 1e-5 and gradients within
+    5e-5 of their largest values against the plain Function on the card,
+    both bit-equal on a second run; `ms` and `ms_stream` of each (the inputs
+    stay in L2 for `ms_stream`, as they do after the head linears), beside
+    the plain version's, the bound (bytes) and the launch floor: the stamp
+    kernel's one thread, queued the same ways;
  4. the port's output against the port on the CPU on a small input (the
     augmentation and one forward of the full-width model, f32, TF32 off);
  5. the flagship training step (MobileNetV1 x1.0, point head, NLL heads, the
@@ -857,6 +864,105 @@ def kernel_phase(torch, np, dev):
     return rows
 
 
+def heads_inputs(torch, dev, n, ids, seed):
+    """The pose heads' inputs at batch n, f32 on `dev` (the step's widths:
+    4 + 2 + 1 + 4 + 50 head values, two necks of 7, 8 rows of each offset,
+    the keypoint buffers' magnitudes), the rows' ids `ids`."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(dev)
+
+    md = torch.tensor([1e-6] * 3 + [0.0] * 3, device=dev)
+    return dict(quat=r(n, 4), xy=r(n, 2), size=r(n, 1), box=r(n, 4), shape=r(n, 50), offset=r(8, 4, s=0.3),
+                offset_kpts=r(8, 4, s=0.3), keypts=r(68, 3, s=50.0), keyeigvecs=r(50, 68, 3, s=2.0),
+                set_id=ids.to(torch.int32).to(dev), neck_rot=r(n, 7), neck_coord=r(n, 7), min_diag_rot=md,
+                min_diag_coord=md.clone(), hidden_roi=r(5), hidden_pt3d=r(69), hidden_shape=r(51))
+
+
+def heads_bytes(x, out, g, d):
+    """(forward, backward): the bytes each must move once. Forward the inputs
+    and outputs; backward the inputs, the outputs' gradients, the inputs'
+    gradients and the samples' shares of the rows' gradients, written and read."""
+    def nb(ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    shares = 2 * 32 * x["quat"].shape[0]
+    return nb(x.values()) + nb(out.values()), nb(x.values()) + nb(g.values()) + nb(d.values()) + shares
+
+
+def heads_phase(torch, np, dev):
+    """Phase 3, the pose heads' kernel pair: against the plain Function, and timed."""
+    from neuralnet_tracker_traincode_torch.kernels import ext
+    from neuralnet_tracker_traincode_torch.kernels import heads as H
+    from neuralnet_tracker_traincode_torch.kernels import stamp as KS
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    err_fwd = err_bwd = 0.0
+    for what, ids in (("the flagship's ids, all row 0", torch.zeros(B)), ("every row taken", torch.arange(B) % 8)):
+        x = heads_inputs(torch, dev, B, ids, 5)
+        want = H.heads_plain(x)
+        gen = torch.Generator().manual_seed(6)
+        g = {k: torch.randn(v.shape, generator=gen).to(dev) for k, v in want.items()}
+        runs = []
+        for _ in range(2):
+            out, ticket = H.heads_forward_kernel(x)
+            runs.append((out, H.heads_backward_kernel(x, g, ticket)))
+        torch.cuda.synchronize()
+        (out, d), (out2, d2) = runs
+        check(all(torch.equal(out[k], out2[k]) for k in out) and all(torch.equal(d[k], d2[k]) for k in d),
+              f"the pose heads' kernels differ between two runs ({what})")
+        for k, v in out.items():
+            e = float((v - want[k]).abs().max()) / float(want[k].abs().max())
+            check(e <= 1e-5, f"pose heads forward ({what}): {k} off by {e:.3e} of its largest value")
+            err_fwd = max(err_fwd, e)
+        d_want = H.heads_backward_plain(x, g)
+        for k, v in d.items():
+            e = float((v - d_want[k]).abs().max()) / float(d_want[k].abs().max())
+            check(e <= 5e-5, f"pose heads backward ({what}): d {k} off by {e:.3e} of its largest value")
+            err_bwd = max(err_bwd, e)
+    print(f"pose heads: kernels within {err_fwd:.3e} (forward outputs) and {err_bwd:.3e} (gradients) of each "
+          f"tensor's largest value against the plain Function at B = {B}, row 0 and every row; bit-equal run to run")
+
+    # timing at the step's shape and ids: the slots prepared once, the extension called directly
+    x = H.checked_inputs(heads_inputs(torch, dev, B, torch.zeros(B), 5))
+    out, ticket = H.heads_forward_kernel(x)
+    g = {k: torch.randn(v.shape, device=dev) for k, v in out.items()}
+    d = H.heads_backward_kernel(x, g, ticket)
+    fwd = dict(x, **out, ticket=ticket)
+    bwd = dict(x, ticket=ticket, partial=torch.empty((B, H.PARTIAL_WIDTH), device=dev),
+               **{"g_" + k: v for k, v in g.items()}, **{"d_" + k: v for k, v in d.items()})
+    slots_f, slots_b = ([t.get(k, H.ABSENT) for k in H.SLOTS] for t in (fwd, bwd))
+    rows_ = x["offset"].shape[0]
+    launch_f = lambda: ext.extension().pose_heads(slots_f, rows_, False)  # noqa: E731
+    launch_b = lambda: ext.extension().pose_heads(slots_b, rows_, True)  # noqa: E731
+    bytes_f, bytes_b = heads_bytes(x, out, g, d)
+    blend_ops = 2 * B * 50 * 204
+    ring, cursor = KS.new_ring(1024, dev)
+    launch_floor = lambda: ext.extension().stamp(ring, cursor, 0, 0)  # noqa: E731
+    floor_ms, floor_stream = time_ms(torch, launch_floor, flush), stream_ms(torch, launch_floor, [()])
+    rows = [
+        dict(name="pose_heads_forward", source="neuralnet_tracker_traincode_torch/kernels/csrc/heads.cu",
+             replaces=None, max_abs_err=err_fwd, ms=time_ms(torch, launch_f, flush),
+             ms_stream=stream_ms(torch, launch_f, [()]), plain_ms=time_ms(torch, lambda: H.heads_plain(x), flush),
+             bound=bound_ms(bytes_f, f32_ops=blend_ops), library_ms=None),
+        dict(name="pose_heads_backward", source="neuralnet_tracker_traincode_torch/kernels/csrc/heads.cu",
+             replaces=None, max_abs_err=err_bwd, ms=time_ms(torch, launch_b, flush),
+             ms_stream=stream_ms(torch, launch_b, [()]),
+             plain_ms=time_ms(torch, lambda: H.heads_backward_plain(x, g), flush),
+             bound=bound_ms(bytes_b, f32_ops=2 * blend_ops), library_ms=None),
+    ]
+    print("pose heads ptxas (-Xptxas -v, the build's log): "
+          + (" | ".join(ext.ptxas_summary(["nntc_pose_heads_forward_kernel", "nntc_pose_heads_backward_kernel"]))
+             or "none: the build was up to date"))
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms, stream {r['ms_stream']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    print(f"  launch floor (the stamp kernel, one thread): {floor_ms:.4f} ms, stream {floor_stream:.4f} ms/launch")
+    torch.cuda.synchronize()
+    return rows
+
+
 def reference_phase(torch, np, dev):
     """Phase 4: the port on the card against the port on the CPU, small input."""
     from neuralnet_tracker_traincode_torch.augmentation.pipeline import (
@@ -930,6 +1036,9 @@ def training_phase(torch, np, dev, name):
     check(launches["warp_roi_rotate"] == steps, f"K1 launched {launches['warp_roi_rotate']} times in {steps} steps")
     check(launches["gaussian_noise"] == steps, f"K3 launched {launches['gaussian_noise']} times in {steps} steps")
     check(launches["equalize"] >= 1, "K2 never launched")
+    check(launches["pose_heads_forward"] == launches["pose_heads_backward"] == steps,
+          f"the pose heads' kernels launched {launches['pose_heads_forward']} and {launches['pose_heads_backward']} "
+          f"times in {steps} steps")
     check(state.step == steps, "the step count did not advance")
     print(f"training: {steps} steps, loss {float(losses[0]['loss']):.4f} -> {float(losses[-1]['loss']):.4f}; "
           f"launches {launches}")
@@ -2220,7 +2329,8 @@ def multistep_phase(torch, np, dev, smi, profile=False):
     warm = trainer.graph_stats["warmup_steps"]
     steps = 2 * MS_K + warm
     check(launches["warp_roi_rotate"] == steps and launches["gaussian_noise"] == steps
-          and launches["equalize"] == 4 * steps and launches["gaussian_noise_from_bits"] == 0,
+          and launches["equalize"] == 4 * steps and launches["gaussian_noise_from_bits"] == 0
+          and launches["pose_heads_forward"] == launches["pose_heads_backward"] == steps,
           f"graph run launches {launches} in {2 * MS_K} replayed steps and {warm} warm-up steps")
     print(f"multistep (a) flagship, batch {B}, K={MS_K}: 2 replays against 16 eager steps from one state: "
           + ("eager bit-equal run to run; " if floor == 0 else f"eager run to run differs by up to {floor:.3e}; ")
@@ -3195,8 +3305,7 @@ def viewer_phase(torch, np, dev, frames):
         samples = list(iterate_samples([batch], cfg, torch.Generator().manual_seed(17), dev))
         torch.cuda.synchronize()
         launches = dict(ext.LAUNCHES)
-    check(launches == {"warp_roi_rotate": 1, "equalize": 4, "gaussian_noise": 1, "gaussian_noise_from_bits": 0,
-                       "jpeg_idct": 0, "jpeg_huffman": 0, "stamp": 0},
+    check(launches == dict(dict.fromkeys(ext.LAUNCHES, 0), warp_roi_rotate=1, equalize=4, gaussian_noise=1),
           f"show_train_test_splits: launches {launches}")
     errs = k2_k3_against_plain(torch, K2, K3, equalized, noised, "show_train_test_splits")
     errs["warp_roi_rotate"] = k1_against_plain(K1, crops, "show_train_test_splits")
@@ -3682,13 +3791,14 @@ class _Tee:
 
 def profile_phase(torch, np, dev, smi):
     """Phase 19: `scripts/profile_step.py`'s sections on the card at its
-    defaults, the launch counts of K1-K3 reset before and read after each."""
+    defaults, the launch counts of K1-K3 and of the pose heads' pair reset
+    before and read after each."""
     from neuralnet_tracker_traincode_torch.kernels import ext
     from neuralnet_tracker_traincode_torch.scripts import profile_step as P
 
     check("PROF_LAYOUT_SHAPES" not in os.environ, "phase 19 runs the whole layout sweep: unset PROF_LAYOUT_SHAPES")
     t_phase = time.perf_counter()
-    kernels = ("warp_roi_rotate", "equalize", "gaussian_noise")
+    kernels = ("warp_roi_rotate", "equalize", "gaussian_noise", "pose_heads_forward", "pose_heads_backward")
     results, launches, seconds = {}, {}, {}
     for name in P.SECTIONS:
         torch.cuda.synchronize()
@@ -3830,7 +3940,7 @@ def main() -> int:
     print("K5 ptxas (-Xptxas -v, the build's log): " + (" | ".join(ext.ptxas_summary(K5_KERNELS))
                                                          or "none: the build was up to date")
           + f"; CTAs of K5's decode (128 threads) an SM at most: {ext.extension().jpeg_huffman_ctas_per_sm()}")
-    rows = kernel_phase(torch, np, dev)
+    rows = kernel_phase(torch, np, dev) + heads_phase(torch, np, dev)
     reference_phase(torch, np, dev)
     launches, step = training_phase(torch, np, dev, f"{name} ({smi})")
     profile = "--profile" in sys.argv

@@ -141,6 +141,26 @@ void stamp(torch::Tensor ring, torch::Tensor cursor, int64_t kind, int64_t arg) 
     C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void pose_heads(std::vector<torch::Tensor> slots, int64_t rows, bool backward) {
+    TORCH_CHECK(slots.size() == nntc_heads::count, "the pose heads take ", (int)nntc_heads::count, " slots");
+    void* ptr[nntc_heads::count];
+    for (int i = 0; i < nntc_heads::count; ++i) {
+        const torch::Tensor& t = slots[i];
+        ptr[i] = nullptr;
+        if (t.numel() == 0) continue;  // absent
+        check(t, i == nntc_heads::set_id || i == nntc_heads::ticket ? torch::kInt32 : torch::kFloat32, "a slot");
+        ptr[i] = t.data_ptr();
+    }
+    const torch::Tensor& quat = slots[nntc_heads::quat];
+    TORCH_CHECK(quat.dim() == 2 && quat.size(1) == 4, "quat must be (B, 4)");
+    const c10::cuda::CUDAGuard guard(quat.device());
+    const int B = (int)quat.size(0);
+    const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+    C10_CUDA_CHECK(backward ? nntc_pose_heads_backward(ptr, B, (int)rows, stream)
+                            : nntc_pose_heads_forward(ptr, B, (int)rows, stream));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 int64_t jpeg_huffman_ctas_per_sm() {
     const int n = nntc_jpeg_huffman_ctas_per_sm();
     TORCH_CHECK(n > 0, "K5's occupancy query failed");
@@ -157,5 +177,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("jpeg_idct_pack", &jpeg_idct_pack, "K4: JPEG dequantize, ISLOW IDCT, range limit, zero-padded batch");
     m.def("jpeg_huffman_decode", &jpeg_huffman_decode, "K5: JPEG Huffman decode of the Y scans into K4's slots");
     m.def("stamp", &stamp, "the tracer's stamp: (kind | arg << 8, %globaltimer) into the next slot of a ring");
+    m.def("pose_heads", &pose_heads,
+          "the pose heads after their linears: forward or backward, one launch, tensors by slot (kernels/heads.py)");
     m.def("jpeg_huffman_ctas_per_sm", &jpeg_huffman_ctas_per_sm, "K5: its decode CTAs an SM at most");
 }

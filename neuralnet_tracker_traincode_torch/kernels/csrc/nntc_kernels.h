@@ -1,4 +1,4 @@
-// Launchers of the port's kernels (the augmentation's, the JPEG decode's and the tracer's stamp). Plain C++ interface: the .cu
+// Launchers of the port's kernels (the augmentation's, the JPEG decode's, the tracer's stamp and the pose heads'). Plain C++ interface: the .cu
 // files do not include PyTorch's headers (that keeps nvcc fast); only
 // bindings.cpp does. Each launcher enqueues on `stream`, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
@@ -79,3 +79,27 @@ int nntc_jpeg_huffman_ctas_per_sm();
 #define NNTC_STAMP_KINDS 16
 cudaError_t nntc_stamp(long long* ring, long long* cursor, long long capacity, int kind, long long arg,
                        cudaStream_t stream);
+
+// The pose heads after their linear layers, one launch forward and one
+// backward (kernels/heads.py says what each tensor holds). `slots` holds a
+// pointer a slot, in kernels/heads.py:SLOTS's order (this enum): inputs, the
+// forward's outputs, the outputs' gradients, the inputs' gradients, the
+// samples' shares of the offsets' gradients (B, 8) f32 and the ticket (1,)
+// int32; null where absent: the scales' slots without uncertainty, set_id
+// without ids (row 0), an output's gradient that is zero. B samples, `rows`
+// rows of each offset's parameters. The forward zeroes the ticket, which the
+// backward's last CTA takes and zeroes again. Returns cudaErrorInvalidValue
+// for B or rows below 1 or a slot missing that the launch needs.
+namespace nntc_heads {
+enum Slot : int {
+    quat, xy, size, box, shape, neck_rot, neck_coord, offset, offset_kpts, set_id, keypts, keyeigvecs,
+    min_diag_rot, min_diag_coord, hidden_roi, hidden_pt3d, hidden_shape, rot, unnormalized_quat, coord, roi,
+    pt3d_68, pose_scales_tril, coord_scales, roi_scales, pt3d_68_scales, shapeparam_scales, g_rot,
+    g_unnormalized_quat, g_coord, g_roi, g_pt3d_68, g_pose_scales_tril, g_coord_scales, g_roi_scales,
+    g_pt3d_68_scales, g_shapeparam_scales, d_quat, d_xy, d_size, d_box, d_shape, d_neck_rot, d_neck_coord,
+    d_offset, d_offset_kpts, d_hidden_roi, d_hidden_pt3d, d_hidden_shape, partial, ticket, count
+};
+}  // namespace nntc_heads
+
+cudaError_t nntc_pose_heads_forward(void* const* slots, int B, int rows, cudaStream_t stream);
+cudaError_t nntc_pose_heads_backward(void* const* slots, int B, int rows, cudaStream_t stream);

@@ -23,7 +23,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, ".cache", "torch_kernels")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
-SOURCES = ("bindings.cpp", "warp.cu", "equalize.cu", "noise.cu", "jpeg_idct.cu", "jpeg_huffman.cu", "stamp.cu")
+SOURCES = ("bindings.cpp", "warp.cu", "equalize.cu", "noise.cu", "jpeg_idct.cu", "jpeg_huffman.cu", "stamp.cu",
+           "heads.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {
@@ -34,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "jpeg_idct": 0,
     "jpeg_huffman": 0,
     "stamp": 0,
+    "pose_heads_forward": 0,
+    "pose_heads_backward": 0,
 }
 
 _ext = None

@@ -1,6 +1,6 @@
-"""Model components: 2.5D rigid transform, deformable keypoints, the
-soft-argmax of the localizer, Pascal kernel, and the diagonal gaussian
-mixture of the shape prior.
+"""Model components: 2.5D rigid transform, deformable keypoints, the pose
+heads' box and local pose offset, the soft-argmax of the localizer, Pascal
+kernel, and the diagonal gaussian mixture of the shape prior.
 
 Counterpart of the JAX package's `models/components.py`.
 """
@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from neuralnet_tracker_traincode_torch.facemodel.bfm import BFMModel
-from neuralnet_tracker_traincode_torch.ops.mathfn import full_f32_matmul, matmul_hp
+from neuralnet_tracker_traincode_torch.ops.mathfn import full_f32_matmul, matmul_hp, smoothclip0
 from neuralnet_tracker_traincode_torch.ops.rotrepr import RotationRepr
 
 
@@ -25,6 +25,31 @@ def rigid_transformation_25d(r: RotationRepr, t: torch.Tensor, s: torch.Tensor, 
     tmp = tmp * s[..., None, :]
     xy = tmp[..., :2] + t[..., None, :]
     return torch.cat([xy, tmp[..., 2:]], dim=-1)
+
+
+def box_from_features(z: torch.Tensor) -> torch.Tensor:
+    """The box head's (..., 4) features -> (x0, y0, x1, y1): centre z[:2],
+    half sizes smoothclip0(z[2:])."""
+    boxsize = smoothclip0(z[..., 2:])
+    boxcenter = z[..., :2]
+    return torch.cat([boxcenter - boxsize, boxcenter + boxsize], dim=-1)
+
+
+def offset_pose(quats: RotationRepr, coords: torch.Tensor, psel: torch.Tensor):
+    """A learned local -> global pose offset applied to (rotation, coords
+    (..., 3) of x, y, size); psel (..., 4) is the offset's parameter row.
+    As in the reference, psel[..., 1] is both the x-rotation angle and part
+    of the translation (psel[..., 1:3]); psel[..., 3] is the scale before
+    smoothclip0. Returns the rotation times the offset's, and the position
+    moved by the rotated translation times the new size."""
+    offset_quat = type(quats).make_rotate_x(psel[..., 1])
+    offset_transl = torch.cat([torch.zeros_like(psel[..., :1]), psel[..., 1:3]], dim=-1)
+    offset_scale = smoothclip0(psel[..., 3])
+    scale = coords[..., 2:] * offset_scale[..., None]
+    pred_quat = quats.mult(offset_quat)
+    pos_corr = quats.rotate_points(offset_transl[..., None, :])[..., 0, :]
+    screen_pos = pos_corr[..., :2] * scale + coords[..., :2]
+    return pred_quat, torch.cat([screen_pos, scale], dim=-1)
 
 
 class DeformableHeadKeypoints(nn.Module):

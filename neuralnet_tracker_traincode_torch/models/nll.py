@@ -28,9 +28,13 @@ class Neck(nn.Module):
         super().__init__()
         self.lin = nn.Linear(in_features, num_out_features + 1)
 
-    def forward(self, x: torch.Tensor):
+    def linear(self, x: torch.Tensor) -> torch.Tensor:
+        """The linear's f32 output: the multiplier's value first, then the rest."""
         with torch.autocast(x.device.type, enabled=False):
-            y = F.linear(x.float(), self.lin.weight, self.lin.bias)
+            return F.linear(x.float(), self.lin.weight, self.lin.bias)
+
+    def forward(self, x: torch.Tensor):
+        y = self.linear(x)
         return y[..., 1:], make_positive(y[..., :1])
 
 
@@ -57,8 +61,13 @@ class DiagonalScaleParameter(nn.Module):
         self.eps = eps
 
     def forward(self):
-        h = self.hidden_scale
-        return make_positive(h[:1]) * make_positive(h[1:]) + self.eps
+        return diagonal_scale(self.hidden_scale, self.eps)
+
+
+def diagonal_scale(h: torch.Tensor, eps: float) -> torch.Tensor:
+    """`DiagonalScaleParameter`'s scales from its hidden values (n + 1,):
+    the first one's positive multiplier times each other's, + eps."""
+    return make_positive(h[:1]) * make_positive(h[1:]) + eps
 
 
 def fill_triangular_matrix(dim: int, z: torch.Tensor) -> torch.Tensor:
@@ -92,10 +101,16 @@ class FeaturesAsTriangularScale(nn.Module):
         self.register_buffer("min_diag", min_diag)
 
     def forward(self, x):
-        x, multiplier = self.neck(x)
-        z = torch.cat([make_positive(x[..., : self.dim]), x[..., self.dim :]], dim=-1)
-        z = multiplier * z + self.min_diag
-        return fill_triangular_matrix(self.dim, z)
+        return triangular_scale(self.dim, self.neck.linear(x), self.min_diag)
+
+
+def triangular_scale(dim: int, y: torch.Tensor, min_diag: torch.Tensor) -> torch.Tensor:
+    """`FeaturesAsTriangularScale` from its neck's linear output y (..., 1 + n):
+    the diagonal made positive, all times the positive multiplier, + min_diag."""
+    x, multiplier = y[..., 1:], make_positive(y[..., :1])
+    z = torch.cat([make_positive(x[..., :dim]), x[..., dim:]], dim=-1)
+    z = multiplier * z + min_diag
+    return fill_triangular_matrix(dim, z)
 
 
 SCALE_MODULES = (Neck, DiagonalScaleParameter, FeaturesAsTriangularScale)  # FeaturesAsDiagonalScale: its Neck

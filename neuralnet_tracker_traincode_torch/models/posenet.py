@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from neuralnet_tracker_traincode_torch.kernels.heads import pose_heads
 from neuralnet_tracker_traincode_torch.models import nll as NLL
 from neuralnet_tracker_traincode_torch.models.backbones.common import device_generator, lecun_normal_
 from neuralnet_tracker_traincode_torch.models.backbones.efficientnet import EfficientNetBackbone
@@ -33,6 +34,8 @@ from neuralnet_tracker_traincode_torch.models.backbones.mobilenet_v1 import Mobi
 from neuralnet_tracker_traincode_torch.models.backbones.resnet import resnet18
 from neuralnet_tracker_traincode_torch.models.components import (
     DeformableHeadKeypoints,
+    box_from_features,
+    offset_pose,
     rigid_transformation_25d,
 )
 from neuralnet_tracker_traincode_torch.ops import quaternion as Q
@@ -93,9 +96,7 @@ class BoundingBox(nn.Module):
 
     def forward(self, x) -> Dict[str, Any]:
         z = self.linear(x).float()
-        boxsize = smoothclip0(z[..., 2:])
-        boxcenter = z[..., :2]
-        out = {"roi": torch.cat([boxcenter - boxsize, boxcenter + boxsize], dim=-1)}
+        out = {"roi": box_from_features(z)}
         if self.enable_uncertainty:
             out["roi_scales"] = self.scales()[None, :].expand(z.shape)
         return out
@@ -149,26 +150,15 @@ class Landmarks3dOutput(nn.Module):
 
 
 class LocalToGlobalCoordinateOffset(nn.Module):
-    """Learned per-dataset local->global pose offset (8 convention slots).
-
-    As in the reference, p[..., 1] is both the x-rotation angle and part of
-    the translation (p[..., 1:3]); p[..., 3] is the positive scale.
-    """
+    """Learned per-dataset local->global pose offset (8 convention slots):
+    row `set_id` of p (row 0 without ids) through `components.offset_pose`."""
 
     def __init__(self, num_parameter_sets: int = 1):
         super().__init__()
         self.p = nn.Parameter(torch.zeros(num_parameter_sets, 4))
 
     def forward(self, quats: RotationRepr, coords, set_id):
-        psel = self.p[0:1] if set_id is None else self.p[set_id.long()]
-        offset_quat = type(quats).make_rotate_x(psel[..., 1])
-        offset_transl = torch.cat([torch.zeros_like(psel[..., :1]), psel[..., 1:3]], dim=-1)
-        offset_scale = smoothclip0(psel[..., 3])
-        scale = coords[..., 2:] * offset_scale[..., None]
-        pred_quat = quats.mult(offset_quat)
-        pos_corr = quats.rotate_points(offset_transl[..., None, :])[..., 0, :]
-        screen_pos = pos_corr[..., :2] * scale + coords[..., :2]
-        return pred_quat, torch.cat([screen_pos, scale], dim=-1)
+        return offset_pose(quats, coords, self.p[0:1] if set_id is None else self.p[set_id.long()])
 
 
 def create_pose_estimator_backbone(num_heads: int, config: str, args: Optional[Dict[str, Any]],
@@ -195,6 +185,9 @@ class NetworkWithPointHead(nn.Module):
     per head for hybrid_vit) -> heads."""
 
     NUM_DATASET_CONSTANTS = 8
+    # the heads' outputs in the order `_heads_per_op` gives them
+    HEAD_OUTPUTS = ("roi", "roi_scales", "coord", "coord_scales", "unnormalized_quat", "rot", "pose_scales_tril",
+                    "pt3d_68", "shapeparam", "pt3d_68_scales", "shapeparam_scales")
 
     def __init__(
         self,
@@ -280,6 +273,58 @@ class NetworkWithPointHead(nn.Module):
         # no cast cache in training: a CUDA graph capture of the step refuses it; the values are the same
         return torch.autocast(device_type, dtype=self.dtype, cache_enabled=not self.training)
 
+    @property
+    def fused_heads(self) -> bool:
+        """Whether the heads after their linear layers run as one
+        `kernels.heads.pose_heads` call (one kernel forward, one backward on
+        the card): with the quaternion head, the point head and the local pose
+        offsets. The 6D head and the head sets without points or offsets go
+        op by op (`_heads_per_op`)."""
+        return not self.enable_6drot and self.enable_point_head and self.use_local_pose_offset
+
+    def _heads_per_op(self, zs, set_id) -> Dict[str, Any]:
+        """The heads module by module on the features `zs` (popped box, position, rotation, points)."""
+        out: Dict[str, Any] = self.boxnet(zs.pop())
+        out.update(self.posnet(zs.pop()))
+        out.update(self.quatnet(zs.pop()))
+        rots, coords = out["rot"], out["coord"]
+        if self.use_local_pose_offset:
+            out["rot"], out["coord"] = self.local_pose_offset(rots, coords, set_id)
+            if self.enable_point_head:
+                rots_k, coords_k = self.local_pose_offset_kpts(rots, coords, set_id)
+                out.update(self.landmarks(zs.pop(), rots_k, coords_k))
+        elif self.enable_point_head:
+            out.update(self.landmarks(zs.pop(), rots, coords))
+        return out
+
+    def _heads_fused(self, zs, set_id) -> Dict[str, Any]:
+        """What `_heads_per_op` gives, the same dict in the same order, from
+        the head linears and one `pose_heads` call."""
+        zb, zp, zq, zl = zs.pop(), zs.pop(), zs.pop(), zs.pop()
+        inputs = dict(
+            box=self.boxnet.linear(zb).float(), xy=self.posnet.linear_xy(zp).float(),
+            size=self.posnet.linear_size(zp).float(), quat=self.quatnet.linear(zq).float(),
+            shape=self.landmarks.shapenet(zl).float(), offset=self.local_pose_offset.p,
+            offset_kpts=self.local_pose_offset_kpts.p, set_id=set_id,
+            keypts=self.landmarks.deformablekeypoints.keypts,
+            keyeigvecs=self.landmarks.deformablekeypoints.keyeigvecs,
+        )
+        if self.enable_uncertainty:
+            inputs.update(
+                neck_rot=self.quatnet.uncertainty_net.neck.linear(zq), min_diag_rot=self.quatnet.uncertainty_net.min_diag,
+                neck_coord=self.posnet.scales.neck.linear(zp), min_diag_coord=self.posnet.scales.min_diag,
+                hidden_roi=self.boxnet.scales.hidden_scale,
+                hidden_pt3d=self.landmarks.point_distrib_scales.hidden_scale,
+                hidden_shape=self.landmarks.shape_distrib_scales.hidden_scale,
+            )
+        h = pose_heads(**inputs)
+        h.update(rot=QuatRepr(h["rot"]), shapeparam=inputs["shape"])
+        if self.enable_uncertainty:  # the diagonal scales over the batch, as the modules give them
+            h["roi_scales"] = h["roi_scales"][None, :].expand(h["roi"].shape)
+            h["pt3d_68_scales"] = h["pt3d_68_scales"][None, :, None].expand(h["pt3d_68"].shape)
+            h["shapeparam_scales"] = h["shapeparam_scales"][None, :].expand(inputs["shape"].shape)
+        return {k: h[k] for k in self.HEAD_OUTPUTS if h.get(k) is not None}
+
     def forward(self, x: torch.Tensor, coord_convention_id=None, generator: Optional[torch.Generator] = None,
                 mask_generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """x: (B, H, W, C) whitened crops. Train/eval follows `self.training`;
@@ -298,17 +343,10 @@ class NetworkWithPointHead(nn.Module):
                 zs = [features[:, i, :] for i in range(self.num_heads)]
             else:
                 zs = [features] * self.num_heads
-            out: Dict[str, Any] = self.boxnet(zs.pop())
-            out.update(self.posnet(zs.pop()))
-            out.update(self.quatnet(zs.pop()))
-            rots, coords = out["rot"], out["coord"]
-            if self.use_local_pose_offset:
-                out["rot"], out["coord"] = self.local_pose_offset(rots, coords, coord_convention_id)
-                if self.enable_point_head:
-                    rots_k, coords_k = self.local_pose_offset_kpts(rots, coords, coord_convention_id)
-                    out.update(self.landmarks(zs.pop(), rots_k, coords_k))
-            elif self.enable_point_head:
-                out.update(self.landmarks(zs.pop(), rots, coords))
+            if self.fused_heads:
+                out = self._heads_fused(zs, coord_convention_id)
+            else:
+                out = self._heads_per_op(zs, coord_convention_id)
             if self.enable_face_detector:
                 logits = self.face_detector(zs.pop()).float()[..., 0]
                 out["hasface_logits"] = logits

@@ -18,8 +18,17 @@ sigma 0 samples bit-equal to clip(x) whatever their bits.
 The training step's CUDA graph (`PoseTrainer.train_step_multi`) at a small
 width: its replays bit-equal to the eager steps, and to the replays of the
 graph captured with the tracer's stamps (`train/tracing.py`), whose ring
-holds each block's stamps in order. The stamp kernel fills and wraps its
-ring.
+holds each block's stamps in order; the pose heads' kernels launched once
+a step each. The stamp kernel fills and wraps its ring.
+The pose heads' kernels (`kernels/heads.py`) against the plain Function on
+the card at B in {1, 7, 64, 512}, forward and every gradient, with and
+without the scales and with gradients left out: each output within 1e-5 of
+its largest value, each gradient within 5e-5. Not bit-equal, because the
+kernels contract products and sums into FMAs, sum the blend's 50 products in
+another order than cuBLAS, and sum the keypoints' shares over 68 points and
+the rows' over up to 512 samples in a tree where the plain version sums
+elementwise kernels in sample order. Two runs bit-equal; a CUDA graph of
+forward and backward bit-equal to eager; one launch each a call.
 """
 
 import math
@@ -31,6 +40,7 @@ import torch
 from neuralnet_tracker_traincode_torch.augmentation.warp_fast import fold_fliprot
 from neuralnet_tracker_traincode_torch.kernels import equalize as K2
 from neuralnet_tracker_traincode_torch.kernels import ext
+from neuralnet_tracker_traincode_torch.kernels import heads as H
 from neuralnet_tracker_traincode_torch.kernels import noise as K3
 from neuralnet_tracker_traincode_torch.kernels import warp as K1
 
@@ -306,7 +316,8 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     assert ext.LAUNCHES["gaussian_noise_from_bits"] == 1
     np.testing.assert_array_equal(sorted(ext.LAUNCHES), sorted(["warp_roi_rotate", "equalize", "gaussian_noise",
                                                                "gaussian_noise_from_bits", "jpeg_idct",
-                                                               "jpeg_huffman", "stamp"]))
+                                                               "jpeg_huffman", "stamp", "pose_heads_forward",
+                                                               "pose_heads_backward"]))
 
 
 def _graph_test_batch(rng, B=8, src=96):
@@ -383,13 +394,14 @@ def test_graph_replays_equal_eager_steps(dev):
                 rows.append(torch.stack([m[n] for n in m], -1))
             warm = tr.graph_stats["warmup_steps"]
             assert tr.graph_stats["captures"] == 1 and warm == 3
-            for name in ("warp_roi_rotate", "gaussian_noise"):
+            for name in ("warp_roi_rotate", "gaussian_noise", "pose_heads_forward", "pose_heads_backward"):
                 assert ext.LAUNCHES[name] == 4 + warm
             assert ext.LAUNCHES["equalize"] == 4 * (4 + warm)
         else:
             for b in singles:
                 state, m = tr.train_step(state, b, W, generator=gen)
                 rows.append(torch.stack([m[n] for n in m])[None])
+            assert ext.LAUNCHES["pose_heads_forward"] == ext.LAUNCHES["pose_heads_backward"] == 4
         torch.cuda.synchronize()
         runs.append([torch.cat(rows)] + [t.detach().clone() for t in tr._state_tensors(state)])
     assert int(runs[1][-1]) == 4
@@ -454,3 +466,87 @@ def test_stamps_leave_the_blocks_bit_equal_and_fill_the_ring(dev):
     assert T.to_host_ns(blocks[-1].end, rec.anchors) <= last.host_ns + slack
     s = T.summarize(rec)
     assert s["blocks"] == 2 and s["clock"]["uncertainty_us"] < 50 and s["host_part_ms"] > 0
+
+
+def _heads_inputs(dev, B, ids, scales=True, seed=0):
+    """The pose heads' inputs on `dev`, f32, from a seed; every row's id
+    ("all8"), three rows' ("repeated") or none."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(dev)
+
+    x = dict(quat=r(B, 4), xy=r(B, 2), size=r(B, 1), box=r(B, 4), shape=r(B, 50), offset=r(8, 4, s=0.3),
+             offset_kpts=r(8, 4, s=0.3), keypts=r(68, 3, s=50.0), keyeigvecs=r(50, 68, 3, s=2.0), set_id=None)
+    if ids != "none":
+        id_ = torch.arange(B) % 8 if ids == "all8" else torch.randint(0, 3, (B,), generator=g)
+        x["set_id"] = id_.to(torch.int32).to(dev)
+    if scales:
+        md = torch.tensor([1e-6] * 3 + [0.0] * 3, device=dev)
+        x.update(neck_rot=r(B, 7), neck_coord=r(B, 7), min_diag_rot=md, min_diag_coord=md.clone(),
+                 hidden_roi=r(5), hidden_pt3d=r(69), hidden_shape=r(51))
+    return x
+
+
+def _heads_through_the_function(x, g):
+    """(outputs, gradients of the differentiable inputs) through `pose_heads` and autograd."""
+    names = [k for k in H.REACHES if x.get(k) is not None]
+    leaves = {k: x[k].clone().requires_grad_() for k in names}
+    out = H.pose_heads(**dict(x, **leaves))
+    used = [k for k in g if g[k] is not None]
+    grads = torch.autograd.grad([out[k] for k in used], [leaves[k] for k in names], [g[k] for k in used],
+                                allow_unused=True)
+    return {k: v.detach() for k, v in out.items() if v is not None}, dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("B,ids,scales,dropped", [
+    (1, "none", True, ()), (7, "repeated", True, ()), (64, "all8", True, ()), (512, "all8", True, ()),
+    (512, "repeated", True, ()), (64, "repeated", False, ()),
+    (64, "all8", True, ("rot", "roi", "pose_scales_tril", "roi_scales")), (64, "none", True, ("pt3d_68",)),
+])
+def test_pose_heads_kernels_match_plain(dev, B, ids, scales, dropped):
+    x = _heads_inputs(dev, B, ids, scales, seed=B)
+    want = H.heads_plain(x)
+    gen = torch.Generator().manual_seed(1)
+    g = {k: None if k in dropped else torch.randn(v.shape, generator=gen).to(dev) for k, v in want.items()
+         if v is not None}
+    ext.reset_launch_counts()
+    out, d = _heads_through_the_function(x, g)
+    assert ext.LAUNCHES["pose_heads_forward"] == ext.LAUNCHES["pose_heads_backward"] == 1
+    assert set(out) == {k for k, v in want.items() if v is not None}
+    for k, v in out.items():
+        err = float((v - want[k]).abs().max())
+        assert torch.isfinite(v).all() and err <= 1e-5 * float(want[k].abs().max()), (k, err)
+    d_want = H.heads_backward_plain(x, g)
+    for k, v in d.items():
+        if not any(g.get(o) is not None for o in H.REACHES[k]):
+            assert v is None, k
+            continue
+        err = float((v - d_want[k]).abs().max())
+        assert torch.isfinite(v).all() and err <= 5e-5 * float(d_want[k].abs().max()), (k, err)
+
+
+def test_pose_heads_kernels_are_deterministic_and_capture_in_a_graph(dev):
+    x = _heads_inputs(dev, 64, "repeated")
+    gen = torch.Generator().manual_seed(2)
+    g = {k: torch.randn(v.shape, generator=gen).to(dev) for k, v in H.heads_plain(x).items()}
+    first, second = _heads_through_the_function(x, g), _heads_through_the_function(x, g)
+    for a, b in zip(first, second):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream, as the trainer's capture does
+        _heads_through_the_function(x, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    ext.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        captured = _heads_through_the_function(x, g)
+    assert ext.LAUNCHES["pose_heads_forward"] == ext.LAUNCHES["pose_heads_backward"] == 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(first, captured):
+            for k in a:
+                assert torch.equal(a[k], b[k]), k

@@ -419,6 +419,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ring, cursor = KS.new_ring(2, "cpu")
     KS.stamp(ring, cursor, 3, 7)
     assert int(cursor[0]) == 1 and int(ring[0, 0]) == 3 | 7 << 8 and int(ring[0, 1]) > 0
+    # the pose heads' Function, forward and backward
+    from neuralnet_tracker_traincode_torch.kernels import heads as H
+
+    g = torch.Generator().manual_seed(0)
+    inputs = {k: torch.randn(s, generator=g) for k, s in H.input_shapes(2, 8).items() if k != "set_id"}
+    inputs["quat"].requires_grad_()
+    sum(v.sum() for v in H.pose_heads(**inputs).values()).backward()
+    assert inputs["quat"].grad.shape == (2, 4)
     assert set(ext.LAUNCHES) == {"warp_roi_rotate", "equalize", "gaussian_noise", "gaussian_noise_from_bits",
-                                 "jpeg_idct", "jpeg_huffman", "stamp"}
+                                 "jpeg_idct", "jpeg_huffman", "stamp", "pose_heads_forward", "pose_heads_backward"}
     assert all(v == 0 for v in ext.LAUNCHES.values())
